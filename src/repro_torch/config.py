@@ -1,0 +1,88 @@
+"""Frozen-dataclass configuration for the port's slice, and the arch registry.
+
+A trimmed copy of ``repro/config.py``: only the fields the ResNet training
+slice reads, with the reference's names and defaults (``LoaderConfig`` drops
+``pin_device`` and ``device_prefetch``, which the reference declares but
+never reads; the ring's depth is ``Trainer(device_prefetch=...)``).
+``replace()`` (from dataclasses) derives variants.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace  # noqa: F401  (replace re-exported)
+from typing import Callable, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "resnet"
+    resnet_blocks: Tuple[int, ...] = ()
+    resnet_width: int = 64
+    num_classes: int = 1000
+    image_size: int = 224
+
+
+@dataclass(frozen=True)
+class StoreConfig:
+    kind: str = "s3sim"  # memory | s3sim
+    # SimulatedS3 latency model (lognormal)
+    latency_mean_s: float = 0.08
+    latency_sigma: float = 0.5
+    bandwidth_per_conn: float = 25e6  # bytes/s per connection
+    nic_bandwidth: float = 1.2e9  # bytes/s aggregate
+    max_connections: int = 256
+    failure_rate: float = 0.0
+    # congestion-collapse exponent when the NIC is oversubscribed (0 = off)
+    overload_penalty: float = 0.0
+
+
+@dataclass(frozen=True)
+class LoaderConfig:
+    impl: str = "threaded"  # vanilla | threaded | asyncio
+    batch_size: int = 256
+    num_workers: int = 4
+    prefetch_factor: int = 4
+    num_fetch_workers: int = 16
+    batch_pool: int = 0  # >0 enables batch disassembly (threaded impl only)
+    lazy_init: bool = True
+    drop_last: bool = True
+    shuffle: bool = True
+    seed: int = 0
+    # straggler mitigation: hedge a fetch when it exceeds p95 * hedge_factor
+    hedge_requests: bool = False
+    hedge_factor: float = 3.0
+    hedge_min_s: float = 0.05
+    timeout_s: float = 120.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"  # adamw | sgd
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    schedule: str = "cosine"  # cosine | constant | linear
+    total_steps: int = 1000
+
+
+ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register_arch(name: str, full: Callable[[], ModelConfig],
+                  smoke: Callable[[], ModelConfig]) -> None:
+    ARCH_REGISTRY[name] = full
+    SMOKE_REGISTRY[name] = smoke
+
+
+def get_arch(name: str, smoke: bool = False) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  triggers registration
+
+    reg = SMOKE_REGISTRY if smoke else ARCH_REGISTRY
+    if name not in reg:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(reg)}")
+    return reg[name]()

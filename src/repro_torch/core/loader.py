@@ -1,0 +1,261 @@
+"""ConcurrentDataLoader — drop-in loader with the paper's modifications.
+
+Three implementations selected by ``LoaderConfig.impl``:
+
+* ``vanilla``  — batch-level parallelism only (stock PyTorch semantics:
+  ``num_workers`` workers, items of a batch fetched sequentially, blocking
+  worker start-up in the constructor).
+* ``threaded`` — + within-batch parallelism via a per-worker thread pool
+  (``num_fetch_workers``), optional batch disassembly (``batch_pool``),
+  optional hedged requests.
+* ``asyncio``  — + within-batch concurrency via a per-worker event loop.
+
+Lazy, non-blocking initialization (paper Fig. 8) is controlled by
+``lazy_init``: workers are started on the first ``__next__``, with index
+dispatch beginning as soon as each worker exists.
+
+Delivery is *in batch order* (a reorder buffer holds early arrivals), so all
+implementations yield bit-identical streams for a fixed seed.  This is the
+reference's legacy iterator; the staged pipeline, autotune, elastic mode and
+sharded delivery come in later slices of the port.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+from repro_torch.config import LoaderConfig
+from repro_torch.core.fetcher import HedgeTracker, make_fetcher
+from repro_torch.core.sampler import BatchIndices, ShardedBatchSampler
+from repro_torch.core.tracing import GET_BATCH, NULL_TRACER, Tracer
+from repro_torch.core.worker import Worker, WorkerFailure, _SENTINEL
+from repro_torch.data.dataset import MapDataset, collate
+
+
+class LoaderTimeout(RuntimeError):
+    pass
+
+
+class ConcurrentDataLoader:
+    def __init__(
+        self,
+        dataset: MapDataset,
+        cfg: LoaderConfig,
+        *,
+        host_id: int = 0,
+        num_hosts: int = 1,
+        collate_fn: Callable = collate,
+        tracer: Tracer = NULL_TRACER,
+        worker_startup_cost_s: float = 0.0,
+    ) -> None:
+        if cfg.impl not in ("vanilla", "threaded", "asyncio"):
+            raise ValueError(f"unknown loader impl {cfg.impl!r}")
+        self.dataset = dataset
+        self.cfg = cfg
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.collate_fn = collate_fn
+        self.tracer = tracer
+        self.worker_startup_cost_s = worker_startup_cost_s
+        self.sampler = ShardedBatchSampler(
+            len(dataset),
+            cfg.batch_size,
+            shuffle=cfg.shuffle,
+            seed=cfg.seed,
+            drop_last=cfg.drop_last,
+            host_id=host_id,
+            num_hosts=num_hosts,
+        )
+        self.hedge = (
+            HedgeTracker(cfg.hedge_factor, cfg.hedge_min_s)
+            if cfg.hedge_requests and cfg.impl == "threaded"
+            else None
+        )
+        self._epoch = 0
+        self._consumed = 0  # batches actually yielded to the caller this epoch
+
+    # -- epoch / resume ------------------------------------------------------
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+        self._consumed = 0
+        self.sampler.set_epoch(epoch)
+        self.dataset.set_epoch(epoch)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Consumer position: (epoch, batches yielded).  Prefetched-but-
+        unconsumed batches are NOT counted — a restart replays them."""
+        return {"epoch": self._epoch, "next_batch": self._consumed}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self._epoch = int(state["epoch"])
+        self._consumed = int(state["next_batch"])
+        self.dataset.set_epoch(self._epoch)
+        self.sampler.load_state_dict(
+            {"epoch": self._epoch, "next_batch": self._consumed}
+        )
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def __iter__(self) -> "_LoaderIter":
+        return _LoaderIter(self)
+
+
+def deliver_traced(it: "_LoaderIter") -> Any:
+    """``__next__`` body: one ``get_batch`` span per delivered batch, tagged
+    with the batch's byte count."""
+    t0 = time.monotonic()
+    batch = it._next_impl()  # StopIteration passes through untraced
+    args = {}
+    if isinstance(batch, dict) and "nbytes" in batch:
+        args["nbytes"] = int(batch["nbytes"].sum())
+    it.tracer.record(GET_BATCH, t0, time.monotonic(), **args)
+    return batch
+
+
+class _LoaderIter:
+    def __init__(self, loader: ConcurrentDataLoader) -> None:
+        self.loader = loader
+        cfg = loader.cfg
+        self.cfg = cfg
+        self.tracer = loader.tracer
+        self.max_outstanding = max(1, cfg.num_workers * cfg.prefetch_factor)
+        self.data_queue: "queue.Queue" = queue.Queue(maxsize=self.max_outstanding)
+        self.index_queues: List["queue.Queue"] = [
+            queue.Queue() for _ in range(cfg.num_workers)
+        ]
+        self.workers: List[Worker] = []
+        self._started = 0
+        self._sampler_iter: Iterator[BatchIndices] = iter(loader.sampler)
+        self._next_worker = 0
+        self._dispatched = 0
+        self._received = 0
+        self._next_bid: Optional[int] = None  # set on first dispatched batch
+        self._reorder: Dict[int, Any] = {}
+        self._exhausted = False
+        self._shutdown = False
+        self._lock = threading.Lock()
+
+        if not cfg.lazy_init:
+            # Vanilla blocking behaviour: the constructor sequentially starts
+            # every worker and waits for each to come up (paper Fig. 8 left).
+            for i in range(cfg.num_workers):
+                w = self._make_worker(i)
+                w.start()
+                w.ready.wait()
+            self._dispatch()
+
+    # -- worker management ----------------------------------------------------
+    def _make_worker(self, i: int) -> Worker:
+        cfg = self.cfg
+        w = Worker(
+            i,
+            self.loader.dataset,
+            make_fetcher(cfg.impl, cfg.num_fetch_workers, hedge=self.loader.hedge),
+            self.index_queues[i],
+            self.data_queue,
+            collate_fn=self.loader.collate_fn,
+            tracer=self.tracer,
+            startup_cost_s=self.loader.worker_startup_cost_s,
+            batch_pool=cfg.batch_pool if cfg.impl == "threaded" else 0,
+        )
+        self.workers.append(w)
+        self._started += 1
+        return w
+
+    def _start_download(self) -> None:
+        """Lazy path (paper Fig. 8 right): create workers without blocking,
+        feeding indices to the ones that already exist."""
+        while self._started < self.cfg.num_workers:
+            w = self._make_worker(self._started)
+            w.start()  # worker sleeps its own startup cost concurrently
+            self._dispatch()
+
+    # -- index dispatch ---------------------------------------------------------
+    def _dispatch(self) -> None:
+        if self._exhausted or not self.workers:
+            return
+        while self._dispatched - self._received < self.max_outstanding:
+            try:
+                task = next(self._sampler_iter)
+            except StopIteration:
+                self._exhausted = True
+                return
+            if self._next_bid is None:
+                self._next_bid = task.batch_id
+            # Round-robin over ALL worker queues (PyTorch's
+            # _worker_queue_idx_cycle).  Queues exist from construction, so a
+            # lazily-started worker finds its backlog when it comes up.
+            wq = self.index_queues[self._next_worker % len(self.index_queues)]
+            self._next_worker += 1
+            wq.put(task)
+            self._dispatched += 1
+
+    # -- iteration ---------------------------------------------------------------
+    def __iter__(self) -> "_LoaderIter":
+        return self
+
+    def __next__(self) -> Any:
+        return deliver_traced(self)
+
+    def _next_impl(self) -> Any:
+        if self._shutdown:
+            raise StopIteration
+        if self.cfg.lazy_init and self._started < self.cfg.num_workers:
+            self._start_download()
+        self._dispatch()
+        deadline = time.monotonic() + self.cfg.timeout_s
+        while True:
+            if self._next_bid is not None and self._next_bid in self._reorder:
+                batch = self._reorder.pop(self._next_bid)
+                self._next_bid += 1
+                self.loader._consumed = self._next_bid
+                self._dispatch()
+                return batch
+            if (
+                self._exhausted
+                and self._received >= self._dispatched
+                and not self._reorder
+            ):
+                self.shutdown()
+                raise StopIteration
+            try:
+                bid, payload = self.data_queue.get(timeout=0.1)
+            except queue.Empty:
+                if self._shutdown:
+                    # shut down from another thread (the device ring's
+                    # close) while this consumer waited
+                    raise StopIteration from None
+                if time.monotonic() > deadline:
+                    self.shutdown()
+                    raise LoaderTimeout(
+                        f"no batch within {self.cfg.timeout_s}s "
+                        f"(dispatched={self._dispatched}, received={self._received})"
+                    ) from None
+                continue
+            self._received += 1
+            if isinstance(payload, WorkerFailure):
+                self.shutdown()
+                raise payload.exc
+            self._reorder[bid] = payload
+
+    # -- shutdown ------------------------------------------------------------
+    def shutdown(self) -> None:
+        with self._lock:
+            if self._shutdown:
+                return
+            self._shutdown = True
+        for q in self.index_queues:
+            q.put(_SENTINEL)
+        for w in self.workers:
+            w.stop.set()
+        for w in self.workers:
+            w.join(timeout=2.0)
+
+    def __del__(self) -> None:  # pragma: no cover - best effort
+        try:
+            self.shutdown()
+        except Exception:
+            pass

@@ -1,0 +1,110 @@
+"""Span-level tracer — the paper's profiling methodology (Fig. 1 lanes).
+
+Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
+``run_training_batch``) with wall-clock start/end and thread id, like the
+log-entry instrumentation in the paper, and feeds the Table-3 busy/idle
+statistics (:mod:`repro_torch.core.utilization`).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterator, List, Optional
+
+# Canonical lane names (paper Fig. 1)
+GET_BATCH = "get_batch"
+GET_ITEM = "get_item"
+BATCH_TO_DEVICE = "batch_to_device"
+RUN_TRAINING_BATCH = "run_training_batch"
+
+
+@dataclass
+class Span:
+    name: str
+    t0: float
+    t1: float
+    tid: int
+    args: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def duration(self) -> float:
+        return self.t1 - self.t0
+
+
+class Tracer:
+    """Thread-safe span recorder with bounded memory."""
+
+    def __init__(self, max_spans: int = 2_000_000) -> None:
+        self._lock = threading.Lock()
+        self._spans: List[Span] = []
+        self._max = max_spans
+        self._dropped = 0
+
+    def record(self, name: str, t0: float, t1: float, **args: Any) -> None:
+        span = Span(name, t0, t1, threading.get_ident(), args)
+        with self._lock:
+            if len(self._spans) < self._max:
+                self._spans.append(span)
+            else:
+                self._dropped += 1
+
+    @contextmanager
+    def span(self, name: str, **args: Any) -> Iterator[Dict[str, Any]]:
+        t0 = time.monotonic()
+        extra: Dict[str, Any] = {}
+        try:
+            yield extra
+        finally:
+            t1 = time.monotonic()
+            if extra:
+                args.update(extra)
+            self.record(name, t0, t1, **args)
+
+    def spans(self, name: Optional[str] = None) -> List[Span]:
+        with self._lock:
+            out = list(self._spans)
+        if name is not None:
+            out = [s for s in out if s.name == name]
+        return out
+
+    def durations(self, name: str) -> List[float]:
+        return [s.duration for s in self.spans(name)]
+
+    def median(self, name: str) -> float:
+        ds = sorted(self.durations(name))
+        if not ds:
+            return float("nan")
+        n = len(ds)
+        return ds[n // 2] if n % 2 else 0.5 * (ds[n // 2 - 1] + ds[n // 2])
+
+
+class _NullTracer(Tracer):
+    """No-op tracer (default when profiling is off)."""
+
+    def __init__(self) -> None:
+        super().__init__(max_spans=0)
+
+    def record(self, name: str, t0: float, t1: float, **args: Any) -> None:
+        pass
+
+
+NULL_TRACER = _NullTracer()
+
+
+def union_duration(spans: List[Span]) -> float:
+    """Total wall time covered by the union of (possibly overlapping) spans."""
+    if not spans:
+        return 0.0
+    ivs = sorted((s.t0, s.t1) for s in spans)
+    total = 0.0
+    cur0, cur1 = ivs[0]
+    for t0, t1 in ivs[1:]:
+        if t0 > cur1:
+            total += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    total += cur1 - cur0
+    return total

@@ -1,0 +1,150 @@
+"""Dataset layer (paper Fig. 1 bottom lane): maps an index to one training
+item fetched from an ObjectStore, then decodes + augments it.
+
+``sim_decode_s_per_mb`` models the libjpeg decode cost (GIL-releasing C
+work) with a byte-proportional sleep; the paper's ~6 ms/115 kB ImageNet JPEG
+decode is ~52 ms/MB.  Default 0 (off).
+
+Items and batches are numpy: tensors begin at the device prefetch ring
+(:mod:`repro_torch.core.prefetch`).
+"""
+from __future__ import annotations
+
+import hashlib
+import time
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.tracing import GET_ITEM, NULL_TRACER, Tracer
+from repro_torch.data import codec
+from repro_torch.data.augment import imagenet_transform, imagenet_transform_raw
+from repro_torch.data.imagenet_synth import item_key
+from repro_torch.data.store import ObjectStore
+
+Item = Dict[str, np.ndarray]
+
+
+class MapDataset:
+    """Minimal map-style dataset protocol."""
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def __getitem__(self, index: int) -> Item:
+        raise NotImplementedError
+
+    async def aget_item(self, index: int) -> Item:
+        """Async variant; default falls back to the sync path."""
+        return self[index]
+
+    def set_epoch(self, epoch: int) -> None:
+        """Hook for per-epoch augmentation determinism."""
+
+
+def _aug_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
+    h = hashlib.blake2b(f"aug:{seed}:{epoch}:{index}".encode(), digest_size=8).digest()
+    return np.random.default_rng(int.from_bytes(h, "little"))
+
+
+class ImageDataset(MapDataset):
+    """ImageNet-style dataset over an ObjectStore (paper's setup).
+
+    ``epilogue`` picks where the transform's cast/normalize/layout tail runs:
+    ``"host"`` (default) emits normalized f32 CHW images, the paper's plain
+    transform; ``"device"`` stops after crop+flip and emits uint8 HWC — the
+    training loop then runs the ``ingest_norm`` kernel after H2D
+    (:func:`repro_torch.kernels.ingest_norm.ops.make_ingest_fn`), so the
+    host copies and PCIe move 4x fewer bytes.  RNG consumption is identical,
+    so the two paths see the same crops/flips.
+    """
+
+    def __init__(
+        self,
+        store: ObjectStore,
+        num_items: int,
+        prefix: str = "imagenet/train/",
+        out_size: int = 224,
+        augment: bool = True,
+        seed: int = 0,
+        tracer: Tracer = NULL_TRACER,
+        sim_decode_s_per_mb: float = 0.0,
+        epilogue: str = "host",
+    ) -> None:
+        if epilogue not in ("host", "device"):
+            raise ValueError(f"epilogue must be 'host' or 'device', got {epilogue!r}")
+        self.store = store
+        self.num_items = num_items
+        self.prefix = prefix
+        self.out_size = out_size
+        self.augment = augment
+        self.seed = seed
+        self.tracer = tracer
+        self.sim_decode_s_per_mb = sim_decode_s_per_mb
+        self.epilogue = epilogue
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __len__(self) -> int:
+        return self.num_items
+
+    def get_raw(self, index: int) -> bytes:
+        return self.store.get(item_key(index, self.prefix))
+
+    async def aget_raw(self, index: int) -> bytes:
+        return await self.store.aget(item_key(index, self.prefix))
+
+    def decode_raw(self, raw: bytes, index: int) -> Tuple[codec.ImageRecord, int]:
+        if self.sim_decode_s_per_mb:
+            # emulated C-decoder cost: sleeps release the GIL like libjpeg
+            time.sleep(self.sim_decode_s_per_mb * len(raw) / 1e6)
+        return codec.decode_image(raw), len(raw)
+
+    def augment_item(self, decoded: Tuple[codec.ImageRecord, int], index: int) -> Item:
+        rec, nbytes = decoded
+        device_tail = self.epilogue == "device"
+        if self.augment:
+            rng = _aug_rng(self.seed, self._epoch, index)
+            if device_tail:
+                img = imagenet_transform_raw(rec.pixels, rng, self.out_size)
+            else:
+                img = imagenet_transform(rec.pixels, rng, self.out_size)
+        else:
+            side = self.out_size
+            px = rec.pixels[:side, :side]
+            pad_h, pad_w = side - px.shape[0], side - px.shape[1]
+            if pad_h > 0 or pad_w > 0:
+                px = np.pad(px, ((0, max(pad_h, 0)), (0, max(pad_w, 0)), (0, 0)))
+            if device_tail:
+                img = np.ascontiguousarray(px)
+            else:
+                img = np.ascontiguousarray(px.transpose(2, 0, 1)).astype(np.float32) / 255.0
+        return {
+            "image": img,
+            "label": np.int32(rec.label),
+            "nbytes": np.int64(nbytes),
+        }
+
+    def _decode(self, raw: bytes, index: int) -> Item:
+        return self.augment_item(self.decode_raw(raw, index), index)
+
+    def __getitem__(self, index: int) -> Item:
+        with self.tracer.span(GET_ITEM, index=index):
+            return self._decode(self.get_raw(index), index)
+
+    async def aget_item(self, index: int) -> Item:
+        with self.tracer.span(GET_ITEM, index=index):
+            return self._decode(await self.aget_raw(index), index)
+
+
+def collate(items: Sequence[Item]) -> Item:
+    """Stack a list of items into a numpy batch (H2D happens in the ring)."""
+    if not items:
+        raise ValueError("empty batch")
+    out: Item = {}
+    for k in items[0]:
+        vals = [it[k] for it in items]
+        out[k] = np.stack(vals) if np.ndim(vals[0]) else np.asarray(vals)
+    return out

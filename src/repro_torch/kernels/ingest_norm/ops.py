@@ -1,0 +1,138 @@
+"""Wrappers for the fused ingest epilogue.
+
+``ingest_norm`` is the tensor op (u8 NHWC -> normalized NCHW).  On a CUDA
+tensor it launches the hand-written kernel in ``csrc/ingest_norm.cu`` (built
+with nvcc at first use) or raises; it takes the plain version
+(:func:`~repro_torch.kernels.ingest_norm.ref.ingest_norm_ref`) only for a
+tensor on the CPU.  ``ingest_norm.launches`` counts kernel launches.
+
+``make_ingest_fn`` packages it as the batch-level epilogue the training loop
+hands to :class:`repro_torch.core.prefetch.DevicePrefetchRing`.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.build import Built, load_cuda_library
+from repro_torch.kernels.ingest_norm.ref import ingest_norm_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ingest_norm.cu"
+MAX_C = 4
+MAX_B = 65535  # gridDim.z
+MAX_H = 65535 * 8  # gridDim.y * TILE_H
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def build() -> Built:
+    """Compile (once) and load the kernel library; declares the C signature."""
+    built = load_cuda_library("ingest_norm", SOURCE)
+    fn = built.lib.ingest_norm_u8
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        err = built.lib.ingest_norm_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return built
+
+
+def _affine(mean: Any, std: Any, C: int):
+    """scale = 1/(255*std), bias = -mean/std, in float32 as the TPU kernel's
+    wrapper computes them."""
+    m = np.asarray(torch.as_tensor(mean, dtype=torch.float32).cpu(), np.float32).reshape(-1)
+    s = np.asarray(torch.as_tensor(std, dtype=torch.float32).cpu(), np.float32).reshape(-1)
+    if m.shape != (C,) or s.shape != (C,):
+        raise ValueError(f"mean/std must have {C} entries, got {m.shape} and {s.shape}")
+    scale = np.float32(1.0) / (np.float32(255.0) * s)
+    bias = -m / s
+    return scale.astype(np.float32), bias.astype(np.float32)
+
+
+def ingest_norm(
+    img: torch.Tensor, mean: Any, std: Any, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B,H,W,C) uint8 -> (B,C,H,W) ``out_dtype`` as (x/255 - mean)/std."""
+    if not isinstance(img, torch.Tensor):
+        raise TypeError(f"img must be a torch.Tensor, got {type(img).__name__}")
+    if img.dtype != torch.uint8 or img.dim() != 4:
+        raise ValueError(f"img must be 4-D uint8 (B,H,W,C), got {img.dtype} {tuple(img.shape)}")
+    if out_dtype not in _OUT_CODES:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if img.device.type == "cpu":
+        return ingest_norm_ref(
+            img, torch.as_tensor(mean, dtype=torch.float32),
+            torch.as_tensor(std, dtype=torch.float32), out_dtype,
+        )
+    if img.device.type != "cuda":
+        raise ValueError(f"ingest_norm runs on 'cuda' or 'cpu' tensors, got {img.device}")
+    B, H, W, C = img.shape
+    if not img.is_contiguous():
+        raise ValueError("img must be contiguous")
+    if not (1 <= C <= MAX_C):
+        raise ValueError(f"ingest_norm kernel takes 1..{MAX_C} channels, got {C}")
+    if B > MAX_B or H > MAX_H:
+        raise ValueError(f"batch {B} or height {H} exceeds the kernel's grid ({MAX_B}, {MAX_H})")
+    scale, bias = _affine(mean, std, C)
+    out = torch.empty((B, C, H, W), dtype=out_dtype, device=img.device)
+    if img.numel() == 0:
+        return out
+    lib = build().lib
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = lib.ingest_norm_u8(
+            img.data_ptr(), out.data_ptr(), B, H, W, C,
+            scale.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            bias.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            _OUT_CODES[out_dtype], stream,
+        )
+    if rc != 0:
+        msg = lib.ingest_norm_error_string(rc).decode()
+        raise RuntimeError(f"ingest_norm kernel launch failed: {msg} (cudaError {rc})")
+    ingest_norm.launches += 1
+    return out
+
+
+ingest_norm.launches = 0
+
+
+def make_ingest_fn(
+    mean: Optional[Any] = None,
+    std: Optional[Any] = None,
+    *,
+    key: str = "image",
+    out_dtype: torch.dtype = torch.float32,
+) -> Any:
+    """Build the on-device ingest epilogue for ``DevicePrefetchRing``.
+
+    ``mean``/``std`` default to the ImageNet constants of the host transform
+    (:mod:`repro_torch.data.augment`).  The returned callable is safe on any
+    batch dict: it rewrites ``key`` only when it holds a 4-D uint8 tensor, so
+    host-epilogue batches and other pipelines pass through unchanged.
+    """
+    if mean is None or std is None:
+        from repro_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+
+        mean = IMAGENET_MEAN if mean is None else mean
+        std = IMAGENET_STD if std is None else std
+    mean = torch.as_tensor(np.asarray(mean, dtype=np.float32))
+    std = torch.as_tensor(np.asarray(std, dtype=np.float32))
+
+    def ingest(batch: Dict[str, Any]) -> Dict[str, Any]:
+        img = batch.get(key) if hasattr(batch, "get") else None
+        if not isinstance(img, torch.Tensor) or img.dtype != torch.uint8 or img.dim() != 4:
+            return dict(batch) if isinstance(batch, dict) else batch
+        new = dict(batch)
+        new[key] = ingest_norm(img, mean, std, out_dtype)
+        return new
+
+    return ingest

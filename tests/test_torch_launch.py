@@ -1,0 +1,77 @@
+"""The slice end to end: the port's launcher (``repro_torch.launch.train``) on
+the CPU at smoke size, against the JAX trainer on the same synthetic store,
+loader settings, seed and initial weights."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import LoaderConfig as JaxLoaderConfig  # noqa: E402
+from repro.config import StoreConfig as JaxStoreConfig  # noqa: E402
+from repro.config import TrainConfig as JaxTrainConfig  # noqa: E402
+from repro.config import get_arch as jax_get_arch  # noqa: E402
+from repro.config import replace as jax_replace  # noqa: E402
+from repro.core.loader import ConcurrentDataLoader as JaxLoader  # noqa: E402
+from repro.data.dataset import ImageDataset as JaxImageDataset  # noqa: E402
+from repro.data.imagenet_synth import build_synthetic_imagenet as jax_build  # noqa: E402
+from repro.data.store import build_store as jax_build_store  # noqa: E402
+from repro.kernels.ingest_norm.ops import make_ingest_fn as jax_make_ingest_fn  # noqa: E402
+from repro.train import optim as joptim  # noqa: E402
+from repro.train.steps import make_resnet_train_step as jax_make_step  # noqa: E402
+from repro.train.trainer import Trainer as JaxTrainer  # noqa: E402
+from repro_torch.config import register_arch, replace  # noqa: E402
+from repro_torch.configs import resnet18_imagenet  # noqa: E402
+from repro_torch.convert import resnet_state_from_jax, to_jax  # noqa: E402
+from repro_torch.core.tracing import BATCH_TO_DEVICE, RUN_TRAINING_BATCH  # noqa: E402
+from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models.resnet import init_resnet  # noqa: E402
+from repro_torch.train.optim import make_optimizer  # noqa: E402
+
+# The smoke config's 10 classes read synthetic ImageNet's labels (0..999) as
+# NaN in both packages; with 1000 classes the loss is finite and comparable.
+ARCH = "resnet18-imagenet-1k-classes"
+ITEMS, BS, STEPS, LR = 16, 4, 6, 0.05  # 4 batches an epoch: the run crosses one
+ARGS = ["--arch", ARCH, "--device", "cpu", "--items", str(ITEMS), "--batch-size", str(BS),
+        "--steps", str(STEPS), "--latency", "0.001", "--avg-kb", "8", "--device-ingest",
+        "--optimizer", "sgd", "--lr", str(LR), "--workers", "2", "--fetchers", "2"]
+
+
+def test_launcher_matches_jax_trainer(monkeypatch):
+    register_arch(ARCH, resnet18_imagenet.full,
+                  lambda: replace(resnet18_imagenet.smoke(), num_classes=1000))
+    jcfg = jax_replace(jax_get_arch("resnet18-imagenet", smoke=True), num_classes=1000)
+    jt = JaxTrainConfig(optimizer="sgd", learning_rate=LR, total_steps=STEPS)
+    # one set of weights, made from a seed, in the reference's layout (HWIO)
+    np_params, np_bn = (to_jax(t) for t in init_resnet(
+        launch.get_arch(ARCH, smoke=True), torch.Generator().manual_seed(0), "cpu"))
+    jstate = {"params": np_params, "bn": np_bn,
+              "opt": joptim.make_optimizer(jt).init(np_params), "step": jnp.zeros((), jnp.int32)}
+
+    def converted_init(cfg, tcfg, generator, device):
+        params, bn = resnet_state_from_jax(np_params, np_bn, device)
+        return {"params": params, "bn": bn, "opt": make_optimizer(tcfg).init(params),
+                "step": 0}
+
+    monkeypatch.setattr(launch, "init_resnet_train_state", converted_init)
+    report = launch.run(ARGS)
+
+    store = jax_build_store(JaxStoreConfig(kind="s3sim", latency_mean_s=0.001),
+                            base=jax_build(num_items=ITEMS, avg_kb=8.0))
+    dataset = JaxImageDataset(store, ITEMS, out_size=jcfg.image_size,
+                              sim_decode_s_per_mb=0.052, epilogue="device")
+    loader = JaxLoader(dataset, JaxLoaderConfig(impl="threaded", batch_size=BS, num_workers=2,
+                                                num_fetch_workers=2, seed=0))
+    want = JaxTrainer(jax_make_step(jcfg, jt), jstate, ingest_fn=jax_make_ingest_fn()).fit(
+        loader, epochs=100, max_steps=STEPS)
+
+    got = report.result
+    assert got.steps == want.steps == STEPS and got.epochs == want.epochs == 2
+    for k in ("loss", "accuracy", "grad_norm"):
+        np.testing.assert_allclose([h[k] for h in got.history], [h[k] for h in want.history],
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    assert all(np.isfinite(h["loss"]) for h in got.history)
+    # Table-3 columns come out of the same tracer
+    assert len(report.tracer.spans(RUN_TRAINING_BATCH)) == STEPS
+    assert report.batches_transferred == len(report.tracer.spans(BATCH_TO_DEVICE)) >= STEPS
+    assert 0.0 < report.util.busy_fraction <= 1.0

@@ -1,0 +1,82 @@
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports JAX or anything of the ``repro`` package, and no entry point falls
+back to the CPU when a card is asked for."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now raises
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (defines only; main() runs under __main__)
+leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
+print(len(names), leaked)
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL, str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, env=env, timeout=120, check=False,
+    )
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 25  # config, core, data, kernels, models, train, launch ...
+    assert leaked == "[]"
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
+))
+def test_sources_never_import_jax_or_repro(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.findall(text), path
+
+
+def test_cuda_requested_without_a_card_raises(monkeypatch):
+    from repro_torch.core.prefetch import DevicePrefetchRing
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        DevicePrefetchRing(iter([]))  # default device is cuda
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.run(["--items", "4", "--steps", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():
+    from repro_torch.kernels.ingest_norm import ops
+
+    img = torch.empty((2, 4, 4, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        ops.ingest_norm(img, [0.5] * 3, [0.2] * 3)
+    with pytest.raises(ValueError, match="uint8"):
+        ops.ingest_norm(torch.zeros((2, 4, 4, 3)), [0.5] * 3, [0.2] * 3)
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.ingest_norm(torch.zeros((2, 4, 4, 3), dtype=torch.uint8), [0.5] * 3, [0.2] * 3,
+                        torch.float16)
