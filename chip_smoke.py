@@ -7,17 +7,26 @@ Phases, each printing one JSON line:
 
 1. device  — needs ``torch.cuda.is_available()``; prints nvidia-smi's name
    and power limit.
-2. build   — compiles every kernel of the main path from ``csrc/`` with nvcc
-   for sm_90a.
+2. build   — compiles every kernel of the main paths from ``csrc/`` with
+   nvcc for sm_90a, one nvcc per source, all started together.
 3. kernels — each kernel's wrapper on the card against its plain PyTorch
-   version, at the main path's shapes and at ragged ones, with timings.
+   version, at the main path's shapes and at ragged ones, with timings:
+   ``ingest_norm``, then ``flash_attention`` (with the library yardstick
+   ``scaled_dot_product_attention``, timed only).
 4. model   — one ResNet train step on the card against the same step on the
    CPU, from the same converted weights, TF32 off.
-5. main    — the main path through its launcher: full-width ResNet-18
+5. model_lm — two AdamW steps of the granite-8b smoke decoder on the card
+   against the CPU (fp32, TF32 off), and the flash route's forward loss
+   against the plain attention's on the card.
+6. main    — the ResNet path through its launcher: full-width ResNet-18
    trained from simulated S3 through the paper's loader with the
-   ``ingest_norm`` epilogue on the card.  Launch counts are reset just
-   before and read just after.
+   ``ingest_norm`` epilogue on the card.
+7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
+   trained from simulated S3 through the launcher, then its forward loss
+   through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
+   kernel) over 4 loader batches against the plain attention's.
 
+Launch counts are set to 0 just before each main path and read just after.
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
 nothing of JAX and nothing of the JAX package.
@@ -35,8 +44,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Device-memory bandwidth by card (NVIDIA data sheets), for the bytes bound.
+# Device-memory bandwidth and dense bf16 tensor-core peak by card (NVIDIA
+# data sheets), for the bytes and operations bounds.  The first key found in
+# the card's name wins ("NVIDIA H100 80GB HBM3" is the SXM part).
 BANDWIDTH = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12)]
+PEAK_BF16 = [("H200", 989.4e12), ("H100 NVL", 835.5e12), ("H100 PCIe", 756.5e12),
+             ("H100", 989.4e12)]
 
 MAIN_BS = 64
 MAIN_BATCH = (MAIN_BS, 224, 224, 3)
@@ -48,6 +61,24 @@ MAIN_ARGS = [
 ]
 
 
+# The LM path: granite-8b at full width, depth cut to 4 of its 36 layers (36
+# layers with AdamW need about 132 GB, more than one card holds) and
+# registered under LM_ARCH, granite's 4096-token context, 2 microbatches a
+# step, 8 batches an epoch so 16 steps cross an epoch boundary.
+LM_ARCH, LM_LAYERS = "granite-8b-4l", 4
+LM_BS, LM_SEQ, LM_ITEMS, LM_STEPS, LM_EVAL_BATCHES = 4, 4096, 32, 16, 4
+LM_ARGS = [
+    "--arch", LM_ARCH, "--full", "--device", "cuda",
+    "--items", str(LM_ITEMS), "--batch-size", str(LM_BS), "--seq-len", str(LM_SEQ),
+    "--microbatches", "2", "--latency", "0.02", "--loader", "threaded", "--workers", "4",
+    "--fetchers", "16", "--steps", str(LM_STEPS), "--optimizer", "adamw", "--log-every", "4",
+]
+LM_REDUCED = {"num_layers": "36 -> 4 (AdamW state of 36 layers does not fit one card)",
+              "items": "32 packed sequences of 4097 tokens", "steps": 16}
+# flash_attention at the LM path's shape: q (B,Hq,S,D), kv (B,Hkv,S,D), bf16, causal
+FLASH_Q, FLASH_KV = (LM_BS, 32, LM_SEQ, 128), (LM_BS, 8, LM_SEQ, 128)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -57,11 +88,24 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bandwidth(name: str) -> float:
-    for key, bw in BANDWIDTH:
+def lookup(table, name: str):
+    """The card's entry in ``table``, or None for a card the table does not
+    know: no other card's number is quoted for it."""
+    for key, value in table:
         if key in name:
-            return bw
-    return 3.35e12
+            return value
+    return None
+
+
+def bound_ms(nbytes: float, flops: float, bw, peak):
+    """(least time in ms, what bounds it): the larger of ``nbytes`` over the
+    memory rate and ``flops`` over the peak; None where a rate this bound
+    needs is unknown for the card."""
+    t_bytes = nbytes / bw * 1e3 if bw else None
+    t_ops = 0.0 if not flops else (flops / peak * 1e3 if peak else None)
+    if t_bytes is None or t_ops is None:
+        return None, "operations" if flops else "bytes"
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def device_ms(fn, runs: int = 20, per_run: int = 10, warmup: int = 3) -> float:
@@ -100,7 +144,7 @@ def call_ms(fn, calls: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def phase_kernels(torch, ops, ref, bw: float) -> dict:
+def phase_kernels(torch, ops, ref, bw) -> dict:
     from repro_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
 
     gen = torch.Generator().manual_seed(0)
@@ -139,7 +183,89 @@ def phase_kernels(torch, ops, ref, bw: float) -> dict:
            "shape": list(MAIN_BATCH), "out_dtype": "float32", "max_abs_err": main_err,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "kernel_call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
-           "bound_ms": nbytes / bw * 1e3, "bound_bytes": nbytes}
+           "bound_ms": bound_ms(nbytes, 0, bw, None)[0], "bound_bytes": nbytes}
+    emit(out)
+    return out
+
+
+def phase_flash(torch, ops, ref, bw, peak) -> dict:
+    """flash_attention against its plain version at the LM path's shape and
+    at ragged, small ones; device times of the kernel, the plain version and
+    the library yardstick ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(0)
+    limits = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's TOL
+    # Each output row's error relative to its own size.  An elementwise
+    # limit alone is blind where the outputs are small (late rows average
+    # thousands of keys); a skipped rescale or a dropped or repeated kv tile
+    # moves a row by 1e-2 to 1 of its norm, where bf16 rounding moves it
+    # about 1e-3.
+    row_limits = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+    def inputs(qshape, kvshape, dt):
+        # unscaled N(0,1): the scaled scores have unit spread, so the
+        # softmax is peaked and the running max moves across kv tiles
+        q, k, v = (torch.randn(s, generator=gen) for s in (qshape, kvshape, kvshape))
+        return q.to(dt).cuda(), k.to(dt).cuda(), v.to(dt).cuda()
+
+    def check(q, k, v, causal, dt, label):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != dt:
+            fail(f"flash_attention {label}: got {tuple(got.shape)} {got.dtype}")
+        diff, ref_f = got.float() - want.float(), want.float()
+        err = diff.abs().max().item()
+        tol = limits[dt]  # |got - want| <= atol + rtol * |want|, as assert_allclose
+        close = bool(torch.all(diff.abs() <= tol + tol * ref_f.abs()).item())
+        row_err = (diff.norm(dim=-1) / ref_f.norm(dim=-1).clamp_min(1e-30)).max().item()
+        ok = close and row_err <= row_limits[dt]
+        case = {"q": list(q.shape), "kv": list(k.shape), "dtype": str(dt), "causal": causal,
+                "max_abs_err": err, "rtol": tol, "atol": tol, "max_row_rel_err": row_err,
+                "row_rel_limit": row_limits[dt], "ok": ok}
+        if not ok:
+            emit({"phase": "kernels/flash_attention", "failed_case": case})
+            fail(f"flash_attention {label}: max abs err {err} (rtol=atol={tol}), "
+                 f"row-relative err {row_err} (limit {row_limits[dt]})")
+        return case
+
+    cases = []
+    for S in (50, 200):
+        for D in (16, 32, 64, 128):
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = inputs((2, 4, S, D), (2, 2, S, D), dt)
+                cases.append(check(q, k, v, True, dt, f"S={S} D={D}"))
+                T = S if S <= ops.REF_BLOCK_K else 256  # non-causal at a block-multiple T
+                q, k, v = inputs((2, 4, S, D), (2, 2, T, D), dt)
+                cases.append(check(q, k, v, False, dt, f"S={S} T={T} D={D} non-causal"))
+    q, k, v = inputs(FLASH_Q, FLASH_KV, torch.bfloat16)
+    main_case = check(q, k, v, True, torch.bfloat16, "path shape")
+    cases.append(main_case)
+
+    kernel = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: ref.attention_ref(q, k, v, causal=True)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    kernel_ms = device_ms(kernel, runs=10, per_run=2)
+    plain_ms = device_ms(plain, runs=5, per_run=2, warmup=1)
+    library_ms = device_ms(library, runs=10, per_run=5)
+    B, Hq, S, D = FLASH_Q
+    Hkv = FLASH_KV[1]
+    flops = 2.0 * B * Hq * S * S * D  # q k^T and p v over the causal triangle
+    nbytes = B * (2 * Hq * S + 2 * Hkv * S) * D * 2  # q, o and k, v in bf16, once each
+    bound, bound_by = bound_ms(nbytes, flops, bw, peak)
+    out = {"phase": "kernels/flash_attention", "kernel": "flash_attention",
+           "q": list(FLASH_Q), "kv": list(FLASH_KV), "dtype": "bfloat16", "causal": True,
+           "max_abs_err": main_case["max_abs_err"],
+           "max_row_rel_err": main_case["max_row_rel_err"], "cases": cases,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "scaled_dot_product_attention(q, k, v, is_causal=True, "
+                           "enable_gqa=True)",
+           "kernel_tflops": flops / kernel_ms / 1e9,
+           "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bound_bytes": nbytes,
+           "bytes_bound_ms": nbytes / bw * 1e3 if bw else None,
+           "ops_bound_ms": flops / peak * 1e3 if peak else None, "peak_bf16_flops": peak}
     emit(out)
     return out
 
@@ -148,7 +274,7 @@ def phase_model(torch) -> dict:
     import numpy as np
 
     from repro_torch.config import TrainConfig, get_arch
-    from repro_torch.convert import resnet_state_from_jax, to_jax
+    from repro_torch.convert import resnet_state_from_jax, resnet_to_jax
     from repro_torch.models.resnet import init_resnet
     from repro_torch.train.optim import make_optimizer
     from repro_torch.train.steps import make_resnet_train_step
@@ -158,7 +284,7 @@ def phase_model(torch) -> dict:
     cfg = get_arch("resnet18-imagenet", smoke=True)
     tcfg = TrainConfig(optimizer="sgd", learning_rate=0.1, warmup_steps=1)
     params, bn = init_resnet(cfg, torch.Generator().manual_seed(1), "cpu")
-    np_params, np_bn = to_jax(params), to_jax(bn)  # the reference's layout
+    np_params, np_bn = resnet_to_jax(params), resnet_to_jax(bn)  # the reference's layout
     rng = np.random.default_rng(2)
     batch = {"image": rng.standard_normal((8, 3, cfg.image_size, cfg.image_size),
                                           dtype=np.float32),
@@ -180,6 +306,56 @@ def phase_model(torch) -> dict:
     emit(out)
     if not all(math.isfinite(x) for x in losses["cuda"]) or not diff <= 1e-4:
         fail(f"train step on the card differs from the CPU: {losses}")
+    return out
+
+
+def phase_model_lm(torch) -> dict:
+    """The granite-8b smoke decoder: two AdamW steps on the card against the
+    CPU from the same converted weights, in fp32 with TF32 off (so the two
+    devices differ only in summation order), and on the card the flash
+    route's forward loss against the plain attention's in bf16."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.convert import lm_params_from_jax, to_jax
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.steps import lm_train_state, make_eval_step, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("granite-8b", smoke=True)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-3, warmup_steps=1)
+    np_params = to_jax(init_lm(cfg, torch.Generator().manual_seed(1), "cpu"))
+    rng = np.random.default_rng(2)
+    batches = [{k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+                for k in ("tokens", "targets")} for _ in range(2)]
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = lm_train_state(lm_params_from_jax(np_params, dev), tcfg)
+        step = make_train_step(f32, tcfg)
+        losses[dev] = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses[dev].append(m["loss"].item())
+    diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    params = lm_params_from_jax(np_params, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batches[0].items()}
+    pallas = dataclasses.replace(cfg, attention_impl="pallas")
+    loss_flash = make_eval_step(pallas)(params, batch)["loss"].item()
+    loss_ref = make_eval_step(cfg)(params, batch)["loss"].item()
+    out = {"phase": "model_lm", "arch": cfg.name, "steps": 2, "dtype_steps": "float32",
+           "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"], "max_loss_diff": diff,
+           "limit": 1e-4, "loss_flash_bf16": loss_flash, "loss_ref_bf16": loss_ref,
+           "flash_vs_ref": abs(loss_flash - loss_ref), "flash_limit": 5e-3,
+           "cudnn_allow_tf32": False, "matmul_allow_tf32": False}
+    emit(out)
+    if not all(math.isfinite(x) for x in losses["cuda"]) or not diff <= 1e-4:
+        fail(f"LM train steps on the card differ from the CPU: {losses}")
+    if not abs(loss_flash - loss_ref) <= 5e-3:
+        fail(f"flash route loss {loss_flash} vs plain attention {loss_ref} on the card")
     return out
 
 
@@ -261,6 +437,110 @@ def phase_main(torch, ops) -> dict:
     return out
 
 
+def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
+    import dataclasses
+
+    from repro_torch.config import LoaderConfig, register_arch, replace
+    from repro_torch.configs import granite_8b
+    from repro_torch.core.loader import ConcurrentDataLoader
+    from repro_torch.core.prefetch import DevicePrefetchRing
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.launch import train as launch
+    from repro_torch.train.steps import make_eval_step
+    from repro_torch.tree import leaves
+
+    register_arch(LM_ARCH, lambda: replace(granite_8b.full(), num_layers=LM_LAYERS),
+                  granite_8b.smoke)
+    # PyTorch's defaults, stated; the LM computes in bf16
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention.launches = 0
+    ingest_ops.ingest_norm.launches = 0
+    report = launch.run(LM_ARGS)
+    train_peak = torch.cuda.max_memory_allocated()
+    # the flash forward loss of the trained model on loader batches
+    args = launch.parse_args(LM_ARGS)
+    loader = ConcurrentDataLoader(
+        launch.build_dataset(report.cfg, args, Tracer()),
+        LoaderConfig(impl="threaded", batch_size=LM_BS, num_workers=4, num_fetch_workers=16,
+                     seed=1))
+    ring = DevicePrefetchRing(iter(loader), depth=2, device="cuda")
+    try:
+        batches = [b for _, b in zip(range(LM_EVAL_BATCHES), ring)]
+    finally:
+        ring.close()
+    params = report.state["params"]
+    pallas = dataclasses.replace(report.cfg, attention_impl="pallas")
+    eval_flash = make_eval_step(pallas)
+    loss_flash = [eval_flash(params, b)["loss"].item() for b in batches]
+    flash_launches = flash_ops.flash_attention.launches
+    ingest_launches = ingest_ops.ingest_norm.launches
+    eval_ref = make_eval_step(report.cfg)
+    loss_ref = [eval_ref(params, b)["loss"].item() for b in batches]
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [h["loss"] for h in report.result.history]
+    devices = sorted({str(p.device.type) for p in leaves(params)})
+    ends = sorted(sp.t1 for sp in report.tracer.spans("run_training_batch"))
+    steady = (len(ends) - 1) * LM_BS / (ends[-1] - ends[0]) if len(ends) > 1 else None
+    n_params = sum(p.numel() for p in leaves(params))
+    diffs = [abs(a - b) for a, b in zip(loss_flash, loss_ref)]
+    out = {
+        "phase": "main_lm", "arch": report.cfg.name, "args": LM_ARGS, "reduced": LM_REDUCED,
+        "num_layers": report.cfg.num_layers, "d_model": report.cfg.d_model,
+        "d_ff": report.cfg.d_ff, "vocab_size": report.cfg.vocab_size, "params": n_params,
+        "steps": report.result.steps, "epochs": report.result.epochs,
+        "wall_s": report.result.wall_s, "items_per_s": report.items_per_s,
+        "tokens_per_s": report.items_per_s * LM_SEQ,
+        "items_per_s_after_first_step": steady,
+        "tokens_per_s_after_first_step": steady * LM_SEQ if steady else None,
+        "first_step_ms": 1e3 * report.tracer.spans("run_training_batch")[0].duration,
+        "spans": span_stats(report.tracer),
+        "util_zero_pct": report.util.util_zero_pct, "util_pos_avg": report.util.util_pos_avg,
+        "busy_fraction": report.util.busy_fraction,
+        "max_memory_allocated_train_bytes": train_peak, "max_memory_allocated_bytes": peak,
+        "first_loss": losses[0] if losses else None, "last_loss": losses[-1] if losses else None,
+        "losses": losses, "param_devices": devices,
+        "eval_batches": len(batches), "eval_loss_flash": loss_flash, "eval_loss_ref": loss_ref,
+        "eval_max_diff": max(diffs) if diffs else None, "eval_limit": 5e-3,
+        "flash_attention_launches": flash_launches,
+        "flash_attention_launches_expected": report.cfg.num_layers * len(batches),
+        "ingest_norm_launches": ingest_launches,
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+    emit(out)
+    if report.result.steps < LM_STEPS or report.result.epochs < 2:
+        fail(f"LM path ran {report.result.steps} steps over {report.result.epochs} epochs")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss on the LM path: {losses}")
+    if devices != ["cuda"]:
+        fail(f"LM params live on {devices}, not on cuda")
+    if len(batches) != LM_EVAL_BATCHES or not all(d <= 5e-3 for d in diffs):
+        fail(f"flash eval loss {loss_flash} vs plain attention {loss_ref}")
+    if flash_launches != report.cfg.num_layers * LM_EVAL_BATCHES:
+        fail(f"flash_attention launched {flash_launches} times, not "
+             f"{report.cfg.num_layers} layers x {LM_EVAL_BATCHES} eval batches")
+    return out
+
+
+def build_all(modules) -> dict:
+    """Build every kernel library at once, one nvcc per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        futures = {name: pool.submit(mod.build) for name, mod in modules.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    wall = time.monotonic() - t0
+    for name, b in built.items():
+        emit({"phase": "build", "kernel": name, "wall_s_all": wall,
+              "nvcc_seconds": b.seconds, "library": b.path.name,
+              "ptxas": [ln.strip() for ln in b.log.splitlines() if "ptxas info" in ln]})
+    return built
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repo")
@@ -277,24 +557,27 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    bw = bandwidth(name)
+    bw, peak = lookup(BANDWIDTH, name), lookup(PEAK_BF16, name)
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0], "bandwidth_bytes_per_s": bw})
+          "python": sys.version.split()[0], "bandwidth_bytes_per_s": bw,
+          "peak_bf16_flops": peak})
 
     # 2. build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.ingest_norm import ops, ref
 
-    t0 = time.monotonic()
-    built = ops.build()
-    emit({"phase": "build", "kernel": "ingest_norm", "seconds": time.monotonic() - t0,
-          "nvcc_seconds": built.seconds, "library": built.path.name,
-          "ptxas": [ln.strip() for ln in built.log.splitlines() if "ptxas info" in ln]})
+    build_all({"ingest_norm": ops, "flash_attention": flash_ops})
 
-    # 3.-5.
+    # 3.-7.
     kern = phase_kernels(torch, ops, ref, bw)
+    flash = phase_flash(torch, flash_ops, flash_ref, bw, peak)
+    torch.cuda.empty_cache()
     phase_model(torch)
+    phase_model_lm(torch)
     main_out = phase_main(torch, ops)
+    lm_out = phase_main_lm(torch, flash_ops, ops)
 
     emit({"kernels": [{
         "name": "ingest_norm",
@@ -309,6 +592,19 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
+        "launches": lm_out["flash_attention_launches"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["kernel_ms"],
+        "kernel_ms": flash["kernel_ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

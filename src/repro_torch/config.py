@@ -1,25 +1,60 @@
-"""Frozen-dataclass configuration for the port's slice, and the arch registry.
+"""Frozen-dataclass configuration for the port's slices, and the arch registry.
 
-A trimmed copy of ``repro/config.py``: only the fields the ResNet training
-slice reads, with the reference's names and defaults (``LoaderConfig`` drops
-``pin_device`` and ``device_prefetch``, which the reference declares but
-never reads; the ring's depth is ``Trainer(device_prefetch=...)``).
-``replace()`` (from dataclasses) derives variants.
+A trimmed copy of ``repro/config.py``: only the fields the ResNet and dense
+decoder (LM) training slices read, with the reference's names and defaults
+(``LoaderConfig`` drops ``pin_device`` and ``device_prefetch``, which the
+reference declares but never reads; the ring's depth is
+``Trainer(device_prefetch=...)``).  MoE, SSM, RWKV, MLA, enc-dec and VLM
+fields come with their slices.  ``replace()`` (from dataclasses) derives
+variants.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace  # noqa: F401  (replace re-exported)
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    """Attention flavour. kind: mha | gqa (mla comes with its slice)."""
+
+    kind: str = "gqa"
+    num_heads: int = 8
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    causal: bool = True
+    rope: bool = True
+    rope_theta: float = 10_000.0
+
+    @property
+    def q_heads_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "resnet"
+    family: str = "decoder"  # decoder | resnet
+    num_layers: int = 4
+    d_model: int = 256
+    d_ff: int = 1024
+    vocab_size: int = 32_000
+    attention: Optional[AttentionConfig] = None
+    mlp: str = "swiglu"  # swiglu | relu2 | gelu
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    # resnet
     resnet_blocks: Tuple[int, ...] = ()
     resnet_width: int = 64
     num_classes: int = 1000
     image_size: int = 224
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+    # which attention implementation the model uses: "ref" (plain PyTorch)
+    # or "pallas" (the reference's name; here the hand-written flash kernel)
+    attention_impl: str = "ref"
 
 
 @dataclass(frozen=True)
@@ -57,7 +92,7 @@ class LoaderConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "adamw"  # adamw | sgd
+    optimizer: str = "adamw"  # adamw | adafactor | sgd
     learning_rate: float = 1e-3
     weight_decay: float = 1e-4
     beta1: float = 0.9
@@ -67,6 +102,8 @@ class TrainConfig:
     warmup_steps: int = 100
     schedule: str = "cosine"  # cosine | constant | linear
     total_steps: int = 1000
+    microbatches: int = 1  # gradient accumulation over leading-dim splits
+    grad_compression: str = "none"  # none | bf16 | int8_ef
 
 
 ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

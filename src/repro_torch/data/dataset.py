@@ -1,5 +1,6 @@
 """Dataset layer (paper Fig. 1 bottom lane): maps an index to one training
-item fetched from an ObjectStore, then decodes + augments it.
+item fetched from an ObjectStore, then decodes + augments it (images) or
+decodes a packed token sequence (LM).
 
 ``sim_decode_s_per_mb`` models the libjpeg decode cost (GIL-releasing C
 work) with a byte-proportional sleep; the paper's ~6 ms/115 kB ImageNet JPEG
@@ -137,6 +138,94 @@ class ImageDataset(MapDataset):
     async def aget_item(self, index: int) -> Item:
         with self.tracer.span(GET_ITEM, index=index):
             return self._decode(await self.aget_raw(index), index)
+
+
+class TokenDataset(MapDataset):
+    """Packed-sequence LM dataset: one object = one packed token sequence of
+    at least ``seq_len + 1`` int32 tokens; an item is its first ``seq_len``
+    tokens and the same shifted by one as targets."""
+
+    def __init__(
+        self,
+        store: ObjectStore,
+        num_items: int,
+        seq_len: int,
+        prefix: str = "tokens/train/",
+        tracer: Tracer = NULL_TRACER,
+    ) -> None:
+        self.store = store
+        self.num_items = num_items
+        self.seq_len = seq_len
+        self.prefix = prefix
+        self.tracer = tracer
+
+    def key(self, index: int) -> str:
+        return f"{self.prefix}{index:08d}.rtok"
+
+    def __len__(self) -> int:
+        return self.num_items
+
+    def _decode(self, raw: bytes) -> Item:
+        toks = codec.decode_tokens(raw)
+        if toks.shape[0] < self.seq_len + 1:
+            raise ValueError(f"sequence of {toks.shape[0]} tokens is shorter than "
+                             f"seq_len + 1 = {self.seq_len + 1}")
+        return {
+            "tokens": toks[: self.seq_len].astype(np.int32),
+            "targets": toks[1: self.seq_len + 1].astype(np.int32),
+            "nbytes": np.int64(len(raw)),
+        }
+
+    def get_raw(self, index: int) -> bytes:
+        return self.store.get(self.key(index))
+
+    async def aget_raw(self, index: int) -> bytes:
+        return await self.store.aget(self.key(index))
+
+    def decode_raw(self, raw: bytes, index: int) -> Item:
+        return self._decode(raw)
+
+    def __getitem__(self, index: int) -> Item:
+        with self.tracer.span(GET_ITEM, index=index):
+            return self._decode(self.get_raw(index))
+
+    async def aget_item(self, index: int) -> Item:
+        with self.tracer.span(GET_ITEM, index=index):
+            return self._decode(await self.aget_raw(index))
+
+
+class SyntheticTokenDataset(MapDataset):
+    """Deterministic on-the-fly token sequences (no store; for model tests)."""
+
+    def __init__(self, num_items: int, seq_len: int, vocab_size: int, seed: int = 0) -> None:
+        self.num_items = num_items
+        self.seq_len = seq_len
+        self.vocab_size = vocab_size
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.num_items
+
+    def __getitem__(self, index: int) -> Item:
+        rng = np.random.default_rng(self.seed * 1_000_003 + index)
+        toks = rng.integers(0, self.vocab_size, size=self.seq_len + 1, dtype=np.int32)
+        return {"tokens": toks[:-1], "targets": toks[1:], "nbytes": np.int64(toks.nbytes)}
+
+
+def build_token_store(
+    store: ObjectStore,
+    num_items: int,
+    seq_len: int,
+    vocab_size: int,
+    prefix: str = "tokens/train/",
+    seed: int = 0,
+) -> None:
+    """Materialize packed token sequences (``seq_len + 1`` tokens each) into
+    a store."""
+    for i in range(num_items):
+        rng = np.random.default_rng(seed * 1_000_003 + i)
+        toks = rng.integers(0, vocab_size, size=seq_len + 1, dtype=np.int32)
+        store.put(f"{prefix}{i:08d}.rtok", codec.encode_tokens(toks))
 
 
 def collate(items: Sequence[Item]) -> Item:

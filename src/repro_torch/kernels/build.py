@@ -34,7 +34,8 @@ class Built:
     log: str  # nvcc's output, including -Xptxas -v register/smem report
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _source_locks
+_source_locks: Dict[str, threading.Lock] = {}  # one per source: sources build in parallel
 _loaded: Dict[str, Built] = {}
 
 
@@ -48,13 +49,16 @@ def _nvcc() -> str:
 def load_cuda_library(name: str, source: Path) -> Built:
     """Compile ``source`` for sm_90a and return the loaded library; the first
     call of a process does the work, later calls are a dict lookup (the
-    wrappers call this on every launch).  Raises with nvcc's output if the
-    build fails."""
-    source = Path(source)
+    wrappers call this on every launch).  Different sources build in
+    parallel when called from several threads.  Raises with nvcc's output
+    if the build fails."""
+    key = str(Path(source))
     with _lock:
-        built = _loaded.get(str(source))
+        lock = _source_locks.setdefault(key, threading.Lock())
+    with lock:
+        built = _loaded.get(key)
         if built is None:
-            built = _loaded[str(source)] = _build(name, source)
+            built = _loaded[key] = _build(name, Path(source))
         return built
 
 

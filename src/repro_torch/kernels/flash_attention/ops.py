@@ -1,0 +1,130 @@
+"""Wrapper of the flash-attention forward kernel.
+
+``flash_attention(q, k, v, causal)`` takes the reference's layout, q
+(B,Hq,S,D) and k, v (B,Hkv,T,D), and returns (B,Hq,S,D) in ``q.dtype``.  On
+CUDA tensors it launches the hand-written kernel in
+``csrc/flash_attention.cu`` (built with nvcc at first use) or raises; it
+takes the plain version (:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`)
+only for tensors on the CPU.  ``flash_attention.launches`` counts kernel
+launches.
+
+The kernel is forward-only, as the reference's Pallas kernel is (it defines
+no VJP, and ``jax.grad`` through it fails): with grad enabled, an input that
+requires grad is refused on both devices rather than differentiated through
+the plain version.
+
+What the reference's wrapper does by padding, the kernel does with bounds
+masks: GQA reads kv head ``h // (Hq // Hkv)`` in place of ``repeat``, and
+ragged S and T need no padding.  As in the reference (``ops.py:36-41``),
+non-causal attention over a key length that is not a multiple of its
+128-key block (when longer than one block) is refused.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import Built, load_cuda_library
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)
+REF_BLOCK_K = 128  # the reference's key block, which sets its padding rule
+MAX_BH = 65535  # gridDim.y
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def build() -> Built:
+    """Compile (once) and load the kernel library; declares the C signature."""
+    built = load_cuda_library("flash_attention", SOURCE)
+    fn = built.lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        err = built.lib.flash_attention_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return built
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, H, S, D), got {tuple(t.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention is forward-only (the reference's kernel has no VJP); "
+            "run it under torch.no_grad() or use attention_impl='ref' to train")
+    B, Hq, S, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k, v must be (B, Hkv, T, D) matching q {tuple(q.shape)}, "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    Hkv, T = k.shape[1], k.shape[2]
+    if min(B, Hq, S, T) == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"query heads {Hq} must be a multiple of kv heads {Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported; the kernel takes {HEAD_DIMS}")
+    if causal and S > T:
+        raise ValueError(f"causal attention needs S <= T, got S={S}, T={T}")
+    if not causal and T > REF_BLOCK_K and T % REF_BLOCK_K:
+        raise ValueError(f"non-causal attention over T={T} keys, not a multiple of "
+                         f"{REF_BLOCK_K}: the reference refuses its key padding")
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """A view the kernel can read through its strides: the last dimension
+    contiguous and every row 16-byte aligned; otherwise a contiguous copy."""
+    align = 16 // t.element_size()
+    if (t.stride(3) == 1 and all(s % align == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B,Hq,S,D), k/v (B,Hkv,T,D) -> (B,Hq,S,D) in ``q.dtype``."""
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if B * Hq > MAX_BH:
+        raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid ({MAX_BH})")
+    # the output is laid out (B,S,Hq,D), as the model consumes it, and
+    # returned as the (B,Hq,S,D) view
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    lib = build().lib
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, S, T, D, strides, int(causal), _DTYPES[q.dtype], stream,
+        )
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

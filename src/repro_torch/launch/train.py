@@ -1,15 +1,20 @@
-"""End-to-end training launcher for the paper's experiment.
+"""End-to-end training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --device-ingest \
         --items 1024 --batch-size 64 --avg-kb 115 --steps 48 --optimizer sgd
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --device cpu \
+        --items 16 --batch-size 4 --seq-len 64 --steps 4 --microbatches 2
 
-Wires the stack together: synthetic ImageNet in an object store behind
-simulated S3 -> ImageDataset -> ConcurrentDataLoader (the paper's loader) ->
+Wires the stack together: a synthetic dataset in an object store behind
+simulated S3 -> dataset -> ConcurrentDataLoader (the paper's loader) ->
 device prefetch ring (H2D, then the ``ingest_norm`` kernel with
-``--device-ingest``) -> ResNet train step -> Trainer, and prints the paper's
+``--device-ingest``) -> train step -> Trainer, and prints the paper's
 Table-3 columns (throughput + accelerator busy stats) at the end.
-``--smoke`` (default) uses the reduced config; ``--full`` ResNet-18 at full
-width.  ``--device`` defaults to ``cuda`` and raises when no card is present.
+``--arch resnet18-imagenet`` (default) trains the paper's own model on
+synthetic ImageNet; ``--arch granite-8b`` the dense decoder on packed token
+sequences of ``--seq-len`` tokens streamed through the same loader.
+``--smoke`` (default) uses the reduced config; ``--full`` the real widths.
+``--device`` defaults to ``cuda`` and raises when no card is present.
 """
 from __future__ import annotations
 
@@ -24,11 +29,16 @@ from repro_torch.config import LoaderConfig, ModelConfig, StoreConfig, TrainConf
 from repro_torch.core.loader import ConcurrentDataLoader
 from repro_torch.core.tracing import BATCH_TO_DEVICE, Tracer
 from repro_torch.core.utilization import UtilStats, accelerator_stats
-from repro_torch.data.dataset import ImageDataset
+from repro_torch.data.dataset import ImageDataset, MapDataset, TokenDataset, build_token_store
 from repro_torch.data.imagenet_synth import build_synthetic_imagenet
-from repro_torch.data.store import build_store
+from repro_torch.data.store import InMemoryStore, build_store
 from repro_torch.device import resolve_device
-from repro_torch.train.steps import init_resnet_train_state, make_resnet_train_step
+from repro_torch.train.steps import (
+    init_resnet_train_state,
+    init_train_state,
+    make_resnet_train_step,
+    make_train_step,
+)
 from repro_torch.train.trainer import LoggingCallback, Trainer, TrainResult
 from repro_torch.tree import leaves
 
@@ -45,15 +55,21 @@ class RunReport:
     batch_to_device_s: float
 
 
-def build_dataset(cfg: ModelConfig, args, tracer: Tracer) -> ImageDataset:
-    """Materialize synthetic ImageNet behind the requested store stack."""
+def build_dataset(cfg: ModelConfig, args, tracer: Tracer) -> MapDataset:
+    """Materialize a synthetic dataset behind the requested store stack:
+    ImageNet-like images for the resnet family, packed token sequences
+    otherwise."""
     scfg = StoreConfig(kind=args.store, latency_mean_s=args.latency)
-    base = build_synthetic_imagenet(num_items=args.items, avg_kb=args.avg_kb)
-    return ImageDataset(
-        build_store(scfg, base=base), args.items, out_size=cfg.image_size, tracer=tracer,
-        sim_decode_s_per_mb=0.052,
-        epilogue="device" if args.device_ingest else "host",
-    )
+    if cfg.family == "resnet":
+        base = build_synthetic_imagenet(num_items=args.items, avg_kb=args.avg_kb)
+        return ImageDataset(
+            build_store(scfg, base=base), args.items, out_size=cfg.image_size, tracer=tracer,
+            sim_decode_s_per_mb=0.052,
+            epilogue="device" if args.device_ingest else "host",
+        )
+    base = InMemoryStore()
+    build_token_store(base, args.items, args.seq_len, cfg.vocab_size)
+    return TokenDataset(build_store(scfg, base=base), args.items, args.seq_len, tracer=tracer)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -68,6 +84,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--items", type=int, default=512)
     ap.add_argument("--avg-kb", type=float, default=48.0,
                     help="mean encoded image size (the paper's ImageNet: 115)")
+    ap.add_argument("--seq-len", type=int, default=256, help="tokens per LM sequence")
     ap.add_argument("--store", choices=["memory", "s3sim"], default="s3sim")
     ap.add_argument("--latency", type=float, default=0.02)
     ap.add_argument("--loader", choices=["vanilla", "threaded", "asyncio"],
@@ -75,11 +92,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--fetchers", type=int, default=16)
     ap.add_argument("--device-ingest", action="store_true",
-                    help="host stages stop at raw uint8 HWC and the ingest_norm "
-                         "kernel runs cast+normalize on the device after H2D "
-                         "(4x fewer host-side bytes per image)")
-    ap.add_argument("--optimizer", choices=["adamw", "sgd"], default="adamw")
+                    help="resnet only: host stages stop at raw uint8 HWC and the "
+                         "ingest_norm kernel runs cast+normalize on the device after "
+                         "H2D (4x fewer host-side bytes per image)")
+    ap.add_argument("--optimizer", choices=["adamw", "adafactor", "sgd"], default="adamw")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none", choices=["none", "bf16", "int8_ef"])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -89,10 +108,11 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke)
-    if cfg.family != "resnet":
-        raise SystemExit(f"the port trains the resnet family; {args.arch} is {cfg.family}")
+    if args.device_ingest and cfg.family != "resnet":
+        raise SystemExit("--device-ingest requires an image (resnet) arch")
     tcfg = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
-                       total_steps=args.steps)
+                       microbatches=args.microbatches,
+                       grad_compression=args.grad_compression, total_steps=args.steps)
     tracer = Tracer()
     loader = ConcurrentDataLoader(
         build_dataset(cfg, args, tracer),
@@ -101,8 +121,15 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
                      seed=args.seed),
         tracer=tracer,
     )
-    generator = torch.Generator().manual_seed(args.seed)
-    state = init_resnet_train_state(cfg, tcfg, generator, device)
+    if cfg.family == "resnet":
+        state = init_resnet_train_state(cfg, tcfg, torch.Generator().manual_seed(args.seed),
+                                        device)
+        step_fn = make_resnet_train_step(cfg, tcfg)
+    else:
+        # drawn on the card when training there: a full-width model in moments
+        state = init_train_state(cfg, tcfg, torch.Generator(device).manual_seed(args.seed),
+                                 device)
+        step_fn = make_train_step(cfg, tcfg)
     n_params = sum(p.numel() for p in leaves(state["params"]))
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M loader={args.loader} "
           f"store={args.store} device={device}", flush=True)
@@ -113,7 +140,7 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
 
         ingest_fn = make_ingest_fn()
     trainer = Trainer(
-        make_resnet_train_step(cfg, tcfg), state,
+        step_fn, state,
         callbacks=[LoggingCallback(log_every_n_steps=args.log_every,
                                    sink=lambda s: print("  " + s, flush=True))],
         tracer=tracer, ingest_fn=ingest_fn, device=device,

@@ -1,4 +1,4 @@
-"""Optimizers (AdamW / SGD-momentum) + LR schedules, as plain functions.
+"""Optimizers (AdamW / Adafactor / SGD-momentum) + LR schedules, as plain functions.
 
 Written out rather than taken from ``torch.optim`` so each matches the JAX
 reference (``repro/train/optim.py``) step for step:
@@ -11,7 +11,8 @@ reference (``repro/train/optim.py``) step for step:
 Unlike the reference's pure functions, ``update`` works **in place**: it
 overwrites the parameter and moment tensors under ``torch.no_grad()`` (the
 parameters stay autograd leaves) and returns the same trees.  Adafactor
-comes with the LM slice.
+(factored second moments over the last two dims, no momentum, update
+clipping and relative step size) follows ``repro/train/optim.py:88-144``.
 """
 from __future__ import annotations
 
@@ -92,6 +93,64 @@ def make_adamw(cfg: TrainConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
+def make_adafactor(cfg: TrainConfig) -> Optimizer:
+    """Factored Adafactor (Shazeer & Stern): row/col second moments for >=2-D
+    tensors (factored over the last two dims), full for 1-D.  No momentum."""
+    sched = make_schedule(cfg)
+    eps1, eps2 = 1e-30, 1e-3
+    wd = cfg.weight_decay
+
+    def init(params):
+        def st(p):
+            if p.dim() >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32, requires_grad=False)}
+
+        return {"v": tree_map(st, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step: int):
+        grads = list(grads)
+        if cfg.grad_clip:
+            grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        lr = sched(step)
+        beta2 = 1.0 - (step + 1.0) ** (-0.8)
+        # one {"vr","vc"} or {"v"} dict per parameter, in leaf order
+        slots = _slot_dicts(state["v"], params)
+        for g, v, p in zip(grads, slots, leaves(params)):
+            g = g.float()
+            g2 = g * g + eps1
+            if p.dim() >= 2:
+                v["vr"].mul_(beta2).add_((1 - beta2) * g2.mean(-1))
+                v["vc"].mul_(beta2).add_((1 - beta2) * g2.mean(-2))
+                vr, vc = v["vr"], v["vc"]
+                denom = vr[..., None] * vc[..., None, :] / torch.clamp(
+                    vr.mean(-1, keepdim=True)[..., None], min=eps1)
+                u = g * torch.rsqrt(torch.clamp(denom, min=eps1))
+            else:
+                v["v"].mul_(beta2).add_((1 - beta2) * g2)
+                u = g * torch.rsqrt(torch.clamp(v["v"], min=eps1))
+            # update clipping (RMS <= 1)
+            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)), min=1.0)
+            pf = p.float()
+            scale = torch.clamp(torch.sqrt(torch.mean(pf * pf)), min=eps2)
+            p.copy_((pf - lr * scale * u - lr * wd * pf).to(p.dtype))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def _slot_dicts(v_tree: Any, params: Any) -> List[Any]:
+    """The per-parameter slot dicts of an Adafactor state, in leaf order."""
+    if isinstance(params, dict):
+        return [s for k in sorted(params) for s in _slot_dicts(v_tree[k], params[k])]
+    if isinstance(params, (list, tuple)):
+        return [s for i, p in enumerate(params) for s in _slot_dicts(v_tree[i], p)]
+    return [v_tree]
+
+
 def make_sgd(cfg: TrainConfig) -> Optimizer:
     sched = make_schedule(cfg)
     momentum = cfg.beta1
@@ -117,6 +176,8 @@ def make_sgd(cfg: TrainConfig) -> Optimizer:
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
     if cfg.optimizer == "adamw":
         return make_adamw(cfg)
+    if cfg.optimizer == "adafactor":
+        return make_adafactor(cfg)
     if cfg.optimizer == "sgd":
         return make_sgd(cfg)
-    raise ValueError(f"unknown optimizer {cfg.optimizer!r}; the port has adamw and sgd")
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

@@ -1,6 +1,7 @@
-"""The slice end to end: the port's launcher (``repro_torch.launch.train``) on
-the CPU at smoke size, against the JAX trainer on the same synthetic store,
-loader settings, seed and initial weights."""
+"""The slices end to end: the port's launcher (``repro_torch.launch.train``) on
+the CPU at smoke size, ResNet-18 and the granite-8b LM, each against the JAX
+trainer on the same synthetic store, loader settings, seed and initial
+weights."""
 import numpy as np
 import pytest
 
@@ -22,7 +23,7 @@ from repro.train.steps import make_resnet_train_step as jax_make_step  # noqa: E
 from repro.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from repro_torch.config import register_arch, replace  # noqa: E402
 from repro_torch.configs import resnet18_imagenet  # noqa: E402
-from repro_torch.convert import resnet_state_from_jax, to_jax  # noqa: E402
+from repro_torch.convert import resnet_state_from_jax, resnet_to_jax  # noqa: E402
 from repro_torch.core.tracing import BATCH_TO_DEVICE, RUN_TRAINING_BATCH  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models.resnet import init_resnet  # noqa: E402
@@ -43,7 +44,7 @@ def test_launcher_matches_jax_trainer(monkeypatch):
     jcfg = jax_replace(jax_get_arch("resnet18-imagenet", smoke=True), num_classes=1000)
     jt = JaxTrainConfig(optimizer="sgd", learning_rate=LR, total_steps=STEPS)
     # one set of weights, made from a seed, in the reference's layout (HWIO)
-    np_params, np_bn = (to_jax(t) for t in init_resnet(
+    np_params, np_bn = (resnet_to_jax(t) for t in init_resnet(
         launch.get_arch(ARCH, smoke=True), torch.Generator().manual_seed(0), "cpu"))
     jstate = {"params": np_params, "bn": np_bn,
               "opt": joptim.make_optimizer(jt).init(np_params), "step": jnp.zeros((), jnp.int32)}
@@ -75,3 +76,58 @@ def test_launcher_matches_jax_trainer(monkeypatch):
     assert len(report.tracer.spans(RUN_TRAINING_BATCH)) == STEPS
     assert report.batches_transferred == len(report.tracer.spans(BATCH_TO_DEVICE)) >= STEPS
     assert 0.0 < report.util.busy_fraction <= 1.0
+
+
+LM_ARCH = "granite-8b-f32"
+LM_ITEMS, LM_BS, LM_SEQ, LM_STEPS = 12, 4, 32, 4  # 3 batches an epoch: the run crosses one
+LM_ARGS = ["--arch", LM_ARCH, "--device", "cpu", "--items", str(LM_ITEMS),
+           "--batch-size", str(LM_BS), "--seq-len", str(LM_SEQ), "--steps", str(LM_STEPS),
+           "--latency", "0.001", "--optimizer", "adamw", "--lr", "1e-3", "--microbatches", "2",
+           "--workers", "2", "--fetchers", "2"]
+
+
+def test_lm_launcher_matches_jax_trainer(monkeypatch):
+    """``--arch granite-8b`` trains the smoke decoder from packed token
+    sequences behind simulated S3, two microbatches a step, in fp32 so the
+    histories compare at 1e-4."""
+    import jax
+
+    import repro.models.transformer as jT
+    from repro.data.dataset import TokenDataset as JaxTokenDataset
+    from repro.data.dataset import build_token_store as jax_build_tokens
+    from repro.data.store import InMemoryStore as JaxInMemoryStore
+    from repro.train.steps import make_train_step as jax_make_train_step
+    from repro_torch.configs import granite_8b
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.train.steps import lm_train_state
+
+    register_arch(LM_ARCH, granite_8b.full,
+                  lambda: replace(granite_8b.smoke(), dtype="float32"))
+    jcfg = jax_replace(jax_get_arch("granite-8b", smoke=True), dtype="float32")
+    jt = JaxTrainConfig(optimizer="adamw", learning_rate=1e-3, microbatches=2,
+                        total_steps=LM_STEPS)
+    np_params = jax.device_get(jT.init_lm(jax.random.PRNGKey(0), jcfg))
+    monkeypatch.setattr(launch, "init_train_state", lambda cfg, tcfg, generator, device:
+                        lm_train_state(lm_params_from_jax(np_params, device), tcfg))
+    report = launch.run(LM_ARGS)
+
+    base = JaxInMemoryStore()
+    jax_build_tokens(base, LM_ITEMS, LM_SEQ, jcfg.vocab_size)
+    store = jax_build_store(JaxStoreConfig(kind="s3sim", latency_mean_s=0.001), base=base)
+    loader = JaxLoader(JaxTokenDataset(store, LM_ITEMS, LM_SEQ),
+                       JaxLoaderConfig(impl="threaded", batch_size=LM_BS, num_workers=2,
+                                       num_fetch_workers=2, seed=0))
+    jstate = {"params": np_params, "opt": joptim.make_optimizer(jt).init(np_params),
+              "step": jnp.zeros((), jnp.int32)}
+    want = JaxTrainer(jax_make_train_step(jcfg, jt), jstate).fit(
+        loader, epochs=100, max_steps=LM_STEPS)
+
+    got = report.result
+    assert got.steps == want.steps == LM_STEPS and got.epochs == want.epochs == 2
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[k] for h in got.history], [h[k] for h in want.history],
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    assert all(np.isfinite(h["loss"]) for h in got.history)
+    assert len(report.tracer.spans(RUN_TRAINING_BATCH)) == LM_STEPS
+    with pytest.raises(SystemExit, match="device-ingest"):
+        launch.run(LM_ARGS + ["--device-ingest"])

@@ -91,3 +91,39 @@ def test_utilization_matches_reference():
                                   0.0, 3.2)
     assert got.__dict__ == pytest.approx(want.__dict__)
     assert union_duration([Span("x", 0, 2, 0), Span("x", 1, 3, 0), Span("x", 5, 6, 0)]) == 4
+
+
+@pytest.mark.parametrize("impl", ["threaded", "asyncio"])
+def test_token_batches_bit_identical_to_reference(impl):
+    """The LM path: packed token sequences built from the same seed behind
+    simulated S3, through both loaders, give the same int32 batches."""
+    from repro.data.dataset import TokenDataset as JaxTokenDataset
+    from repro.data.dataset import build_token_store as jax_build_tokens
+    from repro.data.store import InMemoryStore as JaxInMemoryStore
+    from repro_torch.data.dataset import TokenDataset, build_token_store
+    from repro_torch.data.store import InMemoryStore
+
+    n, seq, vocab = 12, 24, 97
+    port_base, ref_base = InMemoryStore(), JaxInMemoryStore()
+    build_token_store(port_base, n, seq, vocab, seed=5)
+    jax_build_tokens(ref_base, n, seq, vocab, seed=5)
+    assert port_base.list_keys() == ref_base.list_keys()
+    assert all(port_base.get(k) == ref_base.get(k) for k in ref_base.list_keys())
+    cfg = dict(impl=impl, batch_size=4, num_workers=2, prefetch_factor=2,
+               num_fetch_workers=4, seed=3)
+    port = ConcurrentDataLoader(
+        TokenDataset(build_store(StoreConfig(kind="s3sim", **STORE), base=port_base), n, seq),
+        LoaderConfig(**cfg))
+    ref = JaxLoader(JaxTokenDataset(JaxS3(ref_base, **STORE), n, seq), JaxLoaderConfig(**cfg))
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        got, want = list(port), list(ref)
+        assert len(got) == len(want) == n // 4
+        for pb, rb in zip(got, want):
+            assert sorted(pb) == sorted(rb) == ["nbytes", "targets", "tokens"]
+            for k in rb:
+                assert pb[k].dtype == rb[k].dtype and pb[k].shape == rb[k].shape, k
+                np.testing.assert_array_equal(pb[k], rb[k], err_msg=k)
+            assert pb["tokens"].dtype == np.int32 and pb["tokens"].shape == (4, seq)
+            np.testing.assert_array_equal(pb["tokens"][:, 1:], pb["targets"][:, :-1])

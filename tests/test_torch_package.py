@@ -70,6 +70,7 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
 
 
 def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():
+    from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ingest_norm import ops
 
     img = torch.empty((2, 4, 4, 3), dtype=torch.uint8, device="meta")
@@ -80,3 +81,8 @@ def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="out_dtype"):
         ops.ingest_norm(torch.zeros((2, 4, 4, 3), dtype=torch.uint8), [0.5] * 3, [0.2] * 3,
                         torch.float16)
+    q = torch.empty((1, 4, 64, 32), device="meta")
+    k = torch.empty((1, 2, 64, 32), device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        flash.flash_attention(q, k, k)
+    assert flash.flash_attention.launches == 0

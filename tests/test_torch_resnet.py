@@ -10,7 +10,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.config import get_arch as jax_get_arch  # noqa: E402
 from repro.models import resnet as jres  # noqa: E402
 from repro_torch.config import get_arch  # noqa: E402
-from repro_torch.convert import resnet_state_from_jax, to_jax  # noqa: E402
+from repro_torch.convert import resnet_state_from_jax, resnet_to_jax  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 from repro_torch.tree import flatten, leaves  # noqa: E402
 
@@ -55,8 +55,8 @@ def test_converted_init_round_trips(init):
     assert p["stem"]["conv/w"].shape == (8, 3, 7, 7)  # OIHW
     assert p["fc"]["w"].shape == (16, 10)  # (cin, classes) as in JAX
     assert all(t.requires_grad for t in leaves(p))
-    _assert_trees_close(to_jax(p), params)
-    _assert_trees_close(to_jax(s), bn)
+    _assert_trees_close(resnet_to_jax(p), params)
+    _assert_trees_close(resnet_to_jax(s), bn)
 
 
 @pytest.mark.parametrize("size", [32, 37])
@@ -83,10 +83,10 @@ def test_forward_and_grads_match_jax(init, size):
     np.testing.assert_allclose(evals.detach().numpy(), np.asarray(jeval), **TOL)
     np.testing.assert_allclose(loss.item(), float(jl), **TOL)
     np.testing.assert_allclose(acc.item(), float(jacc), **TOL)
-    _assert_trees_close(to_jax(new_bn), jax.device_get(jbn))
+    _assert_trees_close(resnet_to_jax(new_bn), jax.device_get(jbn))
     grad_tree = dict(zip(flatten(p), grads))
     _assert_trees_close(
-        {k: to_jax({"g": g})["g"] for k, g in grad_tree.items()},
+        {k: resnet_to_jax({"g": g})["g"] for k, g in grad_tree.items()},
         flatten(jax.device_get(jgrads)),
     )
 
@@ -108,6 +108,6 @@ def test_out_of_range_label_reads_as_nan_like_the_reference(init):
     assert np.isnan(float(jl)) and np.isnan(loss.item())
     want = flatten(jax.device_get(jgrads))
     for (path, g) in zip(flatten(p), grads):
-        got = to_jax({"g": g})["g"]
+        got = resnet_to_jax({"g": g})["g"]
         assert np.isfinite(got).all(), path
         np.testing.assert_allclose(got, want[path], err_msg=path, **TOL)

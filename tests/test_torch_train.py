@@ -13,7 +13,7 @@ from repro.config import get_arch as jax_get_arch  # noqa: E402
 from repro.train import optim as joptim  # noqa: E402
 from repro.train.steps import make_resnet_train_step as jax_make_step  # noqa: E402
 from repro_torch.config import TrainConfig, get_arch  # noqa: E402
-from repro_torch.convert import resnet_state_from_jax, to_jax  # noqa: E402
+from repro_torch.convert import resnet_state_from_jax, resnet_to_jax  # noqa: E402
 from repro_torch.models.resnet import init_resnet  # noqa: E402
 from repro_torch.train.optim import make_optimizer, make_schedule  # noqa: E402
 from repro_torch.train.steps import init_resnet_train_state, make_resnet_train_step  # noqa: E402
@@ -43,7 +43,7 @@ def test_three_steps_match_jax(optimizer):
     jt = JaxTrainConfig(optimizer=optimizer, **HPARAMS)
     tcfg = TrainConfig(optimizer=optimizer, **HPARAMS)
     # one set of weights, made from a seed, in the reference's layout (HWIO)
-    np_params, np_bn = (to_jax(t) for t in init_resnet(cfg, torch.Generator().manual_seed(0),
+    np_params, np_bn = (resnet_to_jax(t) for t in init_resnet(cfg, torch.Generator().manual_seed(0),
                                                        "cpu"))
     jstate = {"params": np_params, "bn": np_bn,
               "opt": joptim.make_optimizer(jt).init(np_params), "step": jnp.zeros((), jnp.int32)}
@@ -67,7 +67,7 @@ def test_three_steps_match_jax(optimizer):
         clipped |= float(jm["grad_norm"]) > HPARAMS["grad_clip"]
     assert clipped and state["step"] == 3
     for name in ("params", "bn", "opt"):
-        got, want = flatten(to_jax(state[name])), flatten(jax.device_get(jstate[name]))
+        got, want = flatten(resnet_to_jax(state[name])), flatten(jax.device_get(jstate[name]))
         assert list(got) == list(want)
         for path in want:
             np.testing.assert_allclose(got[path], want[path], err_msg=f"{name}/{path}", **TOL)
