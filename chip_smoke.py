@@ -25,8 +25,20 @@ Phases, each printing one JSON line:
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
    kernel) over 4 loader batches against the plain attention's.
+8. kernels/rwkv6_wkv and kernels/rmsnorm — each new kernel against its
+   plain version at the reference tests' cases and the path's shape, with
+   timings (rmsnorm with the library yardstick ``F.rms_norm``).
+9. model_rwkv — two AdamW steps of the rwkv6-7b smoke model on the card
+   against the CPU (fp32, TF32 off).
+10. main_rwkv — the RWKV path: full-width rwkv6-7b (depth cut to 4 layers)
+   trained from simulated S3 through the launcher, then 4 loader batches
+   walked through the trained blocks, each layer's time-mix run through
+   the WKV kernel (``wkv_impl``) beside the plain chunked scan; the kernel
+   gated on the real r, k, v, w, and RMSNorm on a real residual.
 
-Launch counts are set to 0 just before each main path and read just after.
+Launch counts are set to 0 just before each main path and read just after
+(for main_rwkv, before and after its eval walk; rmsnorm, which no model
+calls, counts its own phase's checked calls).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
 nothing of JAX and nothing of the JAX package.
@@ -50,6 +62,8 @@ SRC = ROOT / "src"
 BANDWIDTH = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12)]
 PEAK_BF16 = [("H200", 989.4e12), ("H100 NVL", 835.5e12), ("H100 PCIe", 756.5e12),
              ("H100", 989.4e12)]
+# fp32 on the CUDA cores (no tensor cores), for the WKV kernel's bound
+PEAK_FP32 = [("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12), ("H100", 67e12)]
 
 MAIN_BS = 64
 MAIN_BATCH = (MAIN_BS, 224, 224, 3)
@@ -77,6 +91,20 @@ LM_REDUCED = {"num_layers": "36 -> 4 (AdamW state of 36 layers does not fit one 
               "items": "32 packed sequences of 4097 tokens", "steps": 16}
 # flash_attention at the LM path's shape: q (B,Hq,S,D), kv (B,Hkv,S,D), bf16, causal
 FLASH_Q, FLASH_KV = (LM_BS, 32, LM_SEQ, 128), (LM_BS, 8, LM_SEQ, 128)
+
+# The RWKV path: rwkv6-7b at full width, depth cut to 4 of its 32 layers
+# (32 layers are 7.53 B parameters, about 120 GB with fp32 AdamW state),
+# with main_lm's loader settings, sequences, batch and steps.
+RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b-4l", 4
+RWKV_ARGS = [a if a != LM_ARCH else RWKV_ARCH for a in LM_ARGS]
+RWKV_REDUCED = {"num_layers": "32 -> 4 (AdamW state of 32 layers does not fit one card)",
+                "items": "32 packed sequences of 4097 tokens", "steps": 16}
+# the WKV kernel at the path's shape: r, k, v, w (B,S,H,D) fp32, 64 heads of 64
+WKV_SHAPE = (LM_BS, LM_SEQ, 64, 64)
+WKV_CHUNK = 32  # the chunk of the plain scan, for the underflow readings
+# RMSNorm at the LM phases' residual stream: (B*S, d_model)
+RMS_SHAPE = (LM_BS * LM_SEQ, 4096)
+ROW_REL_BF16 = 5e-3  # a bf16 output row's error relative to its norm, as flash's gate
 
 
 def fail(msg: str) -> None:
@@ -525,6 +553,337 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     return out
 
 
+def wkv_inputs(torch, B, S, H, D, gen, device):
+    """r, k, v, w, u drawn as tests/test_kernels.py::_wkv_inputs draws them:
+    decays exp(-exp(N(0, 0.5) - 0.6)), mostly 0.4-0.75."""
+    n = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    r, k, v = n(B, S, H, D) * 0.5, n(B, S, H, D) * 0.5, n(B, S, H, D)
+    w = torch.exp(-torch.exp(n(B, S, H, D) * 0.5 - 0.6))
+    return r, k, v, w, n(H, D) * 0.1
+
+
+def wkv_check(torch, ops, ref, args, tol, label) -> dict:
+    """The kernel against its plain version on the same inputs, as
+    assert_allclose at rtol = atol = ``tol``, for y and sT."""
+    y, sT = ops.wkv(*args)
+    want_y, want_s = ref.wkv_plain(*args)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, got, want in (("y", y, want_y), ("sT", sT, want_s)):
+        diff = (got - want).abs()
+        errs[name] = diff.max().item()
+        ok = ok and bool(torch.all(diff <= tol + tol * want.abs()).item())
+    case = {"shape": list(args[0].shape), "s0_nonzero": bool(args[5].any().item()),
+            "max_abs_err_y": errs["y"], "max_abs_err_sT": errs["sT"], "rtol": tol, "atol": tol,
+            "ok": ok}
+    if not ok:
+        emit({"phase": "kernels/rwkv6_wkv", "failed_case": case})
+        fail(f"rwkv6_wkv {label}: max abs err y {errs['y']}, sT {errs['sT']} (tol {tol})")
+    return case
+
+
+def phase_wkv(torch, ops, ref, bw, peak_f32) -> dict:
+    """rwkv6_wkv against its plain version at tests/test_kernels.py's cases
+    (2e-4, 5e-4 with a nonzero s0), at D = 64 and at the path's shape; device
+    times of the kernel and the plain version (no single PyTorch call
+    computes the recurrence)."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    dev = "cuda"
+    cases = []
+    for B, S, H, D in [(2, 32, 3, 16), (2, 64, 3, 16), (2, 48, 3, 16), (2, 40, 3, 16),
+                       (2, 40, 3, 64), (1, 77, 2, 128)]:
+        r, k, v, w, u = wkv_inputs(torch, B, S, H, D, gen, dev)
+        cases.append(wkv_check(torch, ops, ref, (r, k, v, w, u, torch.zeros(
+            (B, H, D, D), device=dev)), 2e-4, f"B={B} S={S} H={H} D={D}"))
+    for B, S, H, D in [(1, 16, 2, 8), (2, 40, 3, 64)]:
+        r, k, v, w, u = wkv_inputs(torch, B, S, H, D, gen, dev)
+        s0 = torch.randn((B, H, D, D), generator=gen, device=dev) * 0.3
+        cases.append(wkv_check(torch, ops, ref, (r, k, v, w, u, s0), 5e-4,
+                               f"B={B} S={S} H={H} D={D} nonzero s0"))
+    B, S, H, D = WKV_SHAPE
+    r, k, v, w, u = wkv_inputs(torch, B, S, H, D, gen, dev)
+    zeros = torch.zeros((B, H, D, D), device=dev)
+    main_case = wkv_check(torch, ops, ref, (r, k, v, w, u, zeros), 2e-4, "path shape")
+    cases.append(main_case)
+    s0 = torch.randn((B, H, D, D), generator=gen, device=dev) * 0.3
+    cases.append(wkv_check(torch, ops, ref, (r, k, v, w, u, s0), 5e-4, "path shape, s0"))
+    kernel_ms = device_ms(lambda: ops.wkv(r, k, v, w, u, zeros))
+    plain_ms = device_ms(lambda: ref.wkv_plain(r, k, v, w, u, zeros), runs=3,
+                         per_run=1, warmup=1)
+    # r, k, v, w, y (B,S,H,D), s0 and sT (B,H,D,D) and u (H,D) in fp32, each
+    # once; 5 D^2 flops a token and head (D fmas for y, a multiply and an fma
+    # for S), at the fp32 CUDA-core peak
+    nbytes = 4 * (5 * B * S * H * D + 2 * B * H * D * D + H * D)
+    flops = 5.0 * D * D * B * S * H
+    bound, bound_by = bound_ms(nbytes, flops, bw, peak_f32)
+    out = {"phase": "kernels/rwkv6_wkv", "kernel": "rwkv6_wkv", "shape": list(WKV_SHAPE),
+           "dtype": "float32", "max_abs_err": main_case["max_abs_err_y"], "cases": cases,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound, "bound_by": bound_by, "bound_bytes": nbytes, "flops": flops,
+           "bytes_bound_ms": nbytes / bw * 1e3 if bw else None,
+           "ops_bound_ms": flops / peak_f32 * 1e3 if peak_f32 else None,
+           "peak_fp32_flops": peak_f32, "kernel_gb_per_s": nbytes / kernel_ms / 1e6}
+    emit(out)
+    return out
+
+
+def phase_rmsnorm(torch, ops, ref, bw) -> dict:
+    """rmsnorm against its plain version at tests/test_kernels.py's shapes
+    and dtypes (TOL: 1e-5 f32, 2e-2 bf16), the row-masking case, and the LM
+    residual stream's shape; device times of the kernel, the plain version
+    and the library yardstick ``F.rms_norm``.  ``launches`` counts this
+    phase's checked calls: no model path calls the kernel."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    limits = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    ops.rmsnorm.launches = 0
+    cases = []
+
+    def check(x, scale, label):
+        got, want = ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale)
+        torch.cuda.synchronize()
+        tol = limits[x.dtype]
+        if got.shape != x.shape or got.dtype != x.dtype:
+            fail(f"rmsnorm {label}: got {tuple(got.shape)} {got.dtype}")
+        diff = (got.float() - want.float()).abs()
+        ok = bool(torch.all(diff <= tol + tol * want.float().abs()).item())
+        case = {"shape": list(x.shape), "x_dtype": str(x.dtype), "scale_dtype": str(scale.dtype),
+                "max_abs_err": diff.max().item(), "rtol": tol, "atol": tol, "ok": ok}
+        if not ok:
+            emit({"phase": "kernels/rmsnorm", "failed_case": case})
+            fail(f"rmsnorm {label}: max abs err {case['max_abs_err']} (tol {tol})")
+        cases.append(case)
+        return case
+
+    for shape in [(8, 128), (4, 16, 256), (1, 384), (130, 128), (7, 128), (9, 100)]:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        scale = torch.randn(shape[-1:], generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            check(x.to(dt), scale.to(dt), f"{shape} {dt}")
+    x32 = torch.randn(RMS_SHAPE, generator=gen, device="cuda")
+    scale = torch.randn(RMS_SHAPE[-1:], generator=gen, device="cuda")
+    x = x32.bfloat16()
+    main_case = check(x, scale, "path shape, bf16 x, fp32 scale")
+    main32 = check(x32, scale, "path shape, fp32")
+    launches = ops.rmsnorm.launches
+    d = RMS_SHAPE[-1]
+    kernel_ms = device_ms(lambda: ops.rmsnorm(x, scale))
+    plain_ms = device_ms(lambda: ref.rmsnorm_ref(x, scale))
+    library_ms = device_ms(lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6))
+    scale_bf16 = scale.bfloat16()
+    library_bf16_scale_ms = device_ms(lambda: F.rms_norm(x, (d,), weight=scale_bf16, eps=1e-6))
+    kernel32_ms = device_ms(lambda: ops.rmsnorm(x32, scale))
+    n = RMS_SHAPE[0]
+    nbytes = n * d * 2 * 2 + d * 4  # bf16 x read and y written once, fp32 scale
+    nbytes32 = n * d * 4 * 2 + d * 4
+    out = {"phase": "kernels/rmsnorm", "kernel": "rmsnorm", "shape": list(RMS_SHAPE),
+           "x_dtype": "bfloat16", "scale_dtype": "float32",
+           "max_abs_err": main_case["max_abs_err"], "max_abs_err_fp32": main32["max_abs_err"],
+           "cases": cases, "launches": launches,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "F.rms_norm(x, (d,), weight=scale, eps=1e-6)",
+           "library_bf16_scale_ms": library_bf16_scale_ms, "kernel_fp32_ms": kernel32_ms,
+           "bound_ms": bound_ms(nbytes, 0, bw, None)[0], "bound_by": "bytes",
+           "bound_bytes": nbytes, "bound_fp32_ms": bound_ms(nbytes32, 0, bw, None)[0],
+           "kernel_gb_per_s": nbytes / kernel_ms / 1e6,
+           "note": "no model path calls rmsnorm (apply_norm is plain, as in the reference); "
+                   "launches counts this phase's checked calls"}
+    emit(out)
+    return out
+
+
+def phase_model_rwkv(torch) -> dict:
+    """The rwkv6-7b smoke model: two AdamW steps on the card against the CPU
+    from the same weights, in fp32 with TF32 off (the devices differ only in
+    summation order)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.convert import lm_params_from_jax, to_jax
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.steps import lm_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("rwkv6-7b", smoke=True), dtype="float32")
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-3, warmup_steps=1)
+    np_params = to_jax(init_lm(cfg, torch.Generator().manual_seed(1), "cpu"))
+    rng = np.random.default_rng(2)
+    batches = [{k: rng.integers(0, cfg.vocab_size, (4, 72)).astype(np.int32)
+                for k in ("tokens", "targets")} for _ in range(2)]
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = lm_train_state(lm_params_from_jax(np_params, dev), tcfg)
+        step = make_train_step(cfg, tcfg)
+        losses[dev] = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses[dev].append(m["loss"].item())
+    diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    out = {"phase": "model_rwkv", "arch": cfg.name, "steps": 2, "dtype": "float32",
+           "seq_len": 72, "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
+           "max_loss_diff": diff, "limit": 1e-4, "cudnn_allow_tf32": False,
+           "matmul_allow_tf32": False}
+    emit(out)
+    if not all(math.isfinite(x) for x in losses["cuda"]) or not diff <= 1e-4:
+        fail(f"RWKV train steps on the card differ from the CPU: {losses}")
+    return out
+
+
+def decay_readings(torch, w) -> dict:
+    """The smallest decay, and the largest 1/P_incl over a WKV_CHUNK-token
+    chunk (the division the chunked form makes; fp32 underflows past about
+    1e38), of w (B, S, H, D)."""
+    B, S, H, D = w.shape
+    n = S // WKV_CHUNK * WKV_CHUNK
+    logw = torch.log(w[:, :n].clamp_min(1e-12)).reshape(B, n // WKV_CHUNK, WKV_CHUNK, H, D)
+    neg_log_p = -torch.cumsum(logw, dim=2)  # -log P_incl
+    return {"min_w": w.min().item(), "max_log10_inv_p_incl": neg_log_p.max().item() / math.log(10),
+            "min_chunk_mean_w": torch.exp(-neg_log_p[:, :, -1] / WKV_CHUNK).min().item()}
+
+
+def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> dict:
+    """The RWKV path: rwkv6-7b-4l trained through the launcher, then the
+    trained model's blocks walked over 4 loader batches with each layer's
+    time-mix run through the WKV kernel beside the plain chunked scan."""
+    from repro_torch.config import LoaderConfig, register_arch, replace
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.core.loader import ConcurrentDataLoader
+    from repro_torch.core.prefetch import DevicePrefetchRing
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.launch import train as launch
+    from repro_torch.models.layers import apply_embedding, apply_norm
+    from repro_torch.models.rwkv6 import apply_rwkv_timemix
+    from repro_torch.models.transformer import _apply_sublayer, _unbind, layer_kinds
+    from repro_torch.tree import leaves
+
+    register_arch(RWKV_ARCH, lambda: replace(rwkv6_7b.full(), num_layers=RWKV_LAYERS),
+                  rwkv6_7b.smoke)
+    # PyTorch's defaults, stated; the model computes in bf16
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counted in (wkv_ops.wkv, ingest_ops.ingest_norm, flash_ops.flash_attention):
+        counted.launches = 0
+    report = launch.run(RWKV_ARGS)
+    train_launches = wkv_ops.wkv.launches  # the training path runs the plain scan
+    train_peak = torch.cuda.max_memory_allocated()
+    cfg, params = report.cfg, report.state["params"]
+    args = launch.parse_args(RWKV_ARGS)
+    loader = ConcurrentDataLoader(
+        launch.build_dataset(cfg, args, Tracer()),
+        LoaderConfig(impl="threaded", batch_size=LM_BS, num_workers=4, num_fetch_workers=16,
+                     seed=1))
+    ring = DevicePrefetchRing(iter(loader), depth=2, device="cuda")
+    try:
+        batches = [b for _, b in zip(range(LM_EVAL_BATCHES), ring)]
+    finally:
+        ring.close()
+
+    # The eval walk: per batch and layer, the time-mix on the layer's normed
+    # input through the kernel and through the plain scan, then the layer.
+    captured, readings, row_errs = {}, [], []
+
+    def wkv_recorded(r, k, v, w, u, s0):
+        readings.append(decay_readings(torch, w))
+        if not captured:
+            captured.update(r=r, k=k, v=v, w=w, u=u, s0=s0)
+        return wkv_ops.wkv(r, k, v, w, u, s0)
+
+    kinds = layer_kinds(cfg)
+    blocks = _unbind(params["blocks"])
+    residual = None
+    with torch.no_grad():
+        for b in batches:
+            x = apply_embedding(params["embed"], b["tokens"], cfg)
+            positions = torch.arange(x.shape[1], device=x.device)
+            for li, bp in enumerate(blocks):
+                p = bp["sub0"]
+                if residual is None and li == len(blocks) - 1:
+                    residual = (x, p["ln1"])
+                h = apply_norm(p["ln1"], x, cfg)
+                plain, _ = apply_rwkv_timemix(p["tm"], h, cfg, scan_mode="chunk")
+                kern, _ = apply_rwkv_timemix(p["tm"], h, cfg, wkv_impl=wkv_recorded)
+                diff = (kern.float() - plain.float()).norm(dim=-1)
+                row_errs.append((diff / plain.float().norm(dim=-1).clamp_min(1e-30)).max().item())
+                x = _apply_sublayer(p, x, cfg, kinds[li], positions=positions)
+    walk_launches = wkv_ops.wkv.launches
+    ingest_launches, flash_launches = ingest_ops.ingest_norm.launches, \
+        flash_ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.no_grad():  # u and the norm scales are trained parameters
+        # the kernel against its plain version on the trained model's real inputs
+        real_case = wkv_check(torch, wkv_ops, wkv_ref,
+                              tuple(captured[k] for k in ("r", "k", "v", "w", "u", "s0")),
+                              2e-4, "real r, k, v, w")
+        # RMSNorm on a real residual (bf16 x, fp32 scale) against apply_norm
+        x, ln = residual
+        got, want = rms_ops.rmsnorm(x, ln["scale"]), apply_norm(ln, x, cfg)
+        torch.cuda.synchronize()
+    rms_err = (got.float() - want.float()).abs()
+    rms_ok = bool(torch.all(rms_err <= 2e-2 + 2e-2 * want.float().abs()).item())
+
+    losses = [h["loss"] for h in report.result.history]
+    devices = sorted({str(t.device.type) for t in leaves(params)})
+    ends = sorted(sp.t1 for sp in report.tracer.spans("run_training_batch"))
+    steady = (len(ends) - 1) * LM_BS / (ends[-1] - ends[0]) if len(ends) > 1 else None
+    expected = cfg.num_layers * len(batches)
+    out = {
+        "phase": "main_rwkv", "arch": cfg.name, "args": RWKV_ARGS, "reduced": RWKV_REDUCED,
+        "num_layers": cfg.num_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "vocab_size": cfg.vocab_size, "heads": cfg.d_model // cfg.rwkv.head_dim,
+        "head_dim": cfg.rwkv.head_dim, "params": sum(t.numel() for t in leaves(params)),
+        "steps": report.result.steps, "epochs": report.result.epochs,
+        "wall_s": report.result.wall_s, "items_per_s": report.items_per_s,
+        "tokens_per_s": report.items_per_s * LM_SEQ,
+        "items_per_s_after_first_step": steady,
+        "tokens_per_s_after_first_step": steady * LM_SEQ if steady else None,
+        "first_step_ms": 1e3 * report.tracer.spans("run_training_batch")[0].duration,
+        "spans": span_stats(report.tracer),
+        "util_zero_pct": report.util.util_zero_pct, "util_pos_avg": report.util.util_pos_avg,
+        "busy_fraction": report.util.busy_fraction,
+        "max_memory_allocated_train_bytes": train_peak, "max_memory_allocated_bytes": peak,
+        "first_loss": losses[0] if losses else None, "last_loss": losses[-1] if losses else None,
+        "losses": losses, "param_devices": devices,
+        "wkv_launches_in_training": train_launches,
+        "eval_batches": len(batches), "wkv_launches": walk_launches,
+        "wkv_launches_expected": expected,
+        "timemix_max_row_rel_err": max(row_errs) if row_errs else None,
+        "timemix_row_rel_limit": ROW_REL_BF16,
+        "real_inputs_case": real_case,
+        "decays": {"min_w": min(d["min_w"] for d in readings),
+                   "max_log10_inv_p_incl": max(d["max_log10_inv_p_incl"] for d in readings),
+                   "min_chunk_mean_w": min(d["min_chunk_mean_w"] for d in readings),
+                   "chunk": WKV_CHUNK} if readings else None,
+        "rmsnorm_real_residual": {"shape": list(x.shape), "x_dtype": str(x.dtype),
+                                  "scale_dtype": str(ln["scale"].dtype),
+                                  "max_abs_err": rms_err.max().item(), "rtol": 2e-2,
+                                  "atol": 2e-2, "ok": rms_ok},
+        "ingest_norm_launches": ingest_launches, "flash_attention_launches": flash_launches,
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+    emit(out)
+    if report.result.steps < LM_STEPS or report.result.epochs < 2:
+        fail(f"RWKV path ran {report.result.steps} steps over {report.result.epochs} epochs")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss on the RWKV path: {losses}")
+    if devices != ["cuda"]:
+        fail(f"RWKV params live on {devices}, not on cuda")
+    if len(batches) != LM_EVAL_BATCHES or not row_errs or not max(row_errs) <= ROW_REL_BF16:
+        fail(f"time-mix through the WKV kernel vs the plain scan: row-relative errors {row_errs}")
+    if walk_launches != expected:
+        fail(f"rwkv6_wkv launched {walk_launches} times, not {cfg.num_layers} layers x "
+             f"{LM_EVAL_BATCHES} eval batches")
+    if not rms_ok:
+        fail(f"rmsnorm on a real residual: max abs err {rms_err.max().item()}")
+    return out
+
+
 def build_all(modules) -> dict:
     """Build every kernel library at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
@@ -558,26 +917,36 @@ def main() -> int:
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     bw, peak = lookup(BANDWIDTH, name), lookup(PEAK_BF16, name)
+    peak_f32 = lookup(PEAK_FP32, name)
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "bandwidth_bytes_per_s": bw,
-          "peak_bf16_flops": peak})
+          "peak_bf16_flops": peak, "peak_fp32_flops": peak_f32})
 
     # 2. build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.ingest_norm import ops, ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
-    build_all({"ingest_norm": ops, "flash_attention": flash_ops})
+    build_all({"ingest_norm": ops, "flash_attention": flash_ops, "rwkv6_wkv": wkv_ops,
+               "rmsnorm": rms_ops})
 
-    # 3.-7.
+    # 3.-10.
     kern = phase_kernels(torch, ops, ref, bw)
     flash = phase_flash(torch, flash_ops, flash_ref, bw, peak)
+    wkv = phase_wkv(torch, wkv_ops, wkv_ref, bw, peak_f32)
+    rms = phase_rmsnorm(torch, rms_ops, rms_ref, bw)
     torch.cuda.empty_cache()
     phase_model(torch)
     phase_model_lm(torch)
+    phase_model_rwkv(torch)
     main_out = phase_main(torch, ops)
     lm_out = phase_main_lm(torch, flash_ops, ops)
+    rwkv_out = phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ops, flash_ops)
 
     emit({"kernels": [{
         "name": "ingest_norm",
@@ -605,6 +974,33 @@ def main() -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+    }, {
+        "name": "rwkv6_wkv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:78",
+        "launches": rwkv_out["wkv_launches"],
+        "max_abs_err": wkv["max_abs_err"],
+        "ms": wkv["kernel_ms"],
+        "kernel_ms": wkv["kernel_ms"],
+        "plain_ms": wkv["plain_ms"],
+        "bound_ms": wkv["bound_ms"],
+        "bound_by": wkv["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
+        "launches": rms["launches"],
+        "max_abs_err": rms["max_abs_err"],
+        "ms": rms["kernel_ms"],
+        "kernel_ms": rms["kernel_ms"],
+        "plain_ms": rms["plain_ms"],
+        "bound_ms": rms["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": rms["library_ms"],
+        "note": rms["note"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,12 @@
 """Frozen-dataclass configuration for the port's slices, and the arch registry.
 
-A trimmed copy of ``repro/config.py``: only the fields the ResNet and dense
-decoder (LM) training slices read, with the reference's names and defaults
-(``LoaderConfig`` drops ``pin_device`` and ``device_prefetch``, which the
-reference declares but never reads; the ring's depth is
-``Trainer(device_prefetch=...)``).  MoE, SSM, RWKV, MLA, enc-dec and VLM
-fields come with their slices.  ``replace()`` (from dataclasses) derives
-variants.
+A trimmed copy of ``repro/config.py``: only the fields the ResNet, dense
+decoder (LM) and RWKV-6 training slices read, with the reference's names and
+defaults (``LoaderConfig`` drops ``pin_device`` and ``device_prefetch``,
+which the reference declares but never reads; the ring's depth is
+``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops ``token_shift``, for
+the same reason).  MoE, SSM, MLA, enc-dec and VLM fields
+come with their slices.  ``replace()`` (from dataclasses) derives variants.
 """
 from __future__ import annotations
 
@@ -32,14 +32,23 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 'Finch' data-dependent decay."""
+
+    head_dim: int = 64
+    decay_lora: int = 64
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "decoder"  # decoder | resnet
+    family: str = "decoder"  # decoder | resnet | rwkv
     num_layers: int = 4
     d_model: int = 256
     d_ff: int = 1024
     vocab_size: int = 32_000
     attention: Optional[AttentionConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     mlp: str = "swiglu"  # swiglu | relu2 | gelu
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     # resnet

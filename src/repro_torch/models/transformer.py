@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense family (the reference's
+"""Decoder-only LM assembly, dense and RWKV families (the reference's
 ``repro/models/transformer.py``).
 
 Block parameters are stacked over layers as in the reference (each leaf of
@@ -12,8 +12,11 @@ the whole stack for each layer).  ``cfg.remat`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` with
 ``nothing_saveable`` does.
 
-This slice has ``forward_train``; prefill and decode (with the KV cache)
-come with the serving slice, MoE, Mamba, RWKV and MLA mixers with theirs.
+The port has ``forward_train``; prefill and decode (with the KV cache)
+come with the serving slice, MoE, Mamba and MLA mixers with theirs.  The
+RWKV time-mix runs the plain chunked scan on sequences longer than one
+token, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is
+reached by calling ``rwkv6.apply_rwkv_timemix`` directly.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import (
     Params,
     apply_attention,
@@ -47,9 +51,13 @@ from repro_torch.tree import tree_map
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """Per layer: (mixer, ffn).  The port has the dense decoder, ("attn",
-    "mlp") on every layer; other families raise until their slice."""
+    "mlp") on every layer, and RWKV-6, ("rwkv", "rwkv_cm"); other families
+    raise until their slice."""
+    if cfg.family == "rwkv":
+        return [("rwkv", "rwkv_cm")] * cfg.num_layers
     if cfg.family != "decoder":
-        raise ValueError(f"the port's LM is the dense decoder; {cfg.name} is {cfg.family!r}")
+        raise ValueError(f"the port's LM is the dense decoder or RWKV-6; "
+                         f"{cfg.name} is {cfg.family!r}")
     if cfg.attention is None or cfg.attention.kind not in ("mha", "gqa"):
         kind = cfg.attention.kind if cfg.attention is not None else None
         raise ValueError(f"the port's LM has mha/gqa attention; {cfg.name} has {kind!r}")
@@ -75,10 +83,20 @@ def _stacked(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _init_sublayer(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def _init_sublayer(generator: torch.Generator, cfg: ModelConfig,
+                   kind: Tuple[str, str]) -> Params:
+    mixer, ffn = kind
     dev = generator.device
-    return {"ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev),
-            "attn": init_attention(generator, cfg), "mlp": init_mlp(generator, cfg)}
+    p: Params = {"ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev)}
+    if mixer == "attn":
+        p["attn"] = init_attention(generator, cfg)
+    elif mixer == "rwkv":
+        p["tm"] = rwkv6.init_rwkv_timemix(generator, cfg)
+    if ffn == "mlp":
+        p["mlp"] = init_mlp(generator, cfg)
+    elif ffn == "rwkv_cm":
+        p["cm"] = rwkv6.init_rwkv_channelmix(generator, cfg)
+    return p
 
 
 def _stack(trees: List[Any]) -> Any:
@@ -95,12 +113,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     ``device``.  The draws differ from ``jax.random``'s: tests carry the
     reference's weights across with :func:`repro_torch.convert.lm_params_from_jax`."""
     dev = resolve_device(device)
+    kinds = layer_kinds(cfg)
     P_ = period(cfg)
     n_blocks = cfg.num_layers // P_
     params: Params = {"embed": init_embedding(generator, cfg)}
 
     def init_block() -> Params:
-        return {f"sub{j}": _init_sublayer(generator, cfg) for j in range(P_)}
+        return {f"sub{j}": _init_sublayer(generator, cfg, kinds[j]) for j in range(P_)}
 
     blocks = [init_block() for _ in range(n_blocks)]
     params["blocks"] = _stack(blocks) if _stacked(cfg) else blocks[0]
@@ -116,12 +135,26 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[str, str], *,
                     positions: torch.Tensor) -> torch.Tensor:
+    mixer, ffn = kind
     h = apply_norm(p["ln1"], x, cfg)
-    x = x + apply_attention(p["attn"], h, cfg, positions=positions, causal=True)
+    if mixer == "attn":
+        out = apply_attention(p["attn"], h, cfg, positions=positions, causal=True)
+    elif mixer == "rwkv":
+        out, _ = rwkv6.apply_rwkv_timemix(p["tm"], h, cfg,
+                                          scan_mode="chunk" if h.shape[1] > 1 else "seq")
+    else:
+        raise ValueError(mixer)
+    x = x + out
     h = apply_norm(p["ln2"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg)
+    if ffn == "mlp":
+        out = apply_mlp(p["mlp"], h, cfg)
+    elif ffn == "rwkv_cm":
+        out, _ = rwkv6.apply_rwkv_channelmix(p["cm"], h, cfg)
+    else:
+        raise ValueError(ffn)
+    return x + out
 
 
 def _unbind(tree: Any) -> List[Any]:
@@ -135,11 +168,12 @@ def _unbind(tree: Any) -> List[Any]:
 
 def _apply_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    kinds = layer_kinds(cfg)
     P_ = period(cfg)
 
     def block_fn(xc: torch.Tensor, bp: Params) -> torch.Tensor:
         for j in range(P_):
-            xc = _apply_sublayer(bp[f"sub{j}"], xc, cfg, positions=positions)
+            xc = _apply_sublayer(bp[f"sub{j}"], xc, cfg, kinds[j], positions=positions)
         return xc
 
     blocks = _unbind(params["blocks"]) if _stacked(cfg) else [params["blocks"]]

@@ -1,15 +1,16 @@
 """Where the time of the port's LM train step goes, on one CUDA card.
 
-    PYTHONPATH=src python -m repro_torch.tools.profile_lm_step
+    PYTHONPATH=src python -m repro_torch.tools.profile_lm_step [--arch rwkv6-7b-4l]
 
-Builds chip_smoke's LM main-path step (granite-8b at full width, depth cut
-to 4 layers, batch 4 x 4096 tokens, 2 microbatches, AdamW, remat), with
-the batch already on the card and no loader, and prints JSON lines:
+Builds one of chip_smoke's LM main-path steps (``--arch granite-8b-4l``, the
+default, or ``rwkv6-7b-4l``: the model at full width, depth cut to 4
+layers, batch 4 x 4096 tokens, 2 microbatches, AdamW, remat), with the
+batch already on the card and no loader, and prints JSON lines:
 
 * ``pieces``: CUDA-event times of the whole step, of the forward loss alone
   (``make_eval_step``), of forward + backward alone, of the optimizer update
-  alone, and of ``forward_train`` with ``attention_impl="pallas"`` (the
-  flash kernel, forward only);
+  alone, and (granite) of ``forward_train`` with ``attention_impl="pallas"``
+  (the flash kernel, forward only);
 * ``profile``: ``torch.profiler`` over two steps: device time by
   kernel category and the top kernels, and the device's busy share of the
   profiled wall time (the union of kernel intervals over the window);
@@ -18,12 +19,15 @@ the batch already on the card and no loader, and prints JSON lines:
   its forward + backward, and its kernels by the same categories.  Under
   remat a step runs, per microbatch and layer, one forward and one forward
   + backward of it, so scaled by microbatches x layers these say how much
-  of the step, and of each category, the attention takes.
+  of the step, and of each category, the attention takes (granite);
+* ``rwkv_scan``: the same for the plain chunked WKV scan the RWKV step
+  trains through (``wkv_scan_chunked`` on one microbatch's r, k, v, w).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs a card.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import re
@@ -33,6 +37,7 @@ import time
 from collections import defaultdict
 
 LAYERS, STEPS = 4, 2  # chip_smoke's LM depth; profiled steps
+ARCHS = {"granite-8b-4l": "granite-8b", "rwkv6-7b-4l": "rwkv6-7b"}  # chip_smoke's names
 
 CATEGORIES = [
     ("matmul", re.compile(r"gemm|nvjet|xmma|cutlass|cublas|sm90_|Kernel2", re.I)),
@@ -108,16 +113,41 @@ def busy_ms(intervals) -> float:
     return busy_us / 1e3
 
 
-def main() -> int:
+def component(torch, phase: str, fwd, fwd_bwd, per_step: int, step_ms: float,
+              step_cats: dict, **fields) -> None:
+    """One piece of the step alone: CUDA-event times of its forward and its
+    forward + backward, and its kernels by category, scaled to a step that
+    runs each of them ``per_step`` times."""
+
+    def remat():  # what a block's remat runs of it per microbatch
+        fwd()
+        fwd_bwd()
+
+    fwd_ms, fwd_bwd_ms = event_ms(torch, fwd), event_ms(torch, fwd_bwd)
+    prof = profiled(torch, remat, 2)
+    cats = {c: ms * per_step for c, ms in sorted(prof["by_cat"].items(), key=lambda kv: -kv[1])}
+    emit({"phase": phase, **fields, "forward_ms": fwd_ms, "forward_backward_ms": fwd_bwd_ms,
+          "ms_per_step": (fwd_ms + fwd_bwd_ms) * per_step,
+          "share_of_step": (fwd_ms + fwd_bwd_ms) * per_step / step_ms,
+          "ms_per_step_by_category": cats,
+          "share_of_step_category": {c: cats.get(c, 0.0) / ms
+                                     for c, ms in step_cats.items() if ms}})
+
+
+def main(argv=None) -> int:
     import torch
 
     from repro_torch.config import TrainConfig, get_arch
     from repro_torch.models.layers import _sdpa
+    from repro_torch.models.rwkv6 import wkv_scan_chunked
     from repro_torch.models.transformer import forward_train
     from repro_torch.train.optim import make_optimizer
     from repro_torch.train.steps import init_train_state, make_eval_step, make_train_step
     from repro_torch.tree import leaves
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="granite-8b-4l")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: this script needs a CUDA card")
     smi = subprocess.run(
@@ -126,7 +156,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("granite-8b"), num_layers=LAYERS)
+    cfg = dataclasses.replace(get_arch(ARCHS[args.arch]), num_layers=LAYERS)
     B, S, micro = 4, 4096, 2
     tcfg = TrainConfig(optimizer="adamw", learning_rate=3e-4, microbatches=micro,
                        total_steps=1000)
@@ -144,7 +174,6 @@ def main() -> int:
     params = state["params"]
     plist = leaves(params)
     eval_ref = make_eval_step(cfg)
-    eval_flash = make_eval_step(dataclasses.replace(cfg, attention_impl="pallas"))
     mb = {k: v[: B // micro] for k, v in batch.items()}
 
     def fwd_bwd():
@@ -155,17 +184,20 @@ def main() -> int:
     grads = [torch.zeros_like(p) for p in plist]
     torch.cuda.reset_peak_memory_stats()
     step_ms = event_ms(torch, run_step)
-    emit({
-        "phase": "pieces", "arch": cfg.name, "num_layers": cfg.num_layers, "batch": B,
+    pieces = {
+        "phase": "pieces", "arch": args.arch, "num_layers": cfg.num_layers, "batch": B,
         "seq_len": S, "microbatches": micro, "nvidia_smi": smi,
         "step_ms": step_ms,
         "forward_ms_ref": event_ms(torch, lambda: eval_ref(params, batch)),
-        "forward_ms_flash": event_ms(torch, lambda: eval_flash(params, batch)),
         "forward_backward_ms_per_microbatch": event_ms(torch, fwd_bwd),
         "optimizer_ms": event_ms(torch, lambda: opt.update(grads, state["opt"], params, 10_000)),
         "tokens_per_s": B * S / step_ms * 1e3,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-    })
+    }
+    if cfg.attention is not None:
+        eval_flash = make_eval_step(dataclasses.replace(cfg, attention_impl="pallas"))
+        pieces["forward_ms_flash"] = event_ms(torch, lambda: eval_flash(params, batch))
+    emit(pieces)
     del grads
 
     prof = profiled(torch, run_step, STEPS)
@@ -184,12 +216,42 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    per_step = micro * cfg.num_layers
+    runs = f"{micro} microbatches x {cfg.num_layers} layers, each one forward and one " \
+           "forward + backward"
+    b = B // micro
+    if cfg.family == "rwkv":
+        # the plain chunked scan alone, on one microbatch's r, k, v, w as the
+        # time-mix hands them over: (b,S,H,D) fp32, decays drawn as the
+        # reference's kernel tests draw them
+        H, D = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        n = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+        r, k, v = n(b, S, H, D) * 0.5, n(b, S, H, D) * 0.5, n(b, S, H, D)
+        w = torch.exp(-torch.exp(n(b, S, H, D) * 0.5 - 0.6))
+        u = n(H, D) * 0.1
+        s0 = torch.zeros((b, H, D, D), device="cuda")
+        inputs = [t.requires_grad_(True) for t in (r, k, v, w, u)]
+        g_y = n(b, S, H, D)
+
+        def scan_fwd():
+            with torch.no_grad():
+                wkv_scan_chunked(r, k, v, w, u, s0)
+
+        def scan_fwd_bwd():
+            y, _ = wkv_scan_chunked(r, k, v, w, u, s0)
+            torch.autograd.grad(y, inputs, g_y)
+
+        component(torch, "rwkv_scan", scan_fwd, scan_fwd_bwd, per_step, step_ms, step_cats,
+                  shape=[b, S, H, D], dtype="float32", route="wkv_scan_chunked",
+                  runs_per_step=runs)
+        return 0
+
     # the plain attention alone, on one microbatch's q, k, v as the model
     # hands them to _sdpa: q (b,S,Hkv,G,D), k, v (b,S,Hkv,D), bf16
     a = cfg.attention
-    shapes = [(B // micro, S, a.num_kv_heads, a.q_heads_per_kv, a.head_dim),
-              (B // micro, S, a.num_kv_heads, a.head_dim),
-              (B // micro, S, a.num_kv_heads, a.head_dim)]
+    shapes = [(b, S, a.num_kv_heads, a.q_heads_per_kv, a.head_dim),
+              (b, S, a.num_kv_heads, a.head_dim),
+              (b, S, a.num_kv_heads, a.head_dim)]
     q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=torch.bfloat16)
                .requires_grad_(True) for s in shapes)
     g_out = torch.randn(shapes[0], generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -202,25 +264,9 @@ def main() -> int:
         out = _sdpa(q, k, v, causal=True, q_offset=0)
         torch.autograd.grad(out, (q, k, v), g_out)
 
-    def attn_remat():  # what a block's remat runs of it per microbatch
-        attn_fwd()
-        attn_fwd_bwd()
-
-    per_step = micro * cfg.num_layers
-    fwd_ms, fwd_bwd_ms = event_ms(torch, attn_fwd), event_ms(torch, attn_fwd_bwd)
-    attn = profiled(torch, attn_remat, 2)
-    attn_cats = {c: ms * per_step for c, ms in
-                 sorted(attn["by_cat"].items(), key=lambda kv: -kv[1])}
-    emit({"phase": "attention", "q": list(shapes[0]), "kv": list(shapes[1]),
-          "dtype": "bfloat16", "route": "_sdpa_chunked" if S >= 4096 else "_sdpa_dense",
-          "forward_ms": fwd_ms, "forward_backward_ms": fwd_bwd_ms,
-          "runs_per_step": f"{micro} microbatches x {cfg.num_layers} layers, "
-                           "each one forward and one forward + backward",
-          "ms_per_step": (fwd_ms + fwd_bwd_ms) * per_step,
-          "share_of_step": (fwd_ms + fwd_bwd_ms) * per_step / step_ms,
-          "ms_per_step_by_category": attn_cats,
-          "share_of_step_category": {c: attn_cats.get(c, 0.0) / ms
-                                     for c, ms in step_cats.items() if ms}})
+    component(torch, "attention", attn_fwd, attn_fwd_bwd, per_step, step_ms, step_cats,
+              q=list(shapes[0]), kv=list(shapes[1]), dtype="bfloat16",
+              route="_sdpa_chunked" if S >= 4096 else "_sdpa_dense", runs_per_step=runs)
     return 0
 
 

@@ -52,6 +52,42 @@ def test_sources_never_import_jax_or_repro(path):
     assert not _FORBIDDEN.findall(text), path
 
 
+_IMPORT_ONE = r"""
+import importlib, sys
+sys.modules["jax"] = None  # any import of jax now raises
+sys.path.insert(0, sys.argv[1])
+importlib.import_module(sys.argv[2])
+print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
+"""
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.rwkv6",
+                                    "repro_torch.kernels.rwkv6_wkv.ops",
+                                    "repro_torch.kernels.rmsnorm.ops"])
+def test_slice_module_imports_alone_without_jax_or_repro(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, str(ROOT / "src"), module],
+                         capture_output=True, text=True, env=env, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_REPLACES = re.compile(r"Replaces the Pallas TPU kernel (src/repro/kernels/\S+\.py)")
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.cu")))
+def test_cuda_sources_name_the_tpu_kernel_they_replace(path):
+    """Each kernel source says which TPU kernel it replaces (a file that
+    exists) and what bounds it, exports a C entry point, and is the
+    ``SOURCE`` its package's ``ops.py`` builds."""
+    text = (ROOT / path).read_text()
+    found = _REPLACES.search(text)
+    assert found and (ROOT / found.group(1)).is_file(), path
+    assert "Bound:" in text and 'extern "C"' in text, path
+    ops_text = (ROOT / path).parent.parent.joinpath("ops.py").read_text()
+    assert f'"csrc" / "{Path(path).name}"' in ops_text, path
+
+
 def test_cuda_requested_without_a_card_raises(monkeypatch):
     from repro_torch.core.prefetch import DevicePrefetchRing
     from repro_torch.device import resolve_device
@@ -86,3 +122,25 @@ def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         flash.flash_attention(q, k, k)
     assert flash.flash_attention.launches == 0
+
+
+def _meta_wkv():
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r = torch.empty((1, 8, 2, 16), device="meta")
+    return ops.wkv, (r, r, r, r, torch.empty((2, 16), device="meta"),
+                     torch.empty((1, 2, 16, 16), device="meta"))
+
+
+def _meta_rmsnorm():
+    from repro_torch.kernels.rmsnorm import ops
+
+    return ops.rmsnorm, (torch.empty((4, 32), device="meta"), torch.empty((32,), device="meta"))
+
+
+@pytest.mark.parametrize("make", [_meta_wkv, _meta_rmsnorm], ids=["rwkv6_wkv", "rmsnorm"])
+def test_new_kernel_wrappers_never_take_the_plain_version_off_the_cpu(make):
+    fn, args = make()
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        fn(*args)
+    assert fn.launches == 0
