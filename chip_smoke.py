@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
    nvcc for sm_90a, one nvcc per source, all started together.
 3. kernels — each kernel's wrapper on the card against its plain PyTorch
    version, at the main path's shapes and at ragged ones, with timings:
-   ``ingest_norm``, then ``flash_attention`` (with the library yardstick
-   ``scaled_dot_product_attention``, timed only).
+   ``ingest_norm``, then ``flash_attention`` (each case naming its route,
+   the bf16 tensor-core kernel or the CUDA-core one; the library yardstick
+   ``scaled_dot_product_attention``, timed only; the fp32 CUDA-core kernel
+   timed at the path shape too).
 4. model   — one ResNet train step on the card against the same step on the
    CPU, from the same converted weights, TF32 off.
 5. model_lm — two AdamW steps of the granite-8b smoke decoder on the card
@@ -216,10 +218,35 @@ def phase_kernels(torch, ops, ref, bw) -> dict:
     return out
 
 
+def ptxas_summary(log: str) -> list:
+    """Each kernel entry's registers, spills and static shared memory from
+    nvcc's ``-Xptxas -v`` log."""
+    import re
+
+    out, entry = [], {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = {"entry": m.group(1)}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and "entry" in entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry.update(registers=int(m.group(1)),
+                         static_smem_bytes=int(smem.group(1)) if smem else 0)
+            out.append(entry)
+            entry = {}
+    return out
+
+
 def phase_flash(torch, ops, ref, bw, peak) -> dict:
     """flash_attention against its plain version at the LM path's shape and
-    at ragged, small ones; device times of the kernel, the plain version and
-    the library yardstick ``scaled_dot_product_attention``."""
+    at ragged, small ones, every head dim the wrapper takes, each case on
+    the route the wrapper gives it; device times of the bf16 kernel, the
+    plain version, the library yardstick ``scaled_dot_product_attention``
+    and the fp32 CUDA-core kernel at the path shape."""
     import torch.nn.functional as F
 
     gen = torch.Generator().manual_seed(0)
@@ -250,8 +277,9 @@ def phase_flash(torch, ops, ref, bw, peak) -> dict:
         row_err = (diff.norm(dim=-1) / ref_f.norm(dim=-1).clamp_min(1e-30)).max().item()
         ok = close and row_err <= row_limits[dt]
         case = {"q": list(q.shape), "kv": list(k.shape), "dtype": str(dt), "causal": causal,
-                "max_abs_err": err, "rtol": tol, "atol": tol, "max_row_rel_err": row_err,
-                "row_rel_limit": row_limits[dt], "ok": ok}
+                "route": ops.route(dt, q.shape[-1]), "max_abs_err": err, "rtol": tol,
+                "atol": tol, "max_row_rel_err": row_err, "row_rel_limit": row_limits[dt],
+                "ok": ok}
         if not ok:
             emit({"phase": "kernels/flash_attention", "failed_case": case})
             fail(f"flash_attention {label}: max abs err {err} (rtol=atol={tol}), "
@@ -260,7 +288,7 @@ def phase_flash(torch, ops, ref, bw, peak) -> dict:
 
     cases = []
     for S in (50, 200):
-        for D in (16, 32, 64, 128):
+        for D in ops.HEAD_DIMS:
             for dt in (torch.float32, torch.bfloat16):
                 q, k, v = inputs((2, 4, S, D), (2, 2, S, D), dt)
                 cases.append(check(q, k, v, True, dt, f"S={S} D={D}"))
@@ -278,19 +306,31 @@ def phase_flash(torch, ops, ref, bw, peak) -> dict:
     kernel_ms = device_ms(kernel, runs=10, per_run=2)
     plain_ms = device_ms(plain, runs=5, per_run=2, warmup=1)
     library_ms = device_ms(library, runs=10, per_run=5)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    fp32_case = check(q32, k32, v32, True, torch.float32, "path shape fp32")
+    fp32_kernel_ms = device_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True),
+                               runs=3, per_run=1, warmup=1)
+    del q32, k32, v32
     B, Hq, S, D = FLASH_Q
     Hkv = FLASH_KV[1]
     flops = 2.0 * B * Hq * S * S * D  # q k^T and p v over the causal triangle
     nbytes = B * (2 * Hq * S + 2 * Hkv * S) * D * 2  # q, o and k, v in bf16, once each
     bound, bound_by = bound_ms(nbytes, flops, bw, peak)
+    lib = ops.build_tensor_core()
     out = {"phase": "kernels/flash_attention", "kernel": "flash_attention",
            "q": list(FLASH_Q), "kv": list(FLASH_KV), "dtype": "bfloat16", "causal": True,
+           "route": ops.route(torch.bfloat16, D),
            "max_abs_err": main_case["max_abs_err"],
            "max_row_rel_err": main_case["max_row_rel_err"], "cases": cases,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": "scaled_dot_product_attention(q, k, v, is_causal=True, "
                            "enable_gqa=True)",
            "kernel_tflops": flops / kernel_ms / 1e9,
+           "fp32_kernel_ms": fp32_kernel_ms, "fp32_route": fp32_case["route"],
+           "fp32_max_abs_err": fp32_case["max_abs_err"],
+           "tensor_core_ptxas": ptxas_summary(lib.log),
+           "tensor_core_dynamic_smem_bytes": {
+               d: lib.lib.flash_attention_sm90_smem_bytes(d) for d in ops.TENSOR_CORE_HEAD_DIMS},
            "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bound_bytes": nbytes,
            "bytes_bound_ms": nbytes / bw * 1e3 if bw else None,
            "ops_bound_ms": flops / peak * 1e3 if peak else None, "peak_bf16_flops": peak}
@@ -535,6 +575,8 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
         "eval_max_diff": max(diffs) if diffs else None, "eval_limit": 5e-3,
         "flash_attention_launches": flash_launches,
         "flash_attention_launches_expected": report.cfg.num_layers * len(batches),
+        "flash_attention_route": flash_ops.route(
+            getattr(torch, report.cfg.dtype), report.cfg.attention.head_dim),
         "ingest_norm_launches": ingest_launches,
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     }
@@ -884,13 +926,13 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
     return out
 
 
-def build_all(modules) -> dict:
+def build_all(builders) -> dict:
     """Build every kernel library at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        futures = {name: pool.submit(mod.build) for name, mod in modules.items()}
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {name: pool.submit(build) for name, build in builders.items()}
         built = {name: f.result() for name, f in futures.items()}
     wall = time.monotonic() - t0
     for name, b in built.items():
@@ -932,8 +974,9 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
-    build_all({"ingest_norm": ops, "flash_attention": flash_ops, "rwkv6_wkv": wkv_ops,
-               "rmsnorm": rms_ops})
+    build_all({"ingest_norm": ops.build, "flash_attention": flash_ops.build_cuda_core,
+               "flash_attention_sm90": flash_ops.build_tensor_core, "rwkv6_wkv": wkv_ops.build,
+               "rmsnorm": rms_ops.build})
 
     # 3.-10.
     kern = phase_kernels(torch, ops, ref, bw)
@@ -964,7 +1007,7 @@ def main() -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
         "launches": lm_out["flash_attention_launches"],
         "max_abs_err": flash["max_abs_err"],
@@ -974,6 +1017,8 @@ def main() -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+        "fp32_kernel_ms": flash["fp32_kernel_ms"],
+        "fp32_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     }, {
         "name": "rwkv6_wkv",
         "route": "cuda",

@@ -1,4 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 arithmetic on CUDA cores.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores: fp32 at
+// head dims 16, 32, 64, 128 and 192, and bf16 at 16 and 32.  bf16 at 64,
+// 128 and 192 runs on the tensor cores (flash_attention_sm90.cu); the
+// wrapper routes by dtype and head dim, never by failure.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_flash_kernel / flash_attention_bh, wrapper ops.py:flash_attention):
@@ -9,11 +12,11 @@
 //
 // Bound: operations.  Causal attention does 2*B*Hq*S^2*D flops (q k^T and
 // p v over the lower triangle) on B*(Hq*S + 2*Hkv*T + Hq*S)*D elements of
-// input and output; at the LM path's q (4,32,4096,128), kv (4,8,4096,128)
-// bf16 that is 5.5e11 flops on 335 MB: 0.56 ms at the bf16 tensor-core
-// peak, 0.10 ms at 3.35 TB/s.  This first kernel does its arithmetic in fp32
-// on the CUDA cores (67 TFLOP/s peak), so it cannot come near that bound:
-// it is the simple, exact version, and wgmma/TMA tiles are later work.
+// input and output; at the LM path's shape in fp32, q (4,32,4096,128) and
+// kv (4,8,4096,128), that is 5.5e11 flops on 671 MB: 8.2 ms at the 67
+// TFLOP/s fp32 peak of the CUDA cores, 0.20 ms at 3.35 TB/s.  This kernel
+// is the exact one: fp32 products in fp32, where TF32 tensor cores would
+// miss the fp32 gate of 1e-5.
 //
 // Design, and how it departs from the TPU grid:
 //  * One block per (batch*head, 64-row q tile); the block loops over 64-key
@@ -26,7 +29,8 @@
 //    -inf (weight exactly 0) instead of being padded.
 //  * Shared memory holds Q^T and K^T (D x 64, so a thread reads 4 rows or 4
 //    keys as one float4), V (64 x D) and P (64 x 68, padded against bank
-//    conflicts), all in fp32: 113 KB at D = 128.
+//    conflicts), all in fp32: 113 KB at D = 128, 161 KB at D = 192 (above
+//    48 KB only as dynamic shared memory, so the launch raises the limit).
 //  * 256 threads as 16 x 16: thread (ty, tx) owns score rows 4ty..4ty+3 and
 //    key columns 4tx..4tx+3, and output rows 4ty..4ty+3 at D/16 columns, so
 //    a row's max and sum reduce over the 16 lanes of a half-warp with
@@ -301,14 +305,22 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const Args& a, int B, int D, cudaStream_t stream) {
+int dispatch_f32(const Args& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(a, B, stream);
-    case 32: return launch<T, 32>(a, B, stream);
-    case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
+    case 16: return launch<float, 16>(a, B, stream);
+    case 32: return launch<float, 32>(a, B, stream);
+    case 64: return launch<float, 64>(a, B, stream);
+    case 128: return launch<float, 128>(a, B, stream);
+    case 192: return launch<float, 192>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch_bf16(const Args& a, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<__nv_bfloat16, 16>(a, B, stream);
+    case 32: return launch<__nv_bfloat16, 32>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;  // the tensor-core kernel's
   }
 }
 
@@ -320,8 +332,8 @@ extern "C" {
 // `strides` (12 element strides: batch, head and position of q, k, v, o; the
 // last dimension is contiguous).  Launches on `stream` and returns
 // cudaGetLastError() of the launch (0 = ok).  The caller checks what the
-// kernel assumes: D in {16,32,64,128}; Hq a multiple of Hkv; 16-byte aligned
-// rows; S <= T when causal; B*Hq <= 65535.
+// kernel assumes: D in {16,32,64,128,192} for fp32 and {16,32} for bf16; Hq
+// a multiple of Hkv; 16-byte aligned rows; S <= T when causal; B*Hq <= 65535.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int Hq,
                         int Hkv, int S, int T, int D, const long long* strides, int causal,
                         int bf16, void* stream) {
@@ -337,7 +349,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
     a.so[i] = strides[9 + i];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(a, B, D, s) : dispatch<float>(a, B, D, s);
+  return bf16 ? dispatch_bf16(a, B, D, s) : dispatch_f32(a, B, D, s);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -1,19 +1,27 @@
-"""Wrapper of the flash-attention forward kernel.
+"""Wrapper of the flash-attention forward kernels.
 
 ``flash_attention(q, k, v, causal)`` takes the reference's layout, q
 (B,Hq,S,D) and k, v (B,Hkv,T,D), and returns (B,Hq,S,D) in ``q.dtype``.  On
-CUDA tensors it launches the hand-written kernel in
-``csrc/flash_attention.cu`` (built with nvcc at first use) or raises; it
-takes the plain version (:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`)
-only for tensors on the CPU.  ``flash_attention.launches`` counts kernel
-launches.
+CUDA tensors it launches a hand-written kernel (built with nvcc at first
+use) or raises, the kernel fixed by dtype and head dim (:func:`route`):
 
-The kernel is forward-only, as the reference's Pallas kernel is (it defines
+* bf16 at D in {64, 128, 192}: the tensor cores, ``csrc/flash_attention_sm90.cu``
+  (wgmma and TMA);
+* fp32 at every D, and bf16 at D in {16, 32}: the CUDA cores,
+  ``csrc/flash_attention.cu`` (exact fp32 arithmetic).
+
+A failed build or launch raises; no call gives way to the other kernel or
+to the plain version, which
+(:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`) it takes
+only for tensors on the CPU.  ``flash_attention.launches`` counts launches
+of both kernels.
+
+The kernels are forward-only, as the reference's Pallas kernel is (it defines
 no VJP, and ``jax.grad`` through it fails): with grad enabled, an input that
 requires grad is refused on both devices rather than differentiated through
 the plain version.
 
-What the reference's wrapper does by padding, the kernel does with bounds
+What the reference's wrapper does by padding, the kernels do with bounds
 masks: GQA reads kv head ``h // (Hq // Hkv)`` in place of ``repeat``, and
 ragged S and T need no padding.  As in the reference (``ops.py:36-41``),
 non-causal attention over a key length that is not a multiple of its
@@ -29,28 +37,50 @@ import torch
 from repro_torch.kernels.build import Built, load_cuda_library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"  # CUDA cores
+SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "flash_attention_sm90.cu"  # tensor cores
+HEAD_DIMS = (16, 32, 64, 128, 192)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 192)  # bf16 only
 REF_BLOCK_K = 128  # the reference's key block, which sets its padding rule
-MAX_BH = 65535  # gridDim.y
+MAX_BH = 65535  # gridDim.y of the CUDA-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PTRS_AND_SHAPE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_LONGS = ctypes.POINTER(ctypes.c_longlong)
 
 
-def build() -> Built:
-    """Compile (once) and load the kernel library; declares the C signature."""
-    built = load_cuda_library("flash_attention", SOURCE)
-    fn = built.lib.flash_attention_fwd
+def _declare(built: Built, fn_name: str, argtypes: list, err_name: str) -> Built:
+    fn = getattr(built.lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err = built.lib.flash_attention_error_string
+        err = getattr(built.lib, err_name)
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built
+
+
+def build_cuda_core() -> Built:
+    """Compile (once) and load the CUDA-core kernel; declares the C signature."""
+    return _declare(load_cuda_library("flash_attention", SOURCE), "flash_attention_fwd",
+                    _PTRS_AND_SHAPE + [_LONGS, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                    "flash_attention_error_string")
+
+
+def build_tensor_core() -> Built:
+    """Compile (once) and load the tensor-core kernel; declares the C signature."""
+    built = _declare(load_cuda_library("flash_attention_sm90", SOURCE_SM90),
+                     "flash_attention_fwd_sm90",
+                     _PTRS_AND_SHAPE + [_LONGS, _LONGS, ctypes.c_int, ctypes.c_void_p],
+                     "flash_attention_sm90_error_string")
+    built.lib.flash_attention_sm90_smem_bytes.argtypes = [ctypes.c_int]
+    return built
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a CUDA call takes: ``"tensor_core"`` or ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -87,13 +117,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """A view the kernel can read through its strides: the last dimension
-    contiguous and every row 16-byte aligned; otherwise a contiguous copy."""
+    """A view the kernels can read through its strides: the last dimension
+    contiguous, every other stride a positive multiple of 16 bytes (as a
+    tensor map needs; a dimension of size 1 is never stepped) and the base
+    16-byte aligned; otherwise a contiguous copy."""
     align = 16 // t.element_size()
-    if (t.stride(3) == 1 and all(s % align == 0 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0):
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(n == 1 or (s > 0 and s % align == 0)
+                    for s, n in zip(t.stride()[:3], t.shape[:3]))):
         return t
     return t.contiguous()
+
+
+def _tensor_map(t: torch.Tensor) -> list:
+    """The 4-D TMA map of a (B, H, L, D) view as the tensor-core kernel takes
+    it: sizes (D, then rows, heads and batch in the order of their strides,
+    a dimension of size 1 last), the three outer byte strides, and the
+    places of rows, heads and batch among the outer three."""
+    span = max(t.stride(i) * t.shape[i] for i in range(4))
+    stride = [t.stride(i) if t.shape[i] > 1 else span for i in range(3)]
+    order = sorted((2, 1, 0), key=lambda i: stride[i])  # rows, heads, batch by stride
+    return ([t.shape[3]] + [t.shape[i] for i in order]
+            + [stride[i] * t.element_size() for i in order]
+            + [order.index(i) for i in (2, 1, 0)])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,23 +152,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    if B * Hq > MAX_BH:
+    tensor_core = route(q.dtype, D) == "tensor_core"
+    if not tensor_core and B * Hq > MAX_BH:
         raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid ({MAX_BH})")
     # the output is laid out (B,S,Hq,D), as the model consumes it, and
     # returned as the (B,Hq,S,D) view
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = build().lib
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, T, D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, S, T, D, strides, int(causal), _DTYPES[q.dtype], stream,
-        )
+        if tensor_core:
+            lib, err = build_tensor_core().lib, "flash_attention_sm90_error_string"
+            maps = (ctypes.c_longlong * 30)(*(x for t in (q, k, v) for x in _tensor_map(t)))
+            ostrides = (ctypes.c_longlong * 3)(*out.stride()[:3])
+            rc = lib.flash_attention_fwd_sm90(*args, maps, ostrides, int(causal), stream)
+        else:
+            lib, err = build_cuda_core().lib, "flash_attention_error_string"
+            strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+            rc = lib.flash_attention_fwd(*args, strides, int(causal), _DTYPES[q.dtype], stream)
     if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {rc})")
+        msg = getattr(lib, err)(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} (code {rc})")
     flash_attention.launches += 1
     return out
 

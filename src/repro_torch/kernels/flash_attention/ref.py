@@ -1,7 +1,8 @@
 """Plain PyTorch version of ``flash_attention``: dense scores in fp32.
 
-The same function as the kernel in ``csrc/flash_attention.cu`` (and the
-reference's ``flash_attention`` wrapper): inputs upcast to fp32, scale
+The same function as the kernels in ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_sm90.cu`` (and the reference's ``flash_attention``
+wrapper): inputs upcast to fp32, scale
 ``1/sqrt(D)``, causal mask with ``q_offset = T - S`` and masked scores at
 ``-1e30``, fp32 softmax and ``p @ v``, output cast back to ``q.dtype``.  GQA
 reads kv head ``h // (Hq // Hkv)``.  O(S*T) memory: it is the oracle the
