@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
    nvcc for sm_90a, one nvcc per source, all started together.
 3. kernels — each kernel's wrapper on the card against its plain PyTorch
    version, at the main path's shapes and at ragged ones, with timings:
-   ``ingest_norm``, then ``flash_attention`` (each case naming its route,
+   ``ingest_norm`` (each case naming its vector or scalar path; warm-L2
+   and cold-L2 times; ptxas's registers, spills and shared memory, and
+   resident blocks an SM), then ``flash_attention`` (each case naming its route,
    the bf16 tensor-core kernel or the CUDA-core one; the library yardstick
    ``scaled_dot_product_attention``, timed only; the fp32 CUDA-core kernel
    timed at the path shape too).
@@ -29,7 +31,8 @@ Phases, each printing one JSON line:
    kernel) over 4 loader batches against the plain attention's.
 8. kernels/rwkv6_wkv and kernels/rmsnorm — each new kernel against its
    plain version at the reference tests' cases and the path's shape, with
-   timings (rmsnorm with the library yardstick ``F.rms_norm``).
+   timings (rmsnorm with the library yardstick ``F.rms_norm``; rwkv6_wkv
+   with its ptxas report and resident blocks an SM at every head dim).
 9. model_rwkv — two AdamW steps of the rwkv6-7b smoke model on the card
    against the CPU (fp32, TF32 off).
 10. main_rwkv — the RWKV path: full-width rwkv6-7b (depth cut to 4 layers)
@@ -174,13 +177,44 @@ def call_ms(fn, calls: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def cold_ms(fn, scratch, runs: int = 20) -> float:
+    """Device time of one call with a cold L2: the median over ``runs`` of
+    CUDA-event time around a single call, each after a write of ``scratch``
+    (more than the 50 MB L2).  The sleep kernel ahead keeps the device busy
+    while the host enqueues the write, the events and the call, so the
+    events time the kernel alone."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # cycles
+        scratch.fill_(1)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def ptxas_of(log: str, pattern: str) -> list:
+    """The entries of ``ptxas_summary(log)`` whose mangled name matches
+    ``pattern``."""
+    import re
+
+    return [e for e in ptxas_summary(log) if re.search(pattern, e["entry"])]
+
+
 def phase_kernels(torch, ops, ref, bw) -> dict:
     from repro_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
 
     gen = torch.Generator().manual_seed(0)
     limits = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     cases = []
-    for shape in [MAIN_BATCH, (3, 31, 17, 3), (2, 24, 24, 4), (1, 9, 40, 1), (5, 8, 8, 2)]:
+    for shape in [MAIN_BATCH, (3, 31, 17, 3), (2, 24, 24, 4), (1, 9, 40, 1), (5, 8, 8, 2),
+                  (2, 224, 224, 4), (2, 30, 224, 3)]:
         C = shape[-1]
         if shape == MAIN_BATCH:
             mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
@@ -194,8 +228,9 @@ def phase_kernels(torch, ops, ref, bw) -> dict:
             if got.shape != want.shape or got.dtype != dt:
                 fail(f"ingest_norm {shape} {dt}: got {tuple(got.shape)} {got.dtype}")
             err = (got.float() - want.float()).abs().max().item()
-            cases.append({"shape": list(shape), "dtype": str(dt), "max_abs_err": err,
-                          "limit": limits[dt]})
+            cases.append({"shape": list(shape), "dtype": str(dt),
+                          "path": ops.path_for(img.shape, dt, img.data_ptr()),
+                          "max_abs_err": err, "limit": limits[dt]})
             if not err <= limits[dt]:
                 fail(f"ingest_norm {shape} {dt}: max abs err {err} > {limits[dt]}")
     B, H, W, C = MAIN_BATCH
@@ -205,15 +240,26 @@ def phase_kernels(torch, ops, ref, bw) -> dict:
     kernel = lambda: ops.ingest_norm(img, mean, std)  # noqa: E731
     plain = lambda: ref.ingest_norm_ref(img, mean_d, std_d)  # noqa: E731
     kernel_ms, plain_ms = device_ms(kernel), device_ms(plain)
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    kernel_cold_ms = cold_ms(kernel, scratch)
+    del scratch
     kernel_call_ms, plain_call_ms = call_ms(kernel), call_ms(plain)
     nbytes = B * H * W * C * (1 + 4)  # u8 in, f32 out, each touched once
     main_err = next(c["max_abs_err"] for c in cases
                     if c["shape"] == list(MAIN_BATCH) and c["dtype"] == str(torch.float32))
+    log = ops.build().log
     out = {"phase": "kernels", "cases": cases, "kernel": "ingest_norm",
-           "shape": list(MAIN_BATCH), "out_dtype": "float32", "max_abs_err": main_err,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "shape": list(MAIN_BATCH), "out_dtype": "float32",
+           "path": ops.path_for(MAIN_BATCH, torch.float32, img.data_ptr()),
+           "max_abs_err": main_err,
+           "kernel_ms": kernel_ms, "kernel_cold_ms": kernel_cold_ms, "plain_ms": plain_ms,
            "kernel_call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
-           "bound_ms": bound_ms(nbytes, 0, bw, None)[0], "bound_bytes": nbytes}
+           "bound_ms": bound_ms(nbytes, 0, bw, None)[0], "bound_bytes": nbytes,
+           "cold_gb_per_s": nbytes / kernel_cold_ms / 1e6,
+           "ptxas": {"f32 C=3 vector": ptxas_of(log, r"ingest_norm_kernelIfLi3ELb1E"),
+                     "f32 C=3 scalar": ptxas_of(log, r"ingest_norm_kernelIfLi3ELb0E"),
+                     "spilling": [e for e in ptxas_summary(log) if e.get("spill_bytes")]},
+           "occupancy": [ops.occupancy(C, torch.float32, path) for path in ("vector", "scalar")]}
     emit(out)
     return out
 
@@ -626,14 +672,15 @@ def wkv_check(torch, ops, ref, args, tol, label) -> dict:
 
 def phase_wkv(torch, ops, ref, bw, peak_f32) -> dict:
     """rwkv6_wkv against its plain version at tests/test_kernels.py's cases
-    (2e-4, 5e-4 with a nonzero s0), at D = 64 and at the path's shape; device
-    times of the kernel and the plain version (no single PyTorch call
-    computes the recurrence)."""
+    (2e-4, 5e-4 with a nonzero s0), at every head dim with S off the staged
+    tile, and at the path's shape; device times of the kernel and of the
+    plain version (no single PyTorch call computes the recurrence)."""
     gen = torch.Generator("cuda").manual_seed(0)
     dev = "cuda"
     cases = []
     for B, S, H, D in [(2, 32, 3, 16), (2, 64, 3, 16), (2, 48, 3, 16), (2, 40, 3, 16),
-                       (2, 40, 3, 64), (1, 77, 2, 128)]:
+                       (2, 40, 3, 64), (1, 77, 2, 128),
+                       (1, 300, 2, 8), (2, 150, 2, 16), (2, 100, 3, 32), (2, 70, 2, 64)]:
         r, k, v, w, u = wkv_inputs(torch, B, S, H, D, gen, dev)
         cases.append(wkv_check(torch, ops, ref, (r, k, v, w, u, torch.zeros(
             (B, H, D, D), device=dev)), 2e-4, f"B={B} S={S} H={H} D={D}"))
@@ -664,7 +711,9 @@ def phase_wkv(torch, ops, ref, bw, peak_f32) -> dict:
            "bound_ms": bound, "bound_by": bound_by, "bound_bytes": nbytes, "flops": flops,
            "bytes_bound_ms": nbytes / bw * 1e3 if bw else None,
            "ops_bound_ms": flops / peak_f32 * 1e3 if peak_f32 else None,
-           "peak_fp32_flops": peak_f32, "kernel_gb_per_s": nbytes / kernel_ms / 1e6}
+           "peak_fp32_flops": peak_f32, "kernel_gb_per_s": nbytes / kernel_ms / 1e6,
+           "layout": ops.LAYOUT[D], "ptxas": ptxas_of(ops.build().log, r"wkv_kernel"),
+           "occupancy": [ops.occupancy(d) for d in ops.HEAD_DIMS]}
     emit(out)
     return out
 
@@ -1000,6 +1049,7 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"],
         "kernel_ms": kern["kernel_ms"],
+        "kernel_cold_ms": kern["kernel_cold_ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"],
         "bound_by": "bytes",

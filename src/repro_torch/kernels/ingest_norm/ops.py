@@ -6,6 +6,10 @@ with nvcc at first use) or raises; it takes the plain version
 (:func:`~repro_torch.kernels.ingest_norm.ref.ingest_norm_ref`) only for a
 tensor on the CPU.  ``ingest_norm.launches`` counts kernel launches.
 
+The kernel takes a vector path (16-byte loads and stores) or a scalar one,
+chosen by shape in :func:`path_for`, never on a failure: a failed build or
+launch raises.
+
 ``make_ingest_fn`` packages it as the batch-level epilogue the training loop
 hands to :class:`repro_torch.core.prefetch.DevicePrefetchRing`.
 """
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,9 +27,21 @@ from repro_torch.kernels.ingest_norm.ref import ingest_norm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ingest_norm.cu"
 MAX_C = 4
-MAX_B = 65535  # gridDim.z
-MAX_H = 65535 * 8  # gridDim.y * TILE_H
+RUN_PIXELS = 2560  # pixels a block (csrc RUN)
+MAX_BLOCKS = 2**31 - 1  # gridDim.x
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def path_for(shape: Sequence[int], out_dtype: torch.dtype, data_ptr: int = 0) -> str:
+    """``"vector"`` when every block's run of pixels is a whole number of
+    16-byte vectors on both sides: its input bytes (H*W*C % 16 == 0 and the
+    input 16-byte aligned) and each plane's outputs (H*W a multiple of 4 f32
+    or 8 bf16); ``"scalar"`` otherwise."""
+    _, H, W, C = shape
+    per_vector = 16 // (4 if out_dtype == torch.float32 else 2)
+    if (H * W * C) % 16 == 0 and (H * W) % per_vector == 0 and data_ptr % 16 == 0:
+        return "vector"
+    return "scalar"
 
 
 def build() -> Built:
@@ -37,13 +53,30 @@ def build() -> Built:
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        occ = built.lib.ingest_norm_occupancy
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        occ.restype = ctypes.c_int
         err = built.lib.ingest_norm_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built
+
+
+def occupancy(C: int, out_dtype: torch.dtype, path: str) -> dict:
+    """Resident blocks an SM of the kernel for C channels, the output type
+    and the path, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives
+    it, with its threads and pixels a block.  Needs the card."""
+    threads, run = ctypes.c_int(0), ctypes.c_int(0)
+    n = build().lib.ingest_norm_occupancy(C, _OUT_CODES[out_dtype], int(path == "vector"),
+                                          ctypes.byref(threads), ctypes.byref(run))
+    if n <= 0:
+        raise RuntimeError(f"ingest_norm occupancy of C={C}, {out_dtype}, {path}: error {n}")
+    return {"C": C, "out_dtype": str(out_dtype), "path": path, "threads": threads.value,
+            "run_pixels": run.value, "blocks_per_sm": n,
+            "warps_per_sm": n * -(-threads.value // 32)}
 
 
 def _affine(mean: Any, std: Any, C: int):
@@ -80,12 +113,13 @@ def ingest_norm(
         raise ValueError("img must be contiguous")
     if not (1 <= C <= MAX_C):
         raise ValueError(f"ingest_norm kernel takes 1..{MAX_C} channels, got {C}")
-    if B > MAX_B or H > MAX_H:
-        raise ValueError(f"batch {B} or height {H} exceeds the kernel's grid ({MAX_B}, {MAX_H})")
+    if B * -(-H * W // RUN_PIXELS) > MAX_BLOCKS:
+        raise ValueError(f"{tuple(img.shape)} needs more blocks than the kernel's grid takes")
     scale, bias = _affine(mean, std, C)
     out = torch.empty((B, C, H, W), dtype=out_dtype, device=img.device)
     if img.numel() == 0:
         return out
+    vector = int(path_for(img.shape, out_dtype, img.data_ptr()) == "vector")
     lib = build().lib
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
@@ -93,7 +127,7 @@ def ingest_norm(
             img.data_ptr(), out.data_ptr(), B, H, W, C,
             scale.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             bias.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            _OUT_CODES[out_dtype], stream,
+            _OUT_CODES[out_dtype], vector, stream,
         )
     if rc != 0:
         msg = lib.ingest_norm_error_string(rc).decode()

@@ -12,7 +12,8 @@ What the reference's wrapper does around its chunked TPU kernel, the kernel
 does without: it reads (B,S,H,D) in place through its strides (no transpose
 to (BH,S,D)), runs the per-token recurrence so any S needs no padding, and
 loads a nonzero s0 into its state registers (no analytic fold).  It has no
-chunks, so it takes no ``chunk`` argument.
+chunks, so it takes no ``chunk`` argument.  A lane holds C columns of the
+state and 1/G of their rows, one (G, C) for each head dim (:data:`LAYOUT`).
 
 The kernel is forward-only, as the reference's Pallas kernel is (it defines
 no VJP, and ``jax.grad`` through it fails): with grad enabled, an input that
@@ -30,7 +31,10 @@ from repro_torch.kernels.build import Built, load_cuda_library
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# The kernel csrc/wkv.cu builds for each head dim D (its WKV_CASES), as
+# (G, C): a lane holds C columns of the state and 1/G of their rows.
+LAYOUT = {8: (2, 4), 16: (4, 4), 32: (8, 4), 64: (4, 4), 128: (16, 8)}
+HEAD_DIMS = tuple(LAYOUT)
 
 
 def build() -> Built:
@@ -38,13 +42,29 @@ def build() -> Built:
     built = load_cuda_library("rwkv6_wkv", SOURCE)
     fn = built.lib.wkv_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        occ = built.lib.wkv_occupancy
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        occ.restype = ctypes.c_int
         err = built.lib.wkv_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built
+
+
+def occupancy(D: int) -> dict:
+    """Resident blocks an SM of the kernel for head dim D, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives it, with its
+    threads a block and dynamic shared bytes.  Needs the card."""
+    G, C = LAYOUT[D]
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    n = build().lib.wkv_occupancy(D, G, C, ctypes.byref(threads), ctypes.byref(smem))
+    if n <= 0:
+        raise RuntimeError(f"wkv occupancy of D={D}, G={G}, C={C}: error {n}")
+    return {"D": D, "G": G, "C": C, "threads": threads.value, "dynamic_smem_bytes": smem.value,
+            "blocks_per_sm": n, "warps_per_sm": n * -(-threads.value // 32)}
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -93,8 +113,15 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return wkv_plain(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv runs on 'cuda' or 'cpu' tensors, got {r.device}")
-    lib = build().lib
+    return _launch(r, k, v, w, u, s0)
+
+
+def _launch(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors that :func:`wkv` has checked;
+    raises if the launch fails."""
     B, S, H, D = r.shape
+    G, C = LAYOUT[D]
+    lib = build().lib
     r, k, v, w = (_kernel_ready(t) for t in (r, k, v, w))
     u, s0 = u.contiguous(), s0.contiguous()
     y = torch.empty((B, S, H, D), dtype=torch.float32, device=r.device)
@@ -103,7 +130,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = lib.wkv_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                         s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, S, H, D, strides, stream)
+                         s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, S, H, D, G, C,
+                         strides, stream)
     if rc != 0:
         msg = lib.wkv_error_string(rc).decode()
         raise RuntimeError(f"wkv kernel launch failed: {msg} (cudaError {rc})")

@@ -103,21 +103,62 @@ def test_device_epilogue_matches_host_epilogue(store):
         ImageDataset(store, N_ITEMS, epilogue="gpu")
 
 
+# (shape, path of f32, path of bf16): H*W*C a multiple of 16 and H*W of 4
+# (f32) or 8 (bf16) outputs take 16-byte vectors; (2, 30, 224, 3) ends in a
+# short run (6720 pixels, runs of 2560)
+_PATHS = [
+    ((64, 224, 224, 3), "vector", "vector"),
+    ((2, 224, 224, 4), "vector", "vector"),
+    ((2, 30, 224, 3), "vector", "vector"),
+    ((2, 24, 24, 4), "vector", "vector"),
+    ((5, 8, 8, 2), "vector", "vector"),
+    ((1, 2, 2, 4), "vector", "scalar"),
+    ((3, 31, 17, 3), "scalar", "scalar"),
+    ((1, 9, 40, 1), "scalar", "scalar"),
+    ((1, 6, 6, 1), "scalar", "scalar"),
+]
+
+
+@pytest.mark.parametrize("shape,f32,bf16", _PATHS)
+def test_path_for_picks_vector_or_scalar_by_shape(shape, f32, bf16):
+    assert ops.path_for(shape, torch.float32) == f32
+    assert ops.path_for(shape, torch.bfloat16) == bf16
+    # an input that is not 16-byte aligned takes the scalar loop
+    assert ops.path_for(shape, torch.float32, data_ptr=4096 + 1) == "scalar"
+    assert ops.path_for(shape, torch.bfloat16, data_ptr=4096 + 8) == "scalar"
+
+
+def test_run_length_is_the_sources():
+    """The wrapper's grid check counts blocks of the source's run length."""
+    import re
+
+    text = ops.SOURCE.read_text()
+    assert int(re.search(r"constexpr int RUN = (\d+);", text).group(1)) == ops.RUN_PIXELS
+    assert int(re.search(r"constexpr int MAX_C = (\d+);", text).group(1)) == ops.MAX_C
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_the_card():
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,f32,bf16", _PATHS + [((2, 24, 24, 4), "unaligned", "unaligned")])
+def test_kernel_matches_plain_version_on_the_card(shape, f32, bf16, out_dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    for shape in [(64, 224, 224, 3), (3, 31, 17, 3), (2, 24, 24, 4)]:
-        img, mean, std = _inputs(shape)
-        x = torch.from_numpy(img).cuda()
-        for dt in (torch.float32, torch.bfloat16):
-            before = ops.ingest_norm.launches
-            got = ops.ingest_norm(x, mean, std, dt)
-            want = ingest_norm_ref(x, torch.from_numpy(mean).cuda(), torch.from_numpy(std).cuda(),
-                                   dt)
-            torch.cuda.synchronize()
-            assert ops.ingest_norm.launches == before + 1
-            err = (got.float() - want.float()).abs().max().item()
-            assert err <= TOL[dt], (shape, dt, err)
+    img, mean, std = _inputs(shape)
+    x = torch.from_numpy(img).cuda()
+    path = f32 if out_dtype == torch.float32 else bf16
+    if path == "unaligned":  # the same bytes one byte into a buffer
+        buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device="cuda")
+        x = buf[1:].view(shape).copy_(x)
+        path = "scalar"
+    assert ops.path_for(x.shape, out_dtype, x.data_ptr()) == path
+    before = ops.ingest_norm.launches
+    got = ops.ingest_norm(x, mean, std, out_dtype)
+    want = ingest_norm_ref(x, torch.from_numpy(mean).cuda(), torch.from_numpy(std).cuda(),
+                           out_dtype)
+    torch.cuda.synchronize()
+    assert ops.ingest_norm.launches == before + 1
+    assert got.shape == want.shape and got.dtype == out_dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[out_dtype], (shape, out_dtype, path, err)
     with pytest.raises(ValueError, match="contiguous"):
         ops.ingest_norm(x.transpose(1, 2), mean, std)

@@ -1,8 +1,9 @@
 """The RWKV-6 WKV wrapper of the port (its plain version on the CPU) against
 the JAX reference's Pallas kernel in interpret mode and its ``wkv_ref``
 oracle, on the cases and tolerances of ``tests/test_kernels.py``; the
-port's chunked scan against the reference's; the wrapper's refusals; and,
-on a card, the CUDA kernel against its plain version."""
+port's chunked scan against the reference's; the wrapper's refusals; the
+kernel's order of sums emulated on the CPU; and, on a card, the CUDA kernel
+against its plain version."""
 import numpy as np
 import pytest
 
@@ -164,27 +165,134 @@ def test_cuda_tensor_without_the_kernel_raises_and_never_falls_back(monkeypatch)
     assert ops.wkv.launches == 0
 
 
+def _fma(a, b, c):
+    """fmaf on fp32 tensors: the product is exact in float64, then one
+    rounding to fp32 (a double rounding differs from fmaf's single one at
+    most in rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _xor_tree(p, lanes, dim):
+    """The __shfl_xor_sync tree over ``lanes`` lanes along ``dim``: each
+    step adds the lane at distance ``off``; every lane ends with the same
+    sum, lane 0's is returned."""
+    off = lanes // 2
+    while off:
+        p = p + p.index_select(dim, torch.arange(lanes) ^ off)
+        off //= 2
+    return p.select(dim, 0)
+
+
+def _kernel_order(r, k, v, w, u, s0, G):
+    """csrc/wkv.cu's arithmetic in its order, in fp32 on (BH, S, D): lane g
+    of a column's group holds rows 4*(q*G + g) + i and sums its part of y_j
+    in one fma chain over them (q, then i), the G parts go through the xor
+    tree of the reduce-scatter, the bonus is 8 rows a lane (chunks part and
+    part + D/8) in a chain of fmas and a tree over D/8 lanes,
+    y = fma(bonus, v_j, sum), S = fma(w_i, S, k_i * v_j).  How many columns
+    a lane holds (C) does not change the order."""
+    BH, S, D = r.shape
+    Q, BL = D // G // 4, D // 8
+    s = s0.clone()
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        ru = rt.view(BH, 2, BL, 4)
+        uk = (u * kt).view(BH, 2, BL, 4)
+        p = torch.zeros(BH, BL)
+        for m in range(2):
+            for c in range(4):
+                p = _fma(ru[:, m, :, c], uk[:, m, :, c], p)
+        bonus = _xor_tree(p, BL, 1)
+        rv, sv = rt.view(BH, Q, G, 4), s.view(BH, Q, G, 4, D)
+        y = torch.zeros(BH, G, D)
+        for q in range(Q):
+            for i in range(4):
+                y = _fma(rv[:, q, :, i, None], sv[:, q, :, i], y)
+        ys.append(_fma(bonus[:, None], vt, _xor_tree(y, G, 1)))
+        s = _fma(wt[:, :, None], s, kt[:, :, None] * vt[:, None, :])
+    return torch.stack(ys, dim=1), s
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_kernel_summation_order_stays_inside_the_gate(D):
+    """The kernel's order of sums (each lane's part of y_j in one chain, the
+    G parts through a shuffle tree, the bonus a pass of its own) emulated in
+    fp32 over 4096 tokens, against the plain version in float64: within the
+    2e-4 gate with a 4x margin."""
+    G, _ = ops.LAYOUT[D]
+    B, S, H = 1, 4096, 2
+    r, k, v, w, u = (torch.from_numpy(a) for a in _inputs(B, S, H, D, seed=11))
+    s0 = torch.from_numpy(
+        np.random.default_rng(12).standard_normal((B, H, D, D), dtype=np.float32) * 0.3)
+    bh = lambda a: a.transpose(1, 2).reshape(B * H, S, D)  # noqa: E731
+    got_y, got_s = _kernel_order(bh(r), bh(k), bh(v), bh(w), u.repeat(B, 1), s0.reshape(-1, D, D),
+                                 G)
+    want_y, want_s = wkv_plain(*(a.double() for a in (r, k, v, w, u, s0)))
+    tol = 2e-4
+    worst = 0.0
+    for got, want in ((got_y, bh(want_y)), (got_s, want_s.reshape(-1, D, D))):
+        ratio = (got.double() - want).abs() / (tol + tol * want.abs())
+        worst = max(worst, ratio.max().item())
+    print(f"D={D} G={G}: worst error {worst:.3e} of the 2e-4 gate, margin {1 / worst:.0f}x")
+    assert worst <= 0.25
+
+
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_layouts_are_the_ones_the_source_builds(D):
+    """The (G, C) the wrapper launches at head dim D is the one kernel
+    csrc/wkv.cu instantiates for D (its WKV_CASES), and meets the shape
+    rules of its Shape struct: whole float4 chunks of rows and columns a
+    lane, a block's threads a multiple of a token row's 16-byte chunks, and
+    at least the D/8 lanes the bonus pass gives a token."""
+    import re
+
+    text = ops.SOURCE.read_text()
+    cases = text[text.index("#define WKV_CASES(X)"):]
+    cases = cases[:cases.index("\n\n")]
+    built = {tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", cases)}
+    assert sorted(built) == sorted((d, *ops.LAYOUT[d]) for d in ops.HEAD_DIMS)
+    G, C = ops.LAYOUT[D]
+    R, NT, CH = D // G, D // C * G, D // 4
+    assert R % 4 == 0 and C % 4 == 0 and G <= 32
+    assert NT % CH == 0 and (2048 // D) % (NT // CH) == 0 and NT >= D // 8
+
+
+_CARD_CASES = [
+    # the reference's cases and one per head dim
+    (2, 32, 3, 16), (2, 64, 3, 16), (2, 48, 3, 16), (2, 40, 3, 16), (1, 16, 2, 8),
+    (2, 100, 2, 32), (2, 70, 3, 64), (1, 33, 2, 128),
+    # S off the staged tile of 2048/D tokens at every head dim
+    (1, 300, 2, 8), (2, 150, 2, 16), (2, 100, 3, 32), (2, 70, 2, 64), (1, 33, 3, 128),
+    # long S, where the accumulated error shows
+    (1, 4096, 4, 64),
+]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_the_card():
+@pytest.mark.parametrize("nonzero", [False, True], ids=["s0=0", "s0"])
+@pytest.mark.parametrize("B,S,H,D", _CARD_CASES)
+def test_kernel_matches_plain_version_on_the_card(B, S, H, D, nonzero):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    cases = [(2, 32, 3, 16), (2, 64, 3, 16), (2, 48, 3, 16), (2, 40, 3, 16), (1, 16, 2, 8),
-             (2, 100, 2, 32), (2, 70, 3, 64), (1, 33, 2, 128)]
-    for i, (B, S, H, D) in enumerate(cases):
-        r, k, v, w, u = (torch.from_numpy(a).cuda() for a in _inputs(B, S, H, D, seed=i))
-        for nonzero in (False, True):
-            s0 = torch.zeros((B, H, D, D), device="cuda")
-            if nonzero:
-                s0 = torch.randn((B, H, D, D), device="cuda") * 0.3
-            tol = 5e-4 if nonzero else 2e-4
-            before = ops.wkv.launches
-            y, sT = ops.wkv(r, k, v, w, u, s0)
-            want_y, want_s = wkv_plain(r, k, v, w, u, s0)
-            torch.cuda.synchronize()
-            assert ops.wkv.launches == before + 1
-            torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
-            torch.testing.assert_close(sT, want_s, rtol=tol, atol=tol)
-    # strided views are read in place
+    r, k, v, w, u = (torch.from_numpy(a).cuda() for a in _inputs(B, S, H, D, seed=S + D))
+    s0 = torch.zeros((B, H, D, D), device="cuda")
+    if nonzero:
+        s0 = torch.randn((B, H, D, D), device="cuda") * 0.3
+    tol = 5e-4 if nonzero else 2e-4
+    want_y, want_s = wkv_plain(r, k, v, w, u, s0)
+    before = ops.wkv.launches
+    y, sT = ops.wkv(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ops.wkv.launches == before + 1
+    torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(sT, want_s, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_views_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     x = torch.randn(2, 40, 4, 2, 16, device="cuda")
     r = x[:, :, :, 0]
     w = torch.sigmoid(x[:, :, :, 1])
