@@ -25,6 +25,20 @@ Phases, each printing one JSON line:
 6. main    — the ResNet path through its launcher: full-width ResNet-18
    trained from simulated S3 through the paper's loader with the
    ``ingest_norm`` epilogue on the card.
+6b. main_pipeline — (a) the same ResNet path through ``make_loader`` and
+   the staged pipeline with ``staging_buffers=4``: H2D straight from the
+   pooled staging buffers, pinned in place, then ``ingest_norm``; gated on
+   every copy reading a pooled pinned set, launches equal to batches
+   transferred, no detached lease and at most 4 sets an epoch; then the
+   same with the process CPU executor; both printed beside ``main``'s
+   figures.  Then three checks on the card at full image size: (b) with
+   one staging buffer, a delay kernel in front of every copy and a
+   consumer that waits before each step, every device batch after
+   ``ingest_norm`` equals the legacy loader's, and a ring planted to
+   release the buffer before its copy landed is seen to differ; (c) window
+   reorder keeps each window's label multiset; (d) the process CPU
+   executor (2 spawned workers, whose samples report that ``torch`` is not
+   in their ``sys.modules``) equals the thread executor.
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
@@ -42,7 +56,8 @@ Phases, each printing one JSON line:
    gated on the real r, k, v, w, and RMSNorm on a real residual.
 
 Launch counts are set to 0 just before each main path and read just after
-(for main_rwkv, before and after its eval walk; rmsnorm, which no model
+(for main_pipeline, around its launcher run; for main_rwkv, before and
+after its eval walk; rmsnorm, which no model
 calls, counts its own phase's checked calls).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
@@ -79,6 +94,24 @@ MAIN_ARGS = [
     "--steps", "48", "--optimizer", "sgd", "--log-every", "8",
 ]
 
+# The staged pipeline on the same path: MAIN_ARGS through make_loader with
+# PipelineConfig(enabled=True, staging_buffers=PIPE_DEPTH) (io_workers 64 =
+# workers x fetchers, cpu_workers 4: the reference's defaults)
+PIPE_DEPTH = 4
+PIPE_ARGS = MAIN_ARGS + ["--pipeline", "--staging-buffers", str(PIPE_DEPTH)]
+# and once with the process CPU executor (4 spawned workers)
+PROC_ARGS = PIPE_ARGS + ["--cpu-executor", "process"]
+# its checks: 224x224 crops of 115 KB images behind the same simulated S3;
+# 16 batches of 32 for the one-buffer reuse and window checks, the first
+# 256 items (8 batches) for the process executor
+CHECK_ITEMS, CHECK_BS, CHECK_WINDOW, CHECK_WAIT_S = 512, 32, 4, 0.05
+PROC_ITEMS, PROC_WORKERS = 256, 2
+# the one-buffer check holds a delay kernel (about 0.1 s) on the ring's side
+# stream in front of every copy, so each copy lands well after the ring
+# thread could collate the next batch into the same buffer
+CHECK_DELAY_CYCLES = 200_000_000
+STAGE_SPANS = ("get_batch", "batch_to_device", "run_training_batch", "stage_fetch",
+               "stage_decode", "stage_augment", "stage_collate")
 
 # The LM path: granite-8b at full width, depth cut to 4 of its 36 layers (36
 # layers with AdamW need about 132 GB, more than one card holds) and
@@ -473,9 +506,9 @@ def phase_model_lm(torch) -> dict:
     return out
 
 
-def span_stats(tracer) -> dict:
+def span_stats(tracer, names=("get_batch", "batch_to_device", "run_training_batch")) -> dict:
     out = {}
-    for name in ("get_batch", "batch_to_device", "run_training_batch"):
+    for name in names:
         ds = [s.duration for s in tracer.spans(name)]
         out[name] = {"count": len(ds), "total_s": sum(ds),
                      "median_ms": 1e3 * statistics.median(ds) if ds else None,
@@ -548,6 +581,363 @@ def phase_main(torch, ops) -> dict:
              f"{report.batches_transferred} batches transferred")
     if devices != ["cuda"]:
         fail(f"params live on {devices}, not on cuda")
+    return out
+
+
+def run_figures(out: dict) -> dict:
+    """The figures the main runs are compared by: items/s over the run and
+    after the first step, the Table-3 columns and the step's span medians."""
+    return {k: out[k] for k in ("items_per_s", "items_per_s_after_first_step", "wall_s",
+                                "first_step_ms", "util_zero_pct", "util_pos_avg",
+                                "busy_fraction")} | {
+        "batch_to_device_median_ms": out["spans"]["batch_to_device"]["median_ms"],
+        "batch_to_device_total_s": out["batch_to_device_total_s"],
+        "get_batch_median_ms": out["spans"]["get_batch"]["median_ms"],
+        "run_training_batch_median_ms": out["spans"]["run_training_batch"]["median_ms"]}
+
+
+class ModulesProbe:
+    """Wraps a split dataset for the process-executor check: every sample
+    gains ``torch_loaded``, whether ``torch`` was in ``sys.modules`` of the
+    process that ran its augment stage.  Defined at module level, so a
+    spawned CPU worker unpickles it from this script, which imports no
+    torch at module level."""
+
+    def __init__(self, data) -> None:
+        self.data = data
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.data.set_epoch(epoch)
+
+    def supports_split(self) -> bool:
+        return True
+
+    def get_raw(self, index: int) -> bytes:
+        return self.data.get_raw(index)
+
+    async def aget_raw(self, index: int) -> bytes:
+        return await self.data.aget_raw(index)
+
+    def decode_raw(self, raw: bytes, index: int):
+        return self.data.decode_raw(raw, index)
+
+    def augment_item(self, decoded, index: int) -> dict:
+        return {**self.data.augment_item(decoded, index), "torch_loaded": "torch" in sys.modules}
+
+    def __getitem__(self, index: int) -> dict:
+        return self.augment_item(self.decode_raw(self.get_raw(index), index), index)
+
+    async def aget_item(self, index: int) -> dict:
+        return self[index]
+
+
+class H2DWatch:
+    """For the runs inside it, wraps the device prefetch ring's transfer and
+    records, for every batch it copied to the card, the state the copy left
+    behind, read without changing it: whether the batch lies in a pooled
+    staging set's own buffers (same ``data_ptr``) and that set is pinned in
+    place (the pool's flag, and ``is_pinned()`` on the buffers' memory).
+    Nothing here pins: only the ring can have.  What the ring copied from is
+    its own record, each ``batch_to_device`` span's ``source``
+    (:func:`h2d_sources`)."""
+
+    def __init__(self) -> None:
+        self.rows: list = []
+
+    def __enter__(self) -> "H2DWatch":
+        import torch
+
+        from repro_torch.core.prefetch import DevicePrefetchRing
+
+        self.cls, self.put = DevicePrefetchRing, DevicePrefetchRing._put_device
+        watch = self
+
+        def put(ring, batch):
+            out = watch.put(ring, batch)
+            bufs = getattr(batch, "_bufs", None)
+            if bufs is None:
+                watch.rows.append("unstaged")
+            elif not batch.pooled:
+                watch.rows.append("past_depth")
+            else:
+                own = all(v.ctypes.data == bufs[k].ctypes.data
+                          and torch.from_numpy(v).is_pinned() for k, v in batch.items())
+                watch.rows.append("pooled_pinned" if bufs.pinned and own
+                                  else "pooled_unpinned")
+            return out
+
+        DevicePrefetchRing._put_device = put
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls._put_device = self.put
+
+    def counts(self) -> dict:
+        return {r: self.rows.count(r) for r in sorted(set(self.rows))}
+
+
+def h2d_sources(tracer) -> dict:
+    """What the ring says each copy to the card read: the ``source`` tag of
+    every ``batch_to_device`` span, counted."""
+    tags = [str(s.args.get("source")) for s in tracer.spans("batch_to_device")]
+    return {t: tags.count(t) for t in sorted(set(tags))}
+
+
+def pipeline_run(torch, ops, args: list, label: str) -> dict:
+    """One run of the ResNet path through the launcher and the staged
+    pipeline, its launches counted from 0 and every H2D watched; fails on
+    any gate of (a)."""
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import leaves
+
+    ops.ingest_norm.launches = 0
+    with H2DWatch() as watch:
+        report = launch.run(args)
+    launches = ops.ingest_norm.launches
+    losses = [h["loss"] for h in report.result.history]
+    devices = sorted({str(p.device.type) for p in leaves(report.state["params"])})
+    ends = sorted(sp.t1 for sp in report.tracer.spans("run_training_batch"))
+    staging = [st["staging"] for st in report.stages]
+    out = {
+        "label": label, "args": args, "steps": report.result.steps,
+        "epochs": report.result.epochs, "wall_s": report.result.wall_s,
+        "items_per_s": report.items_per_s,
+        "items_per_s_after_first_step":
+            (len(ends) - 1) * MAIN_BS / (ends[-1] - ends[0]) if len(ends) > 1 else None,
+        "first_step_ms": 1e3 * report.tracer.spans("run_training_batch")[0].duration,
+        "util_zero_pct": report.util.util_zero_pct, "util_pos_avg": report.util.util_pos_avg,
+        "busy_fraction": report.util.busy_fraction,
+        "batches_transferred": report.batches_transferred,
+        "batch_to_device_total_s": report.batch_to_device_s,
+        "h2d": watch.counts(), "h2d_sources": h2d_sources(report.tracer),
+        "ingest_norm_launches": launches,
+        "spans": span_stats(report.tracer, STAGE_SPANS),
+        "queues_per_epoch": [{k: st[k] for k in ("decode_queue", "done_queue",
+                                                 "in_flight_samples", "io_workers",
+                                                 "cpu_workers", "cpu_executor")}
+                             for st in report.stages],
+        "staging_per_epoch": staging,
+        "cpu_pool_per_epoch": [st.get("cpu_pool") for st in report.stages],
+        "bytes_copied": report.tracer.counter("bytes_copied"),
+        "first_loss": losses[0] if losses else None, "last_loss": losses[-1] if losses else None,
+        "param_devices": devices,
+    }
+    emit({"phase": "main_pipeline_run", **out})
+    n = report.batches_transferred
+    if report.result.steps < 48 or report.result.epochs < 3:
+        fail(f"{label}: ran {report.result.steps} steps over {report.result.epochs} epochs")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss: {losses}")
+    if launches == 0 or launches != n:
+        fail(f"{label}: ingest_norm launched {launches} times for {n} batches transferred")
+    if out["h2d_sources"] != {"staging": n} or watch.counts() != {"pooled_pinned": n}:
+        fail(f"{label}: of {n} copies to the card, not all read a pooled pinned staging set: "
+             f"ring's sources {out['h2d_sources']}, sets after the copy {watch.counts()}")
+    # the ring collates the next batch only after the last copy landed and
+    # its set was released, so one set, registered once, serves each epoch
+    if len(staging) != report.result.epochs or any(
+            st["detached"] or st["allocs"] != 1 or st["registered"] != 1
+            or st["reuses"] != st["leases"] - 1 for st in staging):
+        fail(f"{label}: staging did not serve each epoch from one set registered once: "
+             f"{staging}")
+    if any(p and p["crashes"] for p in out["cpu_pool_per_epoch"]):
+        fail(f"{label}: process workers crashed: {out['cpu_pool_per_epoch']}")
+    if devices != ["cuda"]:
+        fail(f"{label}: params live on {devices}, not on cuda")
+    return out
+
+
+def early_release_ring(torch):
+    """The device prefetch ring with the fault the one-buffer check exists
+    for: a staged batch's buffers are released as soon as its copy is
+    enqueued, and the ring moves on without waiting for it, so the next
+    collate writes into the buffer before the DMA has read it."""
+    from repro_torch.core.prefetch import DevicePrefetchRing
+
+    class EarlyRelease(DevicePrefetchRing):
+        def _put_device(self, batch):
+            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                host, _ = batch.pin()
+                dev = {k: t.to(self.device, non_blocking=True) for k, t in host.items()}
+                batch.release_after(dev)  # the planted fault: before the copy landed
+                dev = self.ingest_fn(dev)
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+            return dev, ready
+
+    return EarlyRelease
+
+
+def delayed(torch, ring_cls):
+    """``ring_cls`` with a delay kernel on its side stream in front of every
+    copy, so each copy lands well after the ring thread could collate the
+    next batch into the same buffer."""
+
+    class Delayed(ring_cls):
+        def _put_device(self, batch):
+            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                torch.cuda._sleep(CHECK_DELAY_CYCLES)
+            return super()._put_device(batch)
+
+    return Delayed
+
+
+def device_stream(torch, loader, ingest_fn, tracer, wait_s: float = 0.0,
+                  ring_cls=None) -> list:
+    """Every batch of one epoch through the device prefetch ring (or
+    ``ring_cls``) and the ingest_norm epilogue, kept on the card; with
+    ``wait_s`` the consumer sleeps before each step, so the ring runs ahead
+    of it."""
+    from repro_torch.core.prefetch import DevicePrefetchRing
+
+    ring = (ring_cls or DevicePrefetchRing)(iter(loader), depth=2, tracer=tracer,
+                                            ingest_fn=ingest_fn, device="cuda")
+    out = []
+    try:
+        for batch in ring:
+            if wait_s:
+                time.sleep(wait_s)
+            out.append(batch)
+    finally:
+        ring.close()
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_main_pipeline(torch, ops, legacy: dict, smi: str) -> dict:
+    from repro_torch.config import LoaderConfig, PipelineConfig, StoreConfig
+    from repro_torch.core import make_loader
+    from repro_torch.core.prefetch import DevicePrefetchRing
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.data.store import build_store
+    from repro_torch.kernels.ingest_norm.ops import make_ingest_fn
+
+    # (a) the main run, as phase_main's but through make_loader and the
+    # staged pipeline; then the same with the process CPU executor
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main = pipeline_run(torch, ops, PIPE_ARGS, "pipeline")
+    proc_run = pipeline_run(torch, ops, PROC_ARGS, "pipeline_process")
+    out = {
+        "phase": "main_pipeline", "nvidia_smi": smi, "args": PIPE_ARGS,
+        "ingest_norm_launches": main["ingest_norm_launches"],
+        "batches_transferred": main["batches_transferred"],
+        "figures": {"pipeline": run_figures(main), "pipeline_process": run_figures(proc_run),
+                    "legacy": run_figures(legacy)},
+        "stage_medians_ms": {
+            r["label"]: {k: v["median_ms"] for k, v in r["spans"].items()}
+            for r in (main, proc_run)},
+        "queues_last_epoch": {r["label"]: r["queues_per_epoch"][-1] for r in (main, proc_run)},
+    }
+    emit(out)
+
+    # (b)-(d): checks at full image size, each stream through the ring and
+    # the ingest_norm epilogue on the card
+    ingest = make_ingest_fn()
+    base = build_synthetic_imagenet(num_items=CHECK_ITEMS, avg_kb=115.0)
+
+    def loader(n, pipeline=PipelineConfig(), probe=False):
+        store = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02), base=base)
+        data = ImageDataset(store, n, out_size=224, sim_decode_s_per_mb=0.052,
+                            epilogue="device")
+        return make_loader(LoaderConfig(impl="threaded", batch_size=CHECK_BS, num_workers=4,
+                                        num_fetch_workers=16, seed=0, pipeline=pipeline),
+                           ModulesProbe(data) if probe else data)
+
+    def same(x, y, skip=()) -> bool:
+        keys = sorted(set(x) - set(skip))
+        return keys == sorted(set(y) - set(skip)) and all(torch.equal(x[k], y[k]) for k in keys)
+
+    def differing(a, b, skip=()) -> int:
+        if len(a) != len(b):
+            fail(f"streams of {len(a)} and {len(b)} batches")
+        return sum(not same(x, y, skip) for x, y in zip(a, b, strict=True))
+
+    # (b) one staging buffer, a consumer that waits, each copy held behind a
+    # delay kernel: the ring must give the legacy stream, and the same run
+    # with its buffer released before the copy landed must not
+    one = PipelineConfig(enabled=True, staging_buffers=1)
+    want = device_stream(torch, loader(CHECK_ITEMS), ingest, Tracer())
+    reuse_loader, tracer = loader(CHECK_ITEMS, one), Tracer()
+    with H2DWatch() as watch:
+        got = device_stream(torch, reuse_loader, ingest, tracer, wait_s=CHECK_WAIT_S,
+                            ring_cls=delayed(torch, DevicePrefetchRing))
+    reuse = reuse_loader.stage_stats()["staging"]
+    reuse_differing = differing(got, want)
+    planted = device_stream(torch, loader(CHECK_ITEMS, one), ingest, Tracer(),
+                            wait_s=CHECK_WAIT_S,
+                            ring_cls=delayed(torch, early_release_ring(torch)))
+    planted_differing = differing(planted, want)
+    reuse_batches = len(got)
+    del planted
+    # (c) window reorder: each window's label multiset is strict's
+    win = device_stream(torch, loader(CHECK_ITEMS, PipelineConfig(
+        enabled=True, reorder="window", reorder_window=CHECK_WINDOW, staging_buffers=2)),
+        ingest, Tracer())
+
+    def windows(stream):
+        labels = [b["label"].cpu().tolist() for b in stream]
+        return [sorted(sum(labels[i:i + CHECK_WINDOW], []))
+                for i in range(0, len(labels), CHECK_WINDOW)]
+
+    window_ok = (len(win) == len(got)
+                 and [len(b["label"]) for b in win] == [len(b["label"]) for b in got]
+                 and windows(win) == windows(got))
+    window_same_order = differing(win, got) == 0
+    del want, got, win
+    # (d) the process CPU executor against the thread executor; each sample
+    # says whether torch was loaded where its augment stage ran
+    thread = device_stream(torch, loader(PROC_ITEMS, PipelineConfig(enabled=True), probe=True),
+                           ingest, Tracer())
+    proc_loader = loader(PROC_ITEMS, PipelineConfig(
+        enabled=True, cpu_executor="process", cpu_workers=PROC_WORKERS), probe=True)
+    try:
+        proc = device_stream(torch, proc_loader, ingest, Tracer())
+        pool = proc_loader.stage_stats()["cpu_pool"]
+    finally:
+        proc_loader.close()
+    proc_differing = differing(proc, thread, skip=("torch_loaded",))
+    loaded = {"thread": sorted({bool(x) for b in thread for x in b["torch_loaded"].tolist()}),
+              "process": sorted({bool(x) for b in proc for x in b["torch_loaded"].tolist()})}
+    checks = {
+        "phase": "main_pipeline_checks", "items": CHECK_ITEMS, "batch": CHECK_BS,
+        "one_buffer": {"batches": reuse_batches, "staging": reuse, "h2d": watch.counts(),
+                       "h2d_sources": h2d_sources(tracer),
+                       "consumer_wait_s": CHECK_WAIT_S, "delay_cycles": CHECK_DELAY_CYCLES,
+                       "batches_differing_from_legacy": reuse_differing,
+                       "planted_early_release_batches_differing": planted_differing},
+        "window": {"window": CHECK_WINDOW, "multisets_equal": window_ok,
+                   "same_order_as_strict": window_same_order},
+        "process": {"items": PROC_ITEMS, "workers": PROC_WORKERS, "batches": len(proc),
+                    "batches_differing_from_thread": proc_differing, "pool": pool,
+                    "torch_in_sys_modules": loaded},
+    }
+    emit(checks)
+    if reuse_batches < 12 or reuse["leases"] < reuse_batches or reuse_differing:
+        fail(f"one staging buffer: {reuse_differing} device batches differ from the legacy "
+             f"stream ({reuse})")
+    if (reuse["allocs"] != 1 or reuse["detached"] or reuse["registered"] != 1
+            or reuse["reuses"] != reuse["leases"] - 1
+            or h2d_sources(tracer) != {"staging": reuse_batches}
+            or watch.counts() != {"pooled_pinned": reuse_batches}):
+        fail(f"one staging buffer: {reuse}, ring's sources {h2d_sources(tracer)}, "
+             f"sets after the copy {watch.counts()}")
+    if not planted_differing:
+        fail("one staging buffer: a release planted ahead of the copy went unseen")
+    if not window_ok:
+        fail("window reorder changed a window's label multiset")
+    if len(proc) != PROC_ITEMS // CHECK_BS or proc_differing:
+        fail(f"process executor: {len(proc)} batches, {proc_differing} differ from thread")
+    if loaded != {"thread": [True], "process": [False]}:
+        fail(f"torch in sys.modules where samples were augmented: {loaded}")
+    if pool["crashes"] or pool["workers"] != PROC_WORKERS:
+        fail(f"process workers: {pool}")
+    out["checks"] = checks
     return out
 
 
@@ -1037,6 +1427,7 @@ def main() -> int:
     phase_model_lm(torch)
     phase_model_rwkv(torch)
     main_out = phase_main(torch, ops)
+    pipe_out = phase_main_pipeline(torch, ops, main_out, smi)
     lm_out = phase_main_lm(torch, flash_ops, ops)
     rwkv_out = phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ops, flash_ops)
 
@@ -1046,6 +1437,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ingest_norm/csrc/ingest_norm.cu",
         "replaces": "src/repro/kernels/ingest_norm/kernel.py:29",
         "launches": main_out["ingest_norm_launches"],
+        "launches_pipeline": pipe_out["ingest_norm_launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"],
         "kernel_ms": kern["kernel_ms"],

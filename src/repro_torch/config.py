@@ -5,7 +5,10 @@ decoder (LM) and RWKV-6 training slices read, with the reference's names and
 defaults (``LoaderConfig`` drops ``pin_device`` and ``device_prefetch``,
 which the reference declares but never reads; the ring's depth is
 ``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops ``token_shift``, for
-the same reason).  MoE, SSM, MLA, enc-dec and VLM fields
+the same reason).  ``LoaderConfig.pipeline`` takes only the nested
+:class:`PipelineConfig`: the reference's flat-kwarg shim (``pipeline=True,
+reorder=...``) is not ported, and ``PipelineConfig`` has no ``transport``
+or slab fields until the shared-memory transport is ported.  MoE, SSM, MLA, enc-dec and VLM fields
 come with their slices.  ``replace()`` (from dataclasses) derives variants.
 """
 from __future__ import annotations
@@ -81,6 +84,45 @@ class StoreConfig:
 
 
 @dataclass(frozen=True)
+class PipelineConfig:
+    """Staged streaming pipeline (repro_torch.core.pipeline): replaces the
+    worker/fetcher path with an explicit stage graph (fetch-raw -> decode ->
+    augment -> collate) on dedicated IO and CPU executors with sample-level
+    out-of-order completion.  ``enabled=False`` (the default) keeps the
+    legacy path; the sub-config is truthy iff enabled, so ``if
+    cfg.pipeline:`` reads the same either way."""
+
+    enabled: bool = False
+    # batch assembly: "strict" (every batch holds exactly its sampler-assigned
+    # samples in order, bit-identical to the legacy stream) or "window"
+    # (within each group of `reorder_window` batches, slots are filled by
+    # whichever of the group's samples finish first)
+    reorder: str = "strict"
+    reorder_window: int = 4
+    # stage sizing.  0 = derive: io_workers = num_workers * num_fetch_workers
+    # (the legacy loader's fetch-thread count), cpu_workers = 4
+    io_workers: int = 0
+    cpu_workers: int = 0
+    # decode+augment executor: "thread" (gated thread pool, for GIL-releasing
+    # decoders) or "process" (spawn-based worker processes; needs the split
+    # path and a picklable dataset; persists across epochs on the loader;
+    # results come back pickled over each worker's pipe)
+    cpu_executor: str = "thread"
+    # bounded fetch->decode queue, in samples: a full queue stalls the IO
+    # stage (the pipeline's backpressure)
+    stage_queue_depth: int = 64
+    # pinned host staging (repro_torch.core.staging): >0 collates batches
+    # straight into a pool of this many reusable page-aligned buffer sets
+    # that the device prefetch ring copies from and recycles after the copy
+    # lands (a CUDA ring pins each pooled set in place the first time it
+    # copies from it).  Default collate only; 0 = off.
+    staging_buffers: int = 0
+
+    def __bool__(self) -> bool:
+        return self.enabled
+
+
+@dataclass(frozen=True)
 class LoaderConfig:
     impl: str = "threaded"  # vanilla | threaded | asyncio
     batch_size: int = 256
@@ -97,6 +139,8 @@ class LoaderConfig:
     hedge_factor: float = 3.0
     hedge_min_s: float = 0.05
     timeout_s: float = 120.0
+    # staged streaming pipeline (see PipelineConfig); nested form only
+    pipeline: PipelineConfig = PipelineConfig()
 
 
 @dataclass(frozen=True)

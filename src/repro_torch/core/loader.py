@@ -15,15 +15,20 @@ Lazy, non-blocking initialization (paper Fig. 8) is controlled by
 dispatch beginning as soon as each worker exists.
 
 Delivery is *in batch order* (a reorder buffer holds early arrivals), so all
-implementations yield bit-identical streams for a fixed seed.  This is the
-reference's legacy iterator; the staged pipeline, autotune, elastic mode and
-sharded delivery come in later slices of the port.
+implementations yield bit-identical streams for a fixed seed.
+
+``LoaderConfig.pipeline`` (enabled) swaps the legacy worker iterator for the
+staged pipeline (:mod:`repro_torch.core.pipeline`), with optional pinned
+host staging (:mod:`repro_torch.core.staging`).  The reference's
+shared-memory transport, autotune, elastic mode and sharded delivery have
+no config field in the port yet.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from repro_torch.config import LoaderConfig
@@ -50,8 +55,34 @@ class ConcurrentDataLoader:
         tracer: Tracer = NULL_TRACER,
         worker_startup_cost_s: float = 0.0,
     ) -> None:
+        pipe = cfg.pipeline
         if cfg.impl not in ("vanilla", "threaded", "asyncio"):
             raise ValueError(f"unknown loader impl {cfg.impl!r}")
+        if pipe.reorder not in ("strict", "window"):
+            raise ValueError(
+                f"unknown reorder {pipe.reorder!r}; known: 'strict', 'window'"
+            )
+        if pipe.cpu_executor not in ("thread", "process"):
+            raise ValueError(
+                f"unknown cpu_executor {pipe.cpu_executor!r}; "
+                "known: 'thread', 'process'"
+            )
+        if pipe:
+            # fail at construction, naming the field — not at first iter()
+            if cfg.impl == "vanilla":
+                raise ValueError(
+                    "pipeline requires impl 'threaded' or 'asyncio' "
+                    "(vanilla's sequential fetch has no staged equivalent)"
+                )
+            if pipe.reorder_window < 1:
+                raise ValueError("reorder_window must be >= 1")
+            for field in ("io_workers", "cpu_workers"):
+                if getattr(pipe, field) < 0:
+                    raise ValueError(f"{field} must be >= 0 (0 = derive)")
+            if pipe.stage_queue_depth < 1:
+                raise ValueError("stage_queue_depth must be >= 1")
+            if pipe.staging_buffers < 0:
+                raise ValueError("staging_buffers must be >= 0 (0 = off)")
         self.dataset = dataset
         self.cfg = cfg
         self.host_id = host_id
@@ -68,13 +99,19 @@ class ConcurrentDataLoader:
             host_id=host_id,
             num_hosts=num_hosts,
         )
+        # hedging pairs with any path whose assembler runs a hedge scan: the
+        # legacy threaded iterator and both staged-pipeline IO modes
         self.hedge = (
             HedgeTracker(cfg.hedge_factor, cfg.hedge_min_s)
-            if cfg.hedge_requests and cfg.impl == "threaded"
+            if cfg.hedge_requests and (cfg.impl == "threaded" or pipe)
             else None
         )
         self._epoch = 0
         self._consumed = 0  # batches actually yielded to the caller this epoch
+        # spawn-process CPU pool (pipeline cpu_executor="process"): owned by
+        # the loader because workers cost hundreds of ms to spawn; each
+        # epoch's pipeline iterator attaches and rebinds.  close() ends it.
+        self._cpu_pool = None
 
     # -- epoch / resume ------------------------------------------------------
     def set_epoch(self, epoch: int) -> None:
@@ -99,13 +136,60 @@ class ConcurrentDataLoader:
     def __len__(self) -> int:
         return len(self.sampler)
 
-    def __iter__(self) -> "_LoaderIter":
-        return _LoaderIter(self)
+    def __iter__(self):
+        if self.cfg.pipeline:
+            # staged streaming path: stage graph with dedicated IO/CPU
+            # executors + out-of-order sample completion
+            from repro_torch.core.pipeline import _PipelineIter
+
+            it = _PipelineIter(self)
+        else:
+            it = _LoaderIter(self)
+        # weakref: observability must not pin an abandoned iterator (and its
+        # worker/stage threads) past the consumer dropping it
+        self._active_iter = weakref.ref(it)
+        return it
+
+    def stage_stats(self) -> Optional[Dict[str, Any]]:
+        """Per-stage snapshot of the most recent pipeline iterator (queue
+        occupancy, executor widths, staging, hedges), plus the device
+        prefetch ring's depth when a trainer attached one.  None outside
+        pipeline mode."""
+        ref = getattr(self, "_active_iter", None)
+        it = ref() if ref is not None else None
+        stats_fn = getattr(it, "stage_stats", None)
+        if stats_fn is None:
+            # iterator already collected (or legacy mode): the final
+            # snapshot the pipeline iterator left at shutdown
+            out = getattr(self, "_last_stage_stats", None)
+            if out is None:
+                return None
+            out = dict(out)
+        else:
+            out = stats_fn()
+        ring_ref = getattr(self, "_device_ring", None)
+        ring = ring_ref() if ring_ref is not None else None
+        if ring is not None:
+            out["device_prefetch_depth"] = ring.depth
+        return out
+
+    def note_device_ring(self, ring: Any) -> None:
+        """Trainer hook: the device prefetch ring is the pipeline's final
+        stage; remembering it (weakly) folds its depth into stage_stats."""
+        self._device_ring = weakref.ref(ring)
+
+    def close(self) -> None:
+        """End the process CPU pool's workers, if a pipeline epoch started
+        them.  The loader stays usable: a later epoch spawns a new pool."""
+        pool, self._cpu_pool = self._cpu_pool, None
+        if pool is not None:
+            pool.close()
 
 
-def deliver_traced(it: "_LoaderIter") -> Any:
-    """``__next__`` body: one ``get_batch`` span per delivered batch, tagged
-    with the batch's byte count."""
+def deliver_traced(it) -> Any:
+    """Shared ``__next__`` body of ``_LoaderIter`` and the pipeline's
+    iterator: one ``get_batch`` span per delivered batch, tagged with the
+    batch's byte count."""
     t0 = time.monotonic()
     batch = it._next_impl()  # StopIteration passes through untraced
     args = {}

@@ -4,9 +4,18 @@ Wraps a host-batch iterator; a background thread copies the next ``depth``
 batches to the device while the current step runs, and records one
 ``batch_to_device`` span per batch (paper Fig. 1/2 magenta lane).
 
-On CUDA each batch goes host numpy -> pinned tensor -> ``.to(device,
-non_blocking=True)`` on a side stream.  The copy's event is synchronized
-inside the span, so the span covers the transfer and not just its enqueue.
+On CUDA a batch collated into staging buffers (a
+:class:`~repro_torch.core.staging.StagedBatch`) is copied straight from
+them with ``.to(device, non_blocking=True)`` on a side stream: the one host
+copy was collate's.  :meth:`~repro_torch.core.staging.StagedBatch.pin`
+registers a pooled buffer set in place the first time the ring copies from
+it.  Any other batch goes host numpy -> ``.pin_memory()`` (a second host
+copy) -> ``.to(...)``.  The copy's event is synchronized inside the span,
+so the span covers the transfer and not just its enqueue; a staged batch's
+buffers are released to their pool only after that event completed, never
+before (the next collate would overwrite a buffer mid-DMA).  On the CPU,
+``.to("cpu")`` returns the staging storage itself, so the release detaches
+such a lease instead, and nothing is pinned.
 ``ingest_fn`` (the ``ingest_norm`` epilogue) runs right after the put, on the
 same side stream; a second event marks the batch ready.  The consumer's
 stream waits on that event before it touches the batch, and every tensor of
@@ -80,23 +89,36 @@ class DevicePrefetchRing:
     def _put_device(self, batch: Dict[str, np.ndarray]):
         if not isinstance(batch, dict):
             raise TypeError(f"the ring transfers dict batches, got {type(batch).__name__}")
-        host = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        # a StagedBatch: released to its pool once the copy has landed
+        release = getattr(batch, "release_after", None)
         if not self._cuda:
+            host = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
             with self.tracer.span(BATCH_TO_DEVICE):
                 dev = {k: v.to(self.device) for k, v in host.items()}
+            if release is not None:
+                release(dev)  # .to("cpu") aliased the buffers: detached
             if self.ingest_fn is not None:
                 dev = self.ingest_fn(dev)
             return dev, None
+        # "staging" (the pool's own buffers, pinned in place once a set) or
+        # "pin_memory" (a second host copy); either way inside the span
+        pin = getattr(batch, "pin", None)
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            with self.tracer.span(BATCH_TO_DEVICE):
-                dev = {
-                    k: v.pin_memory().to(self.device, non_blocking=True)
-                    for k, v in host.items()
-                }
+            with self.tracer.span(BATCH_TO_DEVICE) as extra:
+                if pin is not None:
+                    host, extra["source"] = pin()
+                else:
+                    host = {k: torch.from_numpy(np.asarray(v)).pin_memory()
+                            for k, v in batch.items()}
+                    extra["source"] = "pin_memory"
+                dev = {k: t.to(self.device, non_blocking=True) for k, t in host.items()}
                 copied = torch.cuda.Event()
                 copied.record(self._stream)
                 # block until the transfer lands so the span is honest
                 copied.synchronize()
+            # only now may the staging buffers be reused
+            if release is not None:
+                release(dev)
             if self.ingest_fn is not None:
                 # launches on the side stream, the current stream here
                 dev = self.ingest_fn(dev)

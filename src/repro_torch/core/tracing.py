@@ -1,9 +1,10 @@
 """Span-level tracer — the paper's profiling methodology (Fig. 1 lanes).
 
 Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
-``run_training_batch``) with wall-clock start/end and thread id, like the
-log-entry instrumentation in the paper, and feeds the Table-3 busy/idle
-statistics (:mod:`repro_torch.core.utilization`).
+``run_training_batch``, and the staged pipeline's ``stage_*`` lanes) with
+wall-clock start/end and thread id, like the log-entry instrumentation in
+the paper, plus named monotonic counters (``bytes_copied``), and feeds the
+Table-3 busy/idle statistics (:mod:`repro_torch.core.utilization`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,20 @@ GET_BATCH = "get_batch"
 GET_ITEM = "get_item"
 BATCH_TO_DEVICE = "batch_to_device"
 RUN_TRAINING_BATCH = "run_training_batch"
+# staged-pipeline lanes (repro_torch.core.pipeline): one span per sample per
+# stage (fetch on the IO executor, decode/augment on the CPU executor) and
+# one collate span per assembled batch
+STAGE_FETCH = "stage_fetch"
+STAGE_DECODE = "stage_decode"
+STAGE_AUGMENT = "stage_augment"
+STAGE_COLLATE = "stage_collate"
+# monotonic counter (not a span lane): host bytes copied on a sample's way
+# from decode to the collated batch (collate's pass, and the process CPU
+# stage's pickle both ways)
+BYTES_COPIED = "bytes_copied"
+# shuffle-quality lane: one span per measurement window of the delivered
+# index stream, tagged with its within- and across-batch entropies
+SHUFFLE_ENTROPY = "shuffle_entropy"
 
 
 @dataclass
@@ -41,9 +56,30 @@ class Tracer:
         self._spans: List[Span] = []
         self._max = max_spans
         self._dropped = 0
+        self._counters: Dict[str, float] = {}
 
-    def record(self, name: str, t0: float, t1: float, **args: Any) -> None:
-        span = Span(name, t0, t1, threading.get_ident(), args)
+    def count(self, name: str, n: float = 1) -> None:
+        """Bump a named monotonic counter (e.g. :data:`BYTES_COPIED`)."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + n
+
+    def counter(self, name: str) -> float:
+        with self._lock:
+            return self._counters.get(name, 0.0)
+
+    def counters(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._counters)
+
+    def record(
+        self, name: str, t0: float, t1: float, *,
+        tid: Optional[int] = None, **args: Any,
+    ) -> None:
+        """Record one span.  ``tid`` overrides the recording thread's id: the
+        process CPU stage records spans on behalf of a worker process (its
+        pid), from ``time.monotonic`` endpoints the worker shipped home."""
+        span = Span(name, t0, t1,
+                    threading.get_ident() if tid is None else int(tid), args)
         with self._lock:
             if len(self._spans) < self._max:
                 self._spans.append(span)
@@ -86,7 +122,13 @@ class _NullTracer(Tracer):
     def __init__(self) -> None:
         super().__init__(max_spans=0)
 
-    def record(self, name: str, t0: float, t1: float, **args: Any) -> None:
+    def record(
+        self, name: str, t0: float, t1: float, *,
+        tid: Optional[int] = None, **args: Any,
+    ) -> None:
+        pass
+
+    def count(self, name: str, n: float = 1) -> None:
         pass
 
 

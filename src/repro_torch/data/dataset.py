@@ -7,7 +7,9 @@ work) with a byte-proportional sleep; the paper's ~6 ms/115 kB ImageNet JPEG
 decode is ~52 ms/MB.  Default 0 (off).
 
 Items and batches are numpy: tensors begin at the device prefetch ring
-(:mod:`repro_torch.core.prefetch`).
+(:mod:`repro_torch.core.prefetch`).  This package imports no ``torch``: the
+staged pipeline's spawned CPU workers unpickle a dataset and must not pay
+for torch, or touch CUDA.
 """
 from __future__ import annotations
 
@@ -27,7 +29,28 @@ Item = Dict[str, np.ndarray]
 
 
 class MapDataset:
-    """Minimal map-style dataset protocol."""
+    """Minimal map-style dataset protocol.
+
+    Datasets that can separate their storage read from their CPU work
+    additionally expose the *split* path (``supports_split() -> True``)::
+
+        raw     = get_raw(i)            # IO only: bytes off the store
+        decoded = decode_raw(raw, i)    # CPU: codec work
+        item    = augment_item(decoded, i)  # CPU: augmentation / normalize
+
+    ``__getitem__`` must equal ``augment_item(decode_raw(get_raw(i), i), i)``
+    bit-for-bit: the staged pipeline (:mod:`repro_torch.core.pipeline`) runs
+    the three stages on different executors and relies on that for its
+    ``reorder="strict"`` guarantee.  Datasets that cannot split keep
+    ``supports_split() -> False`` and the pipeline runs the monolithic
+    ``__getitem__`` on its IO executor.
+
+    **Picklability** (``PipelineConfig.cpu_executor="process"``): the process
+    CPU stage ships one pickled copy of the dataset to each spawned worker,
+    where only ``decode_raw`` / ``augment_item`` run.  Members those stages
+    never touch (the store, the tracer) may be dropped on pickle, which is
+    what :class:`ImageDataset` and :class:`TokenDataset` do.
+    """
 
     def __len__(self) -> int:
         raise NotImplementedError
@@ -42,13 +65,52 @@ class MapDataset:
     def set_epoch(self, epoch: int) -> None:
         """Hook for per-epoch augmentation determinism."""
 
+    # -- split (staged-pipeline) path ---------------------------------------
+    def supports_split(self) -> bool:
+        """Whether the get_raw/decode_raw/augment_item stages are available."""
+        return False
+
+    def get_raw(self, index: int) -> bytes:
+        """Storage read only — no decode, no augmentation."""
+        raise NotImplementedError
+
+    async def aget_raw(self, index: int) -> bytes:
+        """Async variant of :meth:`get_raw`; default wraps the sync path."""
+        return self.get_raw(index)
+
+    def decode_raw(self, raw: bytes, index: int):
+        """Codec stage: bytes -> decoded intermediate (dataset-defined)."""
+        raise NotImplementedError
+
+    def augment_item(self, decoded, index: int) -> Item:
+        """Augment stage: decoded intermediate -> final Item.  Identity by
+        default for datasets whose decode already yields the Item."""
+        return decoded
+
 
 def _aug_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
     h = hashlib.blake2b(f"aug:{seed}:{epoch}:{index}".encode(), digest_size=8).digest()
     return np.random.default_rng(int.from_bytes(h, "little"))
 
 
-class ImageDataset(MapDataset):
+class _StripStoreOnPickle:
+    """Mixin for the process CPU stage's picklability: a pickled copy drops
+    the store (locks, sockets; ``get_raw`` runs in the parent) and the
+    tracer (holds a lock; the stage ships worker-side spans home itself)."""
+
+    def __getstate__(self) -> Dict:
+        state = dict(self.__dict__)
+        state["store"] = None
+        state["tracer"] = None
+        return state
+
+    def __setstate__(self, state: Dict) -> None:
+        self.__dict__.update(state)
+        if self.__dict__.get("tracer") is None:
+            self.tracer = NULL_TRACER
+
+
+class ImageDataset(_StripStoreOnPickle, MapDataset):
     """ImageNet-style dataset over an ObjectStore (paper's setup).
 
     ``epilogue`` picks where the transform's cast/normalize/layout tail runs:
@@ -90,6 +152,10 @@ class ImageDataset(MapDataset):
 
     def __len__(self) -> int:
         return self.num_items
+
+    # -- split path (one stage per pipeline executor) ------------------------
+    def supports_split(self) -> bool:
+        return True
 
     def get_raw(self, index: int) -> bytes:
         return self.store.get(item_key(index, self.prefix))
@@ -140,7 +206,7 @@ class ImageDataset(MapDataset):
             return self._decode(await self.aget_raw(index), index)
 
 
-class TokenDataset(MapDataset):
+class TokenDataset(_StripStoreOnPickle, MapDataset):
     """Packed-sequence LM dataset: one object = one packed token sequence of
     at least ``seq_len + 1`` int32 tokens; an item is its first ``seq_len``
     tokens and the same shifted by one as targets."""
@@ -176,6 +242,10 @@ class TokenDataset(MapDataset):
             "nbytes": np.int64(len(raw)),
         }
 
+    # -- split path (the augment stage is the identity: tokens have none) ----
+    def supports_split(self) -> bool:
+        return True
+
     def get_raw(self, index: int) -> bytes:
         return self.store.get(self.key(index))
 
@@ -210,6 +280,63 @@ class SyntheticTokenDataset(MapDataset):
         rng = np.random.default_rng(self.seed * 1_000_003 + index)
         toks = rng.integers(0, self.vocab_size, size=self.seq_len + 1, dtype=np.int32)
         return {"tokens": toks[:-1], "targets": toks[1:], "nbytes": np.int64(toks.nbytes)}
+
+
+class SpinDataset(MapDataset):
+    """Split-path dataset whose decode stage holds the GIL.
+
+    Its decode is a pure-Python byte-crunch loop: deterministic output (so
+    strict-reorder bit-identity holds across executors), about 0.17 ms per
+    2048-byte round, and no escape from the interpreter: the regime where
+    the process CPU stage is the only way past one core.  ``io_s`` adds a
+    GIL-releasing sleep in ``get_raw`` to stand in for storage latency.
+    Fully picklable (no store, no locks).
+    """
+
+    def __init__(
+        self,
+        num_items: int,
+        item_bytes: int = 2048,
+        spin_rounds: int = 8,
+        io_s: float = 0.0,
+        seed: int = 0,
+    ) -> None:
+        self.num_items = num_items
+        self.item_bytes = item_bytes
+        self.spin_rounds = spin_rounds
+        self.io_s = io_s
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.num_items
+
+    # -- split path -----------------------------------------------------------
+    def supports_split(self) -> bool:
+        return True
+
+    def get_raw(self, index: int) -> bytes:
+        if self.io_s:
+            time.sleep(self.io_s)  # releases the GIL, like a socket read
+        rng = np.random.default_rng(self.seed * 1_000_003 + index)
+        return rng.bytes(self.item_bytes)
+
+    def decode_raw(self, raw: bytes, index: int) -> Tuple[int, int]:
+        acc = index & 0xFFFFFFFF
+        for _ in range(self.spin_rounds):
+            for b in raw:  # pure Python: holds the GIL for the whole decode
+                acc = (acc * 1103515245 + b) & 0xFFFFFFFF
+        return acc, len(raw)
+
+    def augment_item(self, decoded: Tuple[int, int], index: int) -> Item:
+        acc, nbytes = decoded
+        return {
+            "x": np.int64(acc),
+            "label": np.int32(index),
+            "nbytes": np.int64(nbytes),
+        }
+
+    def __getitem__(self, index: int) -> Item:
+        return self.augment_item(self.decode_raw(self.get_raw(index), index), index)
 
 
 def build_token_store(

@@ -4,12 +4,16 @@
         --items 1024 --batch-size 64 --avg-kb 115 --steps 48 --optimizer sgd
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --device cpu \
         --items 16 --batch-size 4 --seq-len 64 --steps 4 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --device-ingest \
+        --items 32 --batch-size 8 --steps 6 --optimizer sgd --pipeline --staging-buffers 2
 
 Wires the stack together: a synthetic dataset in an object store behind
-simulated S3 -> dataset -> ConcurrentDataLoader (the paper's loader) ->
-device prefetch ring (H2D, then the ``ingest_norm`` kernel with
-``--device-ingest``) -> train step -> Trainer, and prints the paper's
-Table-3 columns (throughput + accelerator busy stats) at the end.
+simulated S3 -> dataset -> ``make_loader`` (the paper's loader, or with
+``--pipeline`` the staged pipeline, collating into pinned staging buffers
+with ``--staging-buffers N``) -> device prefetch ring (H2D, then the
+``ingest_norm`` kernel with ``--device-ingest``) -> train step -> Trainer,
+and prints the paper's Table-3 columns (throughput + accelerator busy
+stats) and, with ``--pipeline``, the per-stage stats at the end.
 ``--arch resnet18-imagenet`` (default) trains the paper's own model on
 synthetic ImageNet; ``--arch granite-8b`` the dense decoder on packed token
 sequences of ``--seq-len`` tokens streamed through the same loader.
@@ -20,13 +24,20 @@ from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.config import LoaderConfig, ModelConfig, StoreConfig, TrainConfig, get_arch
-from repro_torch.core.loader import ConcurrentDataLoader
+from repro_torch.config import (
+    LoaderConfig,
+    ModelConfig,
+    PipelineConfig,
+    StoreConfig,
+    TrainConfig,
+    get_arch,
+)
+from repro_torch.core import make_loader
 from repro_torch.core.tracing import BATCH_TO_DEVICE, Tracer
 from repro_torch.core.utilization import UtilStats, accelerator_stats
 from repro_torch.data.dataset import ImageDataset, MapDataset, TokenDataset, build_token_store
@@ -39,7 +50,7 @@ from repro_torch.train.steps import (
     make_resnet_train_step,
     make_train_step,
 )
-from repro_torch.train.trainer import LoggingCallback, Trainer, TrainResult
+from repro_torch.train.trainer import Callback, LoggingCallback, Trainer, TrainResult
 from repro_torch.tree import leaves
 
 
@@ -53,6 +64,23 @@ class RunReport:
     items_per_s: float
     batches_transferred: int
     batch_to_device_s: float
+    # the loader's stage_stats() at the end of each epoch (empty for the
+    # legacy loader): each epoch's pipeline iterator has its own staging pool
+    stages: List[Dict[str, Any]] = field(default_factory=list)
+
+
+class EpochStages(Callback):
+    """Keeps ``loader.stage_stats()`` at the end of every epoch (the ring
+    has shut the epoch's iterator down by then, so the snapshot is final)."""
+
+    def __init__(self, loader) -> None:
+        self.loader = loader
+        self.stats: List[Dict[str, Any]] = []
+
+    def on_epoch_end(self, trainer, epoch: int) -> None:
+        stats = self.loader.stage_stats()
+        if stats is not None:
+            self.stats.append(stats)
 
 
 def build_dataset(cfg: ModelConfig, args, tracer: Tracer) -> MapDataset:
@@ -91,6 +119,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     default="threaded")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--fetchers", type=int, default=16)
+    ap.add_argument("--pipeline", action="store_true",
+                    help="staged streaming pipeline (fetch/decode/augment on "
+                         "dedicated IO+CPU executors)")
+    ap.add_argument("--reorder", choices=["strict", "window"], default="strict",
+                    help="pipeline batch assembly: strict (bit-identical "
+                         "stream) or window (first-N-ready composition)")
+    ap.add_argument("--reorder-window", type=int, default=4)
+    ap.add_argument("--io-workers", type=int, default=0,
+                    help="pipeline IO executor width (0 = workers*fetchers)")
+    ap.add_argument("--cpu-workers", type=int, default=0,
+                    help="pipeline CPU executor width (0 = 4)")
+    ap.add_argument("--cpu-executor", choices=["thread", "process"], default="thread",
+                    help="pipeline decode+augment executor: 'thread' or 'process' "
+                         "(spawned worker processes, which import no torch)")
+    ap.add_argument("--staging-buffers", type=int, default=0,
+                    help="pinned host staging: collate into this many reusable "
+                         "buffer sets that the ring copies from, pinned in place "
+                         "when it copies to a card (0 = plain np.stack collate)")
     ap.add_argument("--device-ingest", action="store_true",
                     help="resnet only: host stages stop at raw uint8 HWC and the "
                          "ingest_norm kernel runs cast+normalize on the device after "
@@ -114,11 +160,18 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
                        microbatches=args.microbatches,
                        grad_compression=args.grad_compression, total_steps=args.steps)
     tracer = Tracer()
-    loader = ConcurrentDataLoader(
+    loader = make_loader(
+        LoaderConfig(
+            impl=args.loader, batch_size=args.batch_size, num_workers=args.workers,
+            num_fetch_workers=args.fetchers, seed=args.seed,
+            pipeline=PipelineConfig(
+                enabled=args.pipeline, reorder=args.reorder,
+                reorder_window=args.reorder_window, io_workers=args.io_workers,
+                cpu_workers=args.cpu_workers, cpu_executor=args.cpu_executor,
+                staging_buffers=args.staging_buffers,
+            ),
+        ),
         build_dataset(cfg, args, tracer),
-        LoaderConfig(impl=args.loader, batch_size=args.batch_size,
-                     num_workers=args.workers, num_fetch_workers=args.fetchers,
-                     seed=args.seed),
         tracer=tracer,
     )
     if cfg.family == "resnet":
@@ -132,21 +185,25 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
         step_fn = make_train_step(cfg, tcfg)
     n_params = sum(p.numel() for p in leaves(state["params"]))
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M loader={args.loader} "
-          f"store={args.store} device={device}", flush=True)
+          f"pipeline={args.pipeline} store={args.store} device={device}", flush=True)
 
     ingest_fn = None
     if args.device_ingest:
         from repro_torch.kernels.ingest_norm.ops import make_ingest_fn
 
         ingest_fn = make_ingest_fn()
+    stages = EpochStages(loader)
     trainer = Trainer(
         step_fn, state,
         callbacks=[LoggingCallback(log_every_n_steps=args.log_every,
-                                   sink=lambda s: print("  " + s, flush=True))],
+                                   sink=lambda s: print("  " + s, flush=True)), stages],
         tracer=tracer, ingest_fn=ingest_fn, device=device,
     )
     t0 = time.monotonic()
-    result = trainer.fit(loader, epochs=args.epochs, max_steps=args.steps)
+    try:
+        result = trainer.fit(loader, epochs=args.epochs, max_steps=args.steps)
+    finally:
+        loader.close()
     t1 = time.monotonic()
 
     util = accelerator_stats(tracer, t0, t1)
@@ -162,8 +219,10 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
         f"util_pos_avg={util.util_pos_avg:.1f}% busy={100 * util.busy_fraction:.1f}%",
         flush=True,
     )
+    if stages.stats:
+        print(f"pipeline stages: {stages.stats[-1]}", flush=True)
     return RunReport(cfg, result, util, tracer, trainer.state, items_per_s,
-                     len(h2d), sum(s.duration for s in h2d))
+                     len(h2d), sum(s.duration for s in h2d), stages.stats)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

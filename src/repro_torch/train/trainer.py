@@ -65,6 +65,18 @@ def _read_metrics(m: Dict[str, Any]) -> Dict[str, float]:
     return {k: v.item() if isinstance(v, torch.Tensor) else float(v) for k, v in m.items()}
 
 
+def _make_ring(loader, depth: int, tracer: Tracer, ingest_fn, device) -> DevicePrefetchRing:
+    """The per-epoch device prefetch ring over ``iter(loader)``.  The ring is
+    the staged pipeline's final stage: a loader that can (``note_device_ring``)
+    remembers it, which folds its depth into ``loader.stage_stats()``."""
+    ring = DevicePrefetchRing(iter(loader), depth=depth, tracer=tracer,
+                              ingest_fn=ingest_fn, device=device)
+    note = getattr(loader, "note_device_ring", None)
+    if callable(note):
+        note(ring)
+    return ring
+
+
 class Trainer:
     def __init__(
         self,
@@ -108,9 +120,8 @@ class Trainer:
             if hasattr(loader, "set_epoch") and epoch != start_epoch:
                 loader.set_epoch(epoch)
             self._hook("on_epoch_start", epoch)
-            ring = DevicePrefetchRing(iter(loader), depth=self.device_prefetch,
-                                      tracer=self.tracer, ingest_fn=self.ingest_fn,
-                                      device=self.device)
+            ring = _make_ring(loader, self.device_prefetch, self.tracer,
+                              self.ingest_fn, self.device)
             try:
                 for i, batch in enumerate(ring):
                     self._hook("on_train_batch_start", batch, i)
@@ -160,8 +171,7 @@ def raw_train_loop(
     for epoch in range(epochs):
         if hasattr(loader, "set_epoch") and epoch:
             loader.set_epoch(epoch)
-        ring = DevicePrefetchRing(iter(loader), depth=device_prefetch, tracer=tracer,
-                                  ingest_fn=ingest_fn, device=dev)
+        ring = _make_ring(loader, device_prefetch, tracer, ingest_fn, dev)
         try:
             for batch in ring:
                 with tracer.span(RUN_TRAINING_BATCH, step=steps):

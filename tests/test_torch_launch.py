@@ -78,6 +78,64 @@ def test_launcher_matches_jax_trainer(monkeypatch):
     assert 0.0 < report.util.busy_fraction <= 1.0
 
 
+def test_pipeline_launcher_matches_legacy_loss_stream():
+    """``--pipeline --staging-buffers 2``: the staged pipeline with pinned
+    staging (plain page-aligned buffers here) feeds the same batches, in the
+    same order, as the legacy loader, so the loss stream is the same."""
+    register_arch(ARCH, resnet18_imagenet.full,
+                  lambda: replace(resnet18_imagenet.smoke(), num_classes=1000))
+    legacy = launch.run(ARGS)
+    staged = launch.run(ARGS + ["--pipeline", "--staging-buffers", "2", "--cpu-workers", "2"])
+    assert legacy.stages == []
+    for k in ("loss", "accuracy", "grad_norm"):
+        np.testing.assert_array_equal([h[k] for h in staged.result.history],
+                                      [h[k] for h in legacy.result.history], err_msg=k)
+    assert staged.result.steps == STEPS and staged.result.epochs == 2
+    # one snapshot an epoch, each of its own iterator and staging pool
+    assert len(staged.stages) == 2
+    for st in staged.stages:
+        assert st["reorder"] == "strict" and st["cpu_executor"] == "thread"
+        assert st["staging"]["leases"] == st["emitted_batches"] >= 2
+    # epoch 0 ran to its end: every lease went through the ring's release,
+    # and on the CPU each one aliased its buffers.  Epoch 1 was cut at
+    # max_steps, when the ring may hold one batch it pulled but never sent.
+    first, cut = (st["staging"] for st in staged.stages)
+    assert first["detached"] == first["leases"] == 4
+    assert cut["leases"] - 1 <= cut["detached"] <= cut["leases"]
+    assert first["leases"] + cut["detached"] == staged.batches_transferred >= STEPS
+
+
+# the launcher's pipeline flags, by the PipelineConfig field each one sets
+PIPELINE_FLAGS = {"pipeline": "enabled", "reorder": "reorder", "reorder_window": "reorder_window",
+                  "io_workers": "io_workers", "cpu_workers": "cpu_workers",
+                  "cpu_executor": "cpu_executor", "staging_buffers": "staging_buffers"}
+
+
+def test_pipeline_flags_take_the_reference_defaults():
+    """The reference's launcher defaults each pipeline flag to its
+    PipelineConfig field's default; so does the port's."""
+    from repro.config import PipelineConfig as JaxPipelineConfig
+
+    args = vars(launch.parse_args([]))
+    ref = JaxPipelineConfig()
+    assert {f: args[a] for a, f in PIPELINE_FLAGS.items()} == {
+        f: getattr(ref, f) for f in PIPELINE_FLAGS.values()}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pipeline", "--transport", "shm"],
+    ["--autotune"],
+    ["--thread-budget", "4"],
+    ["--delivery", "sharded"],
+    ["--delivery-axis=data"],
+])
+def test_unported_launcher_flags_are_unknown(flags):
+    """The reference's flags for features the port lacks are not added just
+    to raise: argparse refuses them as unknown arguments."""
+    with pytest.raises(SystemExit):
+        launch.parse_args(ARGS + flags)
+
+
 LM_ARCH = "granite-8b-f32"
 LM_ITEMS, LM_BS, LM_SEQ, LM_STEPS = 12, 4, 32, 4  # 3 batches an epoch: the run crosses one
 LM_ARGS = ["--arch", LM_ARCH, "--device", "cpu", "--items", str(LM_ITEMS),

@@ -72,6 +72,29 @@ def test_slice_module_imports_alone_without_jax_or_repro(module):
     assert out.stdout.strip() == "[]"
 
 
+_IMPORT_NO_TORCH = r"""
+import importlib, sys
+sys.path.insert(0, sys.argv[1])
+importlib.import_module(sys.argv[2])
+print("torch" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.pipeline", "repro_torch.core.staging",
+                                    "repro_torch.core.loader", "repro_torch.core.factory",
+                                    "repro_torch.data.dataset",
+                                    "repro_torch.data.imagenet_synth"])
+def test_loader_module_imports_without_torch(module):
+    """A spawned CPU worker of the staged pipeline imports these modules
+    (and unpickles the dataset); none of them may pull in torch, which
+    would cost each worker torch's import and risk a CUDA context."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_NO_TORCH, str(ROOT / "src"), module],
+                         capture_output=True, text=True, env=env, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
 _REPLACES = re.compile(r"Replaces the Pallas TPU kernel (src/repro/kernels/\S+\.py)")
 
 
