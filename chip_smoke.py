@@ -39,6 +39,20 @@ Phases, each printing one JSON line:
    reorder keeps each window's label multiset; (d) the process CPU
    executor (2 spawned workers, whose samples report that ``torch`` is not
    in their ``sys.modules``) equals the thread executor.
+6c. main_autotune — the staged-pipeline path at 8192 items (128 batches
+   an epoch, 3 epochs, 384 steps) three times: fixed knobs, ``--autotune``,
+   and ``--thread-budget 68``; each held to every gate of (a), and the two
+   tuned runs to the fixed run's stream (a digest of labels and u8 image
+   bytes taken on the card after each copy, before ``ingest_norm``), to
+   at least one probe, to every tuning event inside its knob's bounds, and
+   (budget run) to io + cpu workers = 68 each epoch and to split probes
+   both up and down; (e) the same budget's CPU executor knob turned on the
+   ring's thread, to processes and back mid-epoch, at full image size:
+   the device stream equals the thread-only one, the processes decode
+   without torch and every spawn runs on the pool's pump; prints the figures,
+   the events by action, each epoch's tuned knobs, what the utilization
+   signal read at every window the controller judged, and
+   ``available_cpu_count()``.
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
@@ -56,7 +70,7 @@ Phases, each printing one JSON line:
    gated on the real r, k, v, w, and RMSNorm on a real residual.
 
 Launch counts are set to 0 just before each main path and read just after
-(for main_pipeline, around its launcher run; for main_rwkv, before and
+(for main_pipeline and main_autotune, around each launcher run; for main_rwkv, before and
 after its eval walk; rmsnorm, which no model
 calls, counts its own phase's checked calls).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
@@ -70,6 +84,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -112,6 +127,32 @@ PROC_ITEMS, PROC_WORKERS = 256, 2
 CHECK_DELAY_CYCLES = 200_000_000
 STAGE_SPANS = ("get_batch", "batch_to_device", "run_training_batch", "stage_fetch",
                "stage_decode", "stage_augment", "stage_collate")
+
+
+def with_values(args: list, **values) -> list:
+    """``args`` with the value after each ``--flag`` (``flag`` spelt with
+    underscores) replaced."""
+    out = list(args)
+    for flag, value in values.items():
+        out[out.index("--" + flag.replace("_", "-")) + 1] = str(value)
+    return out
+
+
+# The autotuned path: the pipeline cell at 8192 items, 128 batches an epoch
+# over 3 epochs, so the controller has windows to act in each epoch (a
+# window closes after 4 batches and 0.2 s) even after a probe of the
+# outstanding-batches knob to its ceiling (64) has dispatched half an epoch
+# ahead; fixed knobs, then --autotune, then --thread-budget AUTO_BUDGET, the
+# fixed run's width (64 IO + 4 CPU).
+AUTO_ITEMS, AUTO_STEPS, AUTO_BUDGET = 8192, 384, 68
+AUTO_ARGS = with_values(PIPE_ARGS, items=AUTO_ITEMS, steps=AUTO_STEPS, log_every=128)
+AUTO_RUNS = [("fixed", AUTO_ARGS), ("autotune", AUTO_ARGS + ["--autotune"]),
+             ("thread_budget", AUTO_ARGS + ["--thread-budget", str(AUTO_BUDGET)])]
+# The live CPU executor swap under the same budget, turned by its knob on
+# the ring's thread between batches as the controller turns it: 16 batches
+# of 32 at full image size, to the process kind after batch 2 and back after
+# batch 10 (the controller itself flips it only while the util gate is open)
+SWAP_FLIPS = {2: 1, 10: 0}
 
 # The LM path: granite-8b at full width, depth cut to 4 of its 36 layers (36
 # layers with AdamW need about 132 GB, more than one card holds) and
@@ -686,10 +727,10 @@ def h2d_sources(tracer) -> dict:
     return {t: tags.count(t) for t in sorted(set(tags))}
 
 
-def pipeline_run(torch, ops, args: list, label: str) -> dict:
+def pipeline_run(torch, ops, args: list, label: str, steps: int = 48):
     """One run of the ResNet path through the launcher and the staged
     pipeline, its launches counted from 0 and every H2D watched; fails on
-    any gate of (a)."""
+    any gate of (a).  Returns its figures and the launcher's report."""
     from repro_torch.launch import train as launch
     from repro_torch.tree import leaves
 
@@ -727,7 +768,7 @@ def pipeline_run(torch, ops, args: list, label: str) -> dict:
     }
     emit({"phase": "main_pipeline_run", **out})
     n = report.batches_transferred
-    if report.result.steps < 48 or report.result.epochs < 3:
+    if report.result.steps < steps or report.result.epochs < 3:
         fail(f"{label}: ran {report.result.steps} steps over {report.result.epochs} epochs")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: non-finite loss: {losses}")
@@ -747,7 +788,7 @@ def pipeline_run(torch, ops, args: list, label: str) -> dict:
         fail(f"{label}: process workers crashed: {out['cpu_pool_per_epoch']}")
     if devices != ["cuda"]:
         fail(f"{label}: params live on {devices}, not on cuda")
-    return out
+    return out, report
 
 
 def early_release_ring(torch):
@@ -821,8 +862,8 @@ def phase_main_pipeline(torch, ops, legacy: dict, smi: str) -> dict:
     # staged pipeline; then the same with the process CPU executor
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
-    main = pipeline_run(torch, ops, PIPE_ARGS, "pipeline")
-    proc_run = pipeline_run(torch, ops, PROC_ARGS, "pipeline_process")
+    main, _ = pipeline_run(torch, ops, PIPE_ARGS, "pipeline")
+    proc_run, _ = pipeline_run(torch, ops, PROC_ARGS, "pipeline_process")
     out = {
         "phase": "main_pipeline", "nvidia_smi": smi, "args": PIPE_ARGS,
         "ingest_norm_launches": main["ingest_norm_launches"],
@@ -938,6 +979,271 @@ def phase_main_pipeline(torch, ops, legacy: dict, smi: str) -> dict:
     if pool["crashes"] or pool["workers"] != PROC_WORKERS:
         fail(f"process workers: {pool}")
     out["checks"] = checks
+    return out
+
+
+class DeviceDigest:
+    """For the runs inside it, wraps each device prefetch ring's ingest
+    epilogue: every batch the ring copied to the card first leaves a digest
+    there, on the ring's stream, before ``ingest_norm`` reads it: the
+    labels, each sample's u8 byte sum, and each sample's sum of every byte
+    times (its position mod 251, plus 1).  Read after the run."""
+
+    def __enter__(self) -> "DeviceDigest":
+        import torch
+
+        from repro_torch.core.prefetch import DevicePrefetchRing
+
+        self.cls, self.init = DevicePrefetchRing, DevicePrefetchRing.__init__
+        self.rows: list = []
+        watch = self
+
+        def digest(dev):
+            img = dev["image"]
+            flat = img.reshape(img.shape[0], -1)
+            w = torch.arange(flat.shape[1], device=img.device, dtype=torch.int32) % 251 + 1
+            return torch.cat([dev["label"].reshape(-1).to(torch.int64),
+                              flat.sum(1, dtype=torch.int64),
+                              (flat.to(torch.int32) * w).sum(1, dtype=torch.int64)])
+
+        def init(ring, it, **kw):
+            # wrapped before the ring's thread starts, so its first batch too
+            inner = kw["ingest_fn"]
+
+            def digesting(dev):
+                watch.rows.append(digest(dev))
+                return inner(dev)
+
+            watch.init(ring, it, **{**kw, "ingest_fn": digesting})
+
+        DevicePrefetchRing.__init__ = init
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.__init__ = self.init
+
+    def digests(self, torch) -> list:
+        torch.cuda.synchronize()
+        return [tuple(t.cpu().tolist()) for t in self.rows]
+
+
+class JudgedWindows:
+    """For the runs inside it, records every window the autotuner closes:
+    the batch count, the window's batches/s, the phase the controller was in
+    and what its utilization signal read then; and every probe as (batch,
+    knob, value before, value probed)."""
+
+    def __enter__(self) -> "JudgedWindows":
+        from repro_torch.core.autotune import AutotuneController
+
+        self.cls = AutotuneController
+        self.step, self.log = AutotuneController._step, AutotuneController._log
+        self.rows: list = []
+        self.probes: list = []
+        watch = self
+
+        def step(ctrl, tput):
+            util = ctrl.util_fn() if ctrl.util_fn is not None else None
+            watch.rows.append({"batch": ctrl._batches, "batches_per_s": tput,
+                               "phase": ctrl._phase, "util": util})
+            return watch.step(ctrl, tput)
+
+        def log(ctrl, action, knob, value, tput):
+            if action == "probe":
+                p = ctrl._probe
+                watch.probes.append([ctrl._batches, knob, p.old_value, p.new_value])
+            return watch.log(ctrl, action, knob, value, tput)
+
+        AutotuneController._step, AutotuneController._log = step, log
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls._step, self.cls._log = self.step, self.log
+
+
+class Swapping:
+    """Iterates ``loader`` for the device ring and, after each batch named
+    in ``flips``, sets the loader's ``cpu_executor`` knob to its value, on
+    the ring's thread between batches, as the controller does.  Records the
+    thread and the value applied."""
+
+    def __init__(self, loader, flips: dict) -> None:
+        self.loader, self.flips, self.turns = loader, flips, []
+
+    def __iter__(self):
+        it = iter(self.loader)  # binds this epoch's knobs
+        knob = next(k for k in self.loader.autotuner.knobs if k.name == "cpu_executor")
+        for i, batch in enumerate(it):
+            yield batch
+            if i in self.flips:
+                self.turns.append([threading.current_thread().name, knob.set(self.flips[i])])
+
+
+def executor_swap_check(torch) -> dict:
+    """(e) The budget pipeline's CPU stage swapped from threads to spawned
+    processes and back in the middle of an epoch at full image size: the
+    device stream equals the thread-only stream, the processes decoded
+    samples without torch loaded, and every spawn ran on the stage's pump
+    thread, none on the ring's."""
+    from repro_torch.config import AutotuneConfig, LoaderConfig, PipelineConfig, StoreConfig
+    from repro_torch.core import make_loader
+    from repro_torch.core import pipeline as P
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.data.store import build_store
+    from repro_torch.kernels.ingest_norm.ops import make_ingest_fn
+
+    ingest = make_ingest_fn()
+    base = build_synthetic_imagenet(num_items=CHECK_ITEMS, avg_kb=115.0)
+
+    def loader(tuned: bool):
+        store = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02), base=base)
+        data = ImageDataset(store, CHECK_ITEMS, out_size=224, sim_decode_s_per_mb=0.052,
+                            epilogue="device")
+        # the controller is built and binds its knobs, but never closes a
+        # window; 4 batches outstanding, so the processes get the epoch's
+        # middle to decode
+        at = AutotuneConfig(enabled=True, thread_budget=AUTO_BUDGET, interval_batches=10**6)
+        return make_loader(LoaderConfig(
+            impl="threaded", batch_size=CHECK_BS, num_workers=4, prefetch_factor=1,
+            num_fetch_workers=16, seed=0,
+            pipeline=PipelineConfig(enabled=True, staging_buffers=2),
+            autotune=at if tuned else AutotuneConfig()), ModulesProbe(data))
+
+    spawned_on: list = []
+    spawn = P._CPUProcessPool.spawn_one
+
+    def recording(pool):
+        spawned_on.append(threading.current_thread().name)
+        spawn(pool)
+
+    want = device_stream(torch, loader(False), ingest, Tracer())
+    swap_loader = loader(True)
+    swapping = Swapping(swap_loader, SWAP_FLIPS)
+    P._CPUProcessPool.spawn_one = recording
+    try:
+        got = device_stream(torch, swapping, ingest, Tracer())
+        stats = swap_loader.stage_stats()
+    finally:
+        P._CPUProcessPool.spawn_one = spawn
+        swap_loader.close()
+    keys = sorted(set(want[0]) - {"torch_loaded"}) if want else []
+    differ = sum(not all(torch.equal(x[k], y[k]) for k in keys)
+                 for x, y in zip(got, want)) + abs(len(got) - len(want))
+    loaded = {"thread": sorted({bool(v) for b in want for v in b["torch_loaded"].tolist()}),
+              "swapped": sorted({bool(v) for b in got for v in b["torch_loaded"].tolist()})}
+    out = {"phase": "main_autotune_swap", "items": CHECK_ITEMS, "batch": CHECK_BS,
+           "thread_budget": AUTO_BUDGET, "flips": SWAP_FLIPS, "turns": swapping.turns,
+           "spawned_on": sorted(set(spawned_on)), "spawns": len(spawned_on),
+           "batches": len(got), "batches_differing_from_thread": differ,
+           "torch_in_sys_modules": loaded, "cpu_executor_at_end": stats["cpu_executor"],
+           "cpu_pool": stats.get("cpu_pool"), "transport": stats.get("transport"),
+           "io_plus_cpu": stats["io_workers"] + stats["cpu_workers"]}
+    emit(out)
+    if len(got) != CHECK_ITEMS // CHECK_BS or differ:
+        fail(f"executor swap: {differ} of {len(got)} device batches differ from the thread "
+             "stream")
+    if [t[1] for t in swapping.turns] != list(SWAP_FLIPS.values()) or any(
+            t[0] != "device-prefetch" for t in swapping.turns):
+        fail(f"executor swap: knob turns {swapping.turns}, wanted {SWAP_FLIPS} on the ring")
+    if not spawned_on or set(spawned_on) != {"pipe-cpu-pool-pump"}:
+        fail(f"executor swap: spawns ran on {sorted(set(spawned_on))}, not only the pump")
+    if (not out["transport"] or not out["transport"]["pipe_samples"]
+            or out["cpu_pool"]["crashes"] or loaded["swapped"] != [False, True]
+            or out["cpu_executor_at_end"] != "thread" or out["io_plus_cpu"] != AUTO_BUDGET):
+        fail(f"executor swap: {out}")
+    return out
+
+
+def epoch_rates(tracer, per_epoch: int) -> list:
+    """Items/s of each epoch: its steps' items over the time from the end of
+    the previous epoch's last step (the run's first step start for epoch
+    0) to the end of its own last step."""
+    spans = sorted(tracer.spans("run_training_batch"), key=lambda sp: sp.t0)
+    out, start = [], spans[0].t0 if spans else 0.0
+    for i in range(0, len(spans), per_epoch):
+        chunk = spans[i:i + per_epoch]
+        out.append(len(chunk) * MAIN_BS / (chunk[-1].t1 - start))
+        start = chunk[-1].t1
+    return out
+
+
+def phase_main_autotune(torch, ops, legacy: dict, pipe: dict, smi: str) -> dict:
+    """The pipeline cell three times (fixed knobs, --autotune,
+    --thread-budget), each through pipeline_run's gates, the tuned runs
+    held to the fixed run's device stream and to their knobs' bounds."""
+    from repro_torch.core.utilization import available_cpu_count
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cores = available_cpu_count()
+    runs, streams = {}, {}
+    for label, args in AUTO_RUNS:
+        with DeviceDigest() as digest, JudgedWindows() as windows:
+            out, report = pipeline_run(torch, ops, args, label, steps=AUTO_STEPS)
+        streams[label] = digest.digests(torch)
+        auto = report.loader.autotuner
+        events = list(auto.events) if auto is not None else []
+        bounds = {k.name: (k.lo, k.hi) for k in auto.knobs} if auto is not None else {}
+        actions = [e.action for e in events]
+        runs[label] = {
+            "run": out, "figures": run_figures(out),
+            "items_per_s_per_epoch": epoch_rates(report.tracer, AUTO_ITEMS // MAIN_BS),
+            "stage_medians_ms": {k: v["median_ms"] for k, v in out["spans"].items()},
+            "queues_per_epoch": out["queues_per_epoch"],
+            "tuned_per_epoch": report.tuned,
+            "knob_bounds": bounds,
+            "events_by_action": {a: actions.count(a) for a in sorted(set(actions))},
+            "events": [[e.batch, e.action, e.knob, e.value, e.tput] for e in events],
+            "judged_windows": windows.rows,
+            "probes": windows.probes,
+            "batches_digested": len(streams[label]),
+        }
+        emit({"phase": "main_autotune_run", "label": label,
+              **{k: v for k, v in runs[label].items() if k != "run"}})
+    want = streams["fixed"]
+    differing = {label: sum(a != b for a, b in zip(streams[label], want))
+                 + abs(len(streams[label]) - len(want)) for label in ("autotune", "thread_budget")}
+    out = {
+        "phase": "main_autotune", "nvidia_smi": smi, "available_cpu_count": cores,
+        "items": AUTO_ITEMS, "steps": AUTO_STEPS, "thread_budget": AUTO_BUDGET,
+        "launches": {label: r["run"]["ingest_norm_launches"] for label, r in runs.items()},
+        "batches_transferred": {label: r["run"]["batches_transferred"]
+                                for label, r in runs.items()},
+        "figures": {**{label: r["figures"] for label, r in runs.items()},
+                    "pipeline_48_steps": pipe, "legacy_48_steps": run_figures(legacy)},
+        "items_per_s_per_epoch": {label: r["items_per_s_per_epoch"] for label, r in runs.items()},
+        "tuned_per_epoch": {label: r["tuned_per_epoch"] for label, r in runs.items()},
+        "events_by_action": {label: r["events_by_action"] for label, r in runs.items()},
+        "batches_differing_from_fixed": differing,
+    }
+    emit(out)
+    if len(want) < AUTO_STEPS or any(differing.values()):
+        fail(f"autotuned runs' device streams differ from the fixed run's ({len(want)} "
+             f"batches): {differing}")
+    for label in ("autotune", "thread_budget"):
+        r = runs[label]
+        if not r["events_by_action"].get("probe"):
+            fail(f"{label}: the controller never probed: {r['events_by_action']}")
+        outside = [e for e in r["events"] if e[2] != "-" and not (
+            e[2] in r["knob_bounds"]
+            and r["knob_bounds"][e[2]][0] <= e[3] <= r["knob_bounds"][e[2]][1])]
+        if outside:
+            fail(f"{label}: tuning events outside their knob's bounds: {outside}")
+    budget = runs["thread_budget"]
+    sums = [q["io_workers"] + q["cpu_workers"] for q in budget["queues_per_epoch"]]
+    if sums != [AUTO_BUDGET] * len(sums) or len(sums) < 3:
+        fail(f"thread budget {AUTO_BUDGET}: io + cpu workers per epoch {sums}")
+    # the budget run's coupled split acted on the card both ways (a down
+    # move runs with the util gate closed too; a flip of the executor kind
+    # does not, so (e) turns that knob itself)
+    split = {"up" if new > old else "down"
+             for _, knob, old, new in budget["probes"] if knob == "io_cpu_split"}
+    if split != {"up", "down"}:
+        fail(f"thread budget: io_cpu_split probed {sorted(split)}, not both ways: "
+             f"{budget['probes']}")
+    out["swap"] = executor_swap_check(torch)
     return out
 
 
@@ -1428,6 +1734,7 @@ def main() -> int:
     phase_model_rwkv(torch)
     main_out = phase_main(torch, ops)
     pipe_out = phase_main_pipeline(torch, ops, main_out, smi)
+    auto_out = phase_main_autotune(torch, ops, main_out, pipe_out["figures"]["pipeline"], smi)
     lm_out = phase_main_lm(torch, flash_ops, ops)
     rwkv_out = phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ops, flash_ops)
 
@@ -1438,6 +1745,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ingest_norm/kernel.py:29",
         "launches": main_out["ingest_norm_launches"],
         "launches_pipeline": pipe_out["ingest_norm_launches"],
+        "launches_autotune": auto_out["launches"]["autotune"],
+        "launches_thread_budget": auto_out["launches"]["thread_budget"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"],
         "kernel_ms": kern["kernel_ms"],

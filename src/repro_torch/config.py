@@ -5,16 +5,21 @@ decoder (LM) and RWKV-6 training slices read, with the reference's names and
 defaults (``LoaderConfig`` drops ``pin_device`` and ``device_prefetch``,
 which the reference declares but never reads; the ring's depth is
 ``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops ``token_shift``, for
-the same reason).  ``LoaderConfig.pipeline`` takes only the nested
-:class:`PipelineConfig`: the reference's flat-kwarg shim (``pipeline=True,
-reorder=...``) is not ported, and ``PipelineConfig`` has no ``transport``
-or slab fields until the shared-memory transport is ported.  MoE, SSM, MLA, enc-dec and VLM fields
-come with their slices.  ``replace()`` (from dataclasses) derives variants.
+the same reason).  ``LoaderConfig`` keeps the reference's warn-once
+flat-kwarg shim (``pipeline=True, reorder=...`` folded into
+:class:`PipelineConfig`).  ``PipelineConfig`` has no ``transport`` or slab
+fields until the shared-memory transport is ported, and
+:class:`AutotuneConfig` no field of a feature the port lacks (the
+multi-host lease and shedding, cache knobs, slab knob, lane-skew gate,
+serving bounds).  MoE, SSM, MLA, enc-dec and VLM fields come with their
+slices.  ``replace()`` (from dataclasses) derives variants.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace  # noqa: F401  (replace re-exported)
-from typing import Callable, Dict, Optional, Tuple
+import functools
+import warnings
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -84,6 +89,79 @@ class StoreConfig:
 
 
 @dataclass(frozen=True)
+class AutotuneConfig:
+    """Closed-loop knob control for the loader (online analogue of the
+    paper's Fig. 10/11 grid search).
+
+    A hill-climbing controller with hysteresis observes windowed throughput
+    and adjusts, at a safe between-batch boundary: per-worker fetch
+    concurrency, the prefetch outstanding window, the staged pipeline's
+    stage widths and queue depth, hedging on/off, and (when attached) the
+    device prefetch ring depth.  All knobs are clamped to the bounds below.
+    """
+
+    enabled: bool = False
+    # measurement window: closes after at least `interval_batches` batches
+    # AND `min_window_s` wall time (delivery is bursty: a batch-count-only
+    # window can span microseconds and measure buffer pops)
+    interval_batches: int = 4
+    min_window_s: float = 0.2
+    # measured windows to observe before the first probe (the first window is
+    # warped by the prefetch burst + worker startup)
+    warmup_windows: int = 1
+    # accept a move only if windowed throughput improves by this fraction;
+    # revert if it regresses by more than it (hysteresis dead-band)
+    rel_improvement: float = 0.05
+    # knob bounds (inclusive)
+    min_fetch_workers: int = 1
+    max_fetch_workers: int = 64
+    min_outstanding: int = 1
+    max_outstanding: int = 64
+    min_device_prefetch: int = 1
+    max_device_prefetch: int = 8
+    # per-knob coarse->fine step schedule for integer knobs; () derives
+    # (2 * step_factor, step_factor)
+    step_schedule: Tuple[int, ...] = ()
+    # multiplicative fine step for integer knobs (value *= step / value //= step)
+    step_factor: int = 2
+    # allow the controller to trial-toggle hedged requests
+    tune_hedge: bool = False
+    # consecutive plateau windows (per knob) before the controller goes quiescent
+    patience: int = 3
+    # jump back to the best settled state when a window collapses below half
+    # of its throughput (disable where the environment itself is non-stationary)
+    collapse_restore: bool = True
+    # exploration heartbeat: while quiescent, re-probe once every this many
+    # windows (0 = off)
+    reprobe_windows: int = 8
+    # accelerator-utilization gate: with a utilization signal (the trainer
+    # wires repro_torch.core.utilization.recent_busy_fraction) at or above
+    # this fraction, upward probes are skipped.  0 disables the gate.
+    util_gate: float = 0.9
+    # staged-pipeline stage knobs: CPU executor width and the fetch->decode
+    # queue depth (the IO executor reuses min/max_fetch_workers)
+    min_cpu_workers: int = 1
+    max_cpu_workers: int = 32
+    min_stage_queue: int = 4
+    max_stage_queue: int = 512
+    # budget co-tuning (staged pipeline + split datasets only).  0 keeps the
+    # independent io_workers/cpu_workers knobs; >0 fixes the TOTAL executor
+    # width and replaces them with one coupled "io_cpu_split" knob (value =
+    # IO width; CPU width = budget - value)
+    thread_budget: int = 0
+    # with thread_budget set and a process-capable dataset, also expose the
+    # CPU executor KIND (thread vs spawn-process) as a binary knob
+    tune_cpu_executor: bool = True
+    # shuffle-entropy floor (reorder="window" pipelines): upward probes of
+    # the reorder_window knob are skipped while the delivered stream's
+    # within-batch entropy sits below it.  0.0 disables the gate.
+    min_shuffle_entropy: float = 0.0
+    # reorder_window knob bounds (window-mode pipelines only)
+    min_reorder_window: int = 1
+    max_reorder_window: int = 64
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """Staged streaming pipeline (repro_torch.core.pipeline): replaces the
     worker/fetcher path with an explicit stage graph (fetch-raw -> decode ->
@@ -139,8 +217,79 @@ class LoaderConfig:
     hedge_factor: float = 3.0
     hedge_min_s: float = 0.05
     timeout_s: float = 120.0
-    # staged streaming pipeline (see PipelineConfig); nested form only
+    # staged streaming pipeline (see PipelineConfig).  The flat kwargs
+    # (pipeline=<bool>, reorder=..., io_workers=..., ...) still construct the
+    # nested form through the shim below; reads of the flat names delegate.
     pipeline: PipelineConfig = PipelineConfig()
+    # online knob control (off by default: behaviour is bit-identical to a
+    # statically configured loader when disabled)
+    autotune: AutotuneConfig = AutotuneConfig()
+
+    # -- legacy flat reads (the write path is shimmed in __init__) ----------
+    @property
+    def reorder(self) -> str:
+        return self.pipeline.reorder
+
+    @property
+    def reorder_window(self) -> int:
+        return self.pipeline.reorder_window
+
+    @property
+    def io_workers(self) -> int:
+        return self.pipeline.io_workers
+
+    @property
+    def cpu_workers(self) -> int:
+        return self.pipeline.cpu_workers
+
+    @property
+    def cpu_executor(self) -> str:
+        return self.pipeline.cpu_executor
+
+    @property
+    def stage_queue_depth(self) -> int:
+        return self.pipeline.stage_queue_depth
+
+
+# Deprecation shim, as the reference's: each flat pipeline kwarg warns and is
+# folded into the nested sub-config; ``dataclasses.replace`` passes the
+# nested fields straight through, so the shim never re-fires on derived
+# configs.
+_LEGACY_PIPELINE_KWARGS = (
+    "reorder", "reorder_window", "io_workers", "cpu_workers",
+    "cpu_executor", "stage_queue_depth",
+)
+
+_loader_config_init = LoaderConfig.__init__
+
+
+@functools.wraps(_loader_config_init)
+def _loader_config_shim_init(self, *args: Any, **kwargs: Any) -> None:
+    legacy = {}
+    for name in _LEGACY_PIPELINE_KWARGS:
+        if name in kwargs:
+            warnings.warn(
+                f"LoaderConfig({name}=...) is deprecated and will be removed;"
+                f" pass pipeline=PipelineConfig({name}=...) instead",
+                DeprecationWarning, stacklevel=2,
+            )
+            legacy[name] = kwargs.pop(name)
+    pipe = kwargs.get("pipeline")
+    if isinstance(pipe, bool):
+        warnings.warn(
+            "LoaderConfig(pipeline=<bool>) is deprecated and will be removed;"
+            " pass pipeline=PipelineConfig(enabled=...) instead",
+            DeprecationWarning, stacklevel=2,
+        )
+        kwargs["pipeline"] = PipelineConfig(enabled=pipe, **legacy)
+    elif legacy:
+        kwargs["pipeline"] = replace(
+            pipe if pipe is not None else PipelineConfig(), **legacy
+        )
+    _loader_config_init(self, *args, **kwargs)
+
+
+LoaderConfig.__init__ = _loader_config_shim_init  # type: ignore[method-assign]
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Core: the paper's concurrent data-loading contribution (loader, fetchers,
-workers, sampler, the staged pipeline and pinned staging), the device
-prefetch ring, tracing and utilization.
+workers, sampler, the staged pipeline and pinned staging), the online
+autotuner, the device prefetch ring, tracing and utilization.
 
 :func:`make_loader` is the documented construction surface;
 :class:`ConcurrentDataLoader` stays available for callers that want the raw
@@ -15,8 +15,11 @@ from __future__ import annotations
 from typing import Any
 
 __all__ = [
+    "AutotuneController",
     "ConcurrentDataLoader",
+    "Knob",
     "LoaderTimeout",
+    "TuneEvent",
     "make_loader",
 ]
 
@@ -26,6 +29,10 @@ def __getattr__(name: str) -> Any:
         from repro_torch.core.factory import make_loader
 
         return make_loader
+    if name in ("AutotuneController", "Knob", "TuneEvent"):
+        from repro_torch.core import autotune
+
+        return getattr(autotune, name)
     if name in ("ConcurrentDataLoader", "LoaderTimeout"):
         from repro_torch.core import loader
 

@@ -3,7 +3,8 @@
 :func:`make_loader` is the front door the reference documents: give it a
 :class:`~repro_torch.config.LoaderConfig` and a dataset, and it builds the
 :class:`~repro_torch.core.loader.ConcurrentDataLoader` (legacy or staged
-pipeline, per ``LoaderConfig.pipeline``).  The raw constructor keeps working.
+pipeline, per ``LoaderConfig.pipeline``; with its online autotuner, per
+``LoaderConfig.autotune``).  The raw constructor keeps working.
 
 A trimmed copy of the reference's factory: it takes a ``LoaderConfig``
 only.  A ``RunConfig`` and the ``mesh`` parameter (sharded delivery) wait

@@ -18,8 +18,8 @@ whole global batch).
 
 The thread-pool fetcher gates submissions with an
 :class:`AdjustableSemaphore` (a counting semaphore whose limit can change
-live; the device ring's depth gate uses it too).  Resizing fetchers live is
-the autotuner's, which comes with a later slice of the port.
+live; the device ring's depth gate uses it too), so :meth:`Fetcher.resize`
+is cheap and safe mid-epoch: the autotuner's fetch-concurrency knob.
 """
 from __future__ import annotations
 
@@ -82,9 +82,20 @@ class AdjustableSemaphore:
             self._held -= 1
             self._cond.notify()
 
+    def __enter__(self) -> "AdjustableSemaphore":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.release()
+
 
 class HedgeTracker:
-    """Tracks recent fetch durations; deadline = max(min_s, p95 * factor)."""
+    """Tracks recent fetch durations; deadline = max(min_s, p95 * factor).
+
+    ``enabled`` can be flipped live (the autotuner's hedge knob): a disabled
+    tracker keeps observing durations but fetchers skip the hedging path.
+    """
 
     def __init__(self, factor: float = 3.0, min_s: float = 0.05, window: int = 256) -> None:
         self.factor = factor
@@ -93,6 +104,7 @@ class HedgeTracker:
         self._lock = threading.Lock()
         self.hedges_issued = 0
         self.hedges_won = 0
+        self.enabled = True
 
     def observe(self, dur: float) -> None:
         with self._lock:
@@ -144,6 +156,15 @@ class Fetcher:
     def fetch(self, dataset: MapDataset, indices: Sequence[int]) -> List[Item]:
         raise NotImplementedError
 
+    @property
+    def concurrency(self) -> int:
+        return 1
+
+    def resize(self, num_fetch_workers: int) -> int:
+        """Adjust effective concurrency; returns the applied (clamped) value.
+        Base/sequential fetchers are fixed at 1."""
+        return self.concurrency
+
     def close(self) -> None:
         pass
 
@@ -160,10 +181,12 @@ class SequentialFetcher(Fetcher):
 class ThreadPoolFetcher(Fetcher):
     """Within-batch parallelism via a thread pool (+ optional hedging).
 
-    Concurrency is gated by an :class:`AdjustableSemaphore`.  All work —
-    including the batch-disassembly path in :mod:`repro_torch.core.worker` —
-    must enter the pool via :meth:`submit_one` so the gate is never bypassed
-    (hedge duplicates alone run ungated, on a headroom thread).
+    Threads are allocated up to ``hard_cap``; *effective* concurrency is
+    gated by an :class:`AdjustableSemaphore`, so ``resize`` is cheap and safe
+    mid-epoch.  All work — including the batch-disassembly path in
+    :mod:`repro_torch.core.worker` — must enter the pool via
+    :meth:`submit_one` so the gate is never bypassed (hedge duplicates alone
+    run ungated, on a headroom thread).
     """
 
     name = "threaded"
@@ -172,14 +195,25 @@ class ThreadPoolFetcher(Fetcher):
         self,
         num_fetch_workers: int = 16,
         hedge: Optional[HedgeTracker] = None,
+        hard_cap: Optional[int] = None,
     ) -> None:
+        self.hard_cap = max(num_fetch_workers, hard_cap or num_fetch_workers)
         self.hedge = hedge
         self._gate = AdjustableSemaphore(num_fetch_workers)
         # +1 headroom thread so a hedge duplicate can run while all gated
         # slots are busy with stragglers
         self._pool = ThreadPoolExecutor(
-            max_workers=num_fetch_workers + 1, thread_name_prefix="fetcher"
+            max_workers=self.hard_cap + 1, thread_name_prefix="fetcher"
         )
+
+    @property
+    def concurrency(self) -> int:
+        return self._gate.limit
+
+    def resize(self, num_fetch_workers: int) -> int:
+        n = max(1, min(int(num_fetch_workers), self.hard_cap))
+        self._gate.set_limit(n)
+        return n
 
     def _run_gated(self, dataset: MapDataset, index: int) -> Item:
         t0 = time.monotonic()
@@ -190,7 +224,8 @@ class ThreadPoolFetcher(Fetcher):
             if self.hedge is not None:
                 # true per-item service duration, recorded in the task itself
                 # (not in the gather loop, whose view is skewed by gate/queue
-                # waits)
+                # waits), and while hedging is disabled too, so a re-enable
+                # never acts on a stale p95 deadline
                 self.hedge.observe(time.monotonic() - t0)
 
     def submit_one(self, dataset: MapDataset, index: int) -> "Future[Item]":
@@ -211,7 +246,7 @@ class ThreadPoolFetcher(Fetcher):
 
     def fetch(self, dataset: MapDataset, indices: Sequence[int]) -> List[Item]:
         futures = [self.submit_one(dataset, i) for i in indices]
-        if self.hedge is not None:
+        if self.hedge is not None and self.hedge.enabled:
             return self._gather_hedged(dataset, indices, futures)
         return [f.result() for f in futures]
 
@@ -241,17 +276,28 @@ class ThreadPoolFetcher(Fetcher):
 
 class AsyncioFetcher(Fetcher):
     """Within-batch concurrency on a single thread via asyncio, bounded by a
-    per-``fetch`` semaphore of ``num_fetch_workers``."""
+    per-``fetch`` semaphore of ``num_fetch_workers``: created per call from
+    the current value, so ``resize`` takes effect at the next batch."""
 
     name = "asyncio"
 
-    def __init__(self, num_fetch_workers: int = 16) -> None:
+    def __init__(self, num_fetch_workers: int = 16, hard_cap: Optional[int] = None) -> None:
+        self.hard_cap = max(num_fetch_workers, hard_cap or num_fetch_workers)
         self._num_fetch_workers = num_fetch_workers
         self._loop = asyncio.new_event_loop()
         self._thread = threading.Thread(
             target=self._loop.run_forever, name="asyncio-fetcher", daemon=True
         )
         self._thread.start()
+
+    @property
+    def concurrency(self) -> int:
+        return self._num_fetch_workers
+
+    def resize(self, num_fetch_workers: int) -> int:
+        n = max(1, min(int(num_fetch_workers), self.hard_cap))
+        self._num_fetch_workers = n
+        return n
 
     async def _afetch_one(self, dataset: MapDataset, index: int,
                           sem: asyncio.Semaphore) -> Item:
@@ -278,11 +324,12 @@ class AsyncioFetcher(Fetcher):
 
 
 def make_fetcher(impl: str, num_fetch_workers: int,
-                 hedge: Optional[HedgeTracker] = None) -> Fetcher:
+                 hedge: Optional[HedgeTracker] = None,
+                 hard_cap: Optional[int] = None) -> Fetcher:
     if impl == "vanilla":
         return SequentialFetcher()
     if impl == "threaded":
-        return ThreadPoolFetcher(num_fetch_workers, hedge=hedge)
+        return ThreadPoolFetcher(num_fetch_workers, hedge=hedge, hard_cap=hard_cap)
     if impl == "asyncio":
-        return AsyncioFetcher(num_fetch_workers)
+        return AsyncioFetcher(num_fetch_workers, hard_cap=hard_cap)
     raise ValueError(f"unknown fetcher impl {impl!r}")

@@ -19,9 +19,12 @@ implementations yield bit-identical streams for a fixed seed.
 
 ``LoaderConfig.pipeline`` (enabled) swaps the legacy worker iterator for the
 staged pipeline (:mod:`repro_torch.core.pipeline`), with optional pinned
-host staging (:mod:`repro_torch.core.staging`).  The reference's
-shared-memory transport, autotune, elastic mode and sharded delivery have
-no config field in the port yet.
+host staging (:mod:`repro_torch.core.staging`).  ``LoaderConfig.autotune``
+(enabled) gives the loader an :class:`~repro_torch.core.autotune.
+AutotuneController` that moves either iterator's knobs between batches;
+its learned values persist across epochs on the loader.  The reference's
+shared-memory transport, elastic mode and sharded delivery have no config
+field in the port yet.
 """
 from __future__ import annotations
 
@@ -32,6 +35,11 @@ import weakref
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from repro_torch.config import LoaderConfig
+from repro_torch.core.autotune import (
+    AutotuneController,
+    build_loader_knobs,
+    make_weak_knob_callbacks,
+)
 from repro_torch.core.fetcher import HedgeTracker, make_fetcher
 from repro_torch.core.sampler import BatchIndices, ShardedBatchSampler
 from repro_torch.core.tracing import GET_BATCH, NULL_TRACER, Tracer
@@ -41,6 +49,17 @@ from repro_torch.data.dataset import MapDataset, collate
 
 class LoaderTimeout(RuntimeError):
     pass
+
+
+def _store_stats_fn(dataset: MapDataset):
+    """Find a ``stats`` provider in the dataset's store stack (e.g.
+    SimulatedS3Store): a live signal for the autotuner's diagnostics."""
+    store = getattr(dataset, "store", None)
+    while store is not None:
+        if hasattr(store, "stats"):
+            return lambda s=store: s.stats
+        store = getattr(store, "base", None)
+    return None
 
 
 class ConcurrentDataLoader:
@@ -83,6 +102,15 @@ class ConcurrentDataLoader:
                 raise ValueError("stage_queue_depth must be >= 1")
             if pipe.staging_buffers < 0:
                 raise ValueError("staging_buffers must be >= 0 (0 = off)")
+            at_ = cfg.autotune
+            if at_.enabled and at_.thread_budget:
+                floor = at_.min_fetch_workers + max(at_.min_cpu_workers, 1)
+                if at_.thread_budget < floor:
+                    raise ValueError(
+                        f"thread_budget={at_.thread_budget} cannot cover "
+                        f"min_fetch_workers + min_cpu_workers (= {floor}): "
+                        "the io/cpu split needs at least one thread per stage"
+                    )
         self.dataset = dataset
         self.cfg = cfg
         self.host_id = host_id
@@ -108,6 +136,42 @@ class ConcurrentDataLoader:
         )
         self._epoch = 0
         self._consumed = 0  # batches actually yielded to the caller this epoch
+        # online knob control: the controller and the tuned values live on
+        # the LOADER so learning persists across epochs; each epoch's
+        # iterator re-binds the knob callbacks to itself
+        at = cfg.autotune
+        entropy_fn = None
+        if (
+            at.enabled
+            and at.min_shuffle_entropy > 0.0
+            and pipe
+            and pipe.reorder == "window"
+        ):
+            # shuffle-entropy floor: feed the controller the delivered
+            # stream's within-batch entropy.  Weakref: the controller is
+            # owned BY the loader, and a strong cycle would defer
+            # __del__-driven worker shutdown to the gc.
+            _ent_ref = weakref.ref(self)
+
+            def entropy_fn() -> Optional[float]:
+                loader = _ent_ref()
+                if loader is None:
+                    return None
+                shuffle = (loader.stage_stats() or {}).get("shuffle")
+                return shuffle.get("within_batch") if shuffle else None
+
+        self.autotuner: Optional[AutotuneController] = (
+            AutotuneController(
+                at,
+                [],
+                tracer=tracer,
+                store_stats_fn=_store_stats_fn(dataset),
+                entropy_fn=entropy_fn,
+            )
+            if at.enabled
+            else None
+        )
+        self._tuned: Dict[str, int] = {}
         # spawn-process CPU pool (pipeline cpu_executor="process"): owned by
         # the loader because workers cost hundreds of ms to spawn; each
         # epoch's pipeline iterator attaches and rebinds.  close() ends it.
@@ -188,14 +252,21 @@ class ConcurrentDataLoader:
 
 def deliver_traced(it) -> Any:
     """Shared ``__next__`` body of ``_LoaderIter`` and the pipeline's
-    iterator: one ``get_batch`` span per delivered batch, tagged with the
-    batch's byte count."""
+    iterator: one ``get_batch`` span per delivered batch (tagged with the
+    batch's byte count) and the autotuner's ``on_batch`` at the safe
+    between-batch boundary (knob moves only affect how FUTURE work is
+    dispatched, never delivery order).  The end-of-epoch drain (sampler
+    exhausted, window shrinking) is excluded: its throughput says nothing
+    about the knobs."""
     t0 = time.monotonic()
     batch = it._next_impl()  # StopIteration passes through untraced
     args = {}
     if isinstance(batch, dict) and "nbytes" in batch:
         args["nbytes"] = int(batch["nbytes"].sum())
     it.tracer.record(GET_BATCH, t0, time.monotonic(), **args)
+    auto = it.loader.autotuner
+    if auto is not None and not it._exhausted:
+        auto.on_batch()
     return batch
 
 
@@ -205,8 +276,33 @@ class _LoaderIter:
         cfg = loader.cfg
         self.cfg = cfg
         self.tracer = loader.tracer
+        at = cfg.autotune
         self.max_outstanding = max(1, cfg.num_workers * cfg.prefetch_factor)
-        self.data_queue: "queue.Queue" = queue.Queue(maxsize=self.max_outstanding)
+        self._fetch_workers = cfg.num_fetch_workers
+        self._fetch_hard_cap: Optional[int] = None
+        # effective knob ceilings, widened to cover the explicit static
+        # config: turning the tuner ON must never cap the loader below its
+        # autotune=off operating point
+        self._max_outstanding_bound = max(at.max_outstanding, self.max_outstanding)
+        self._max_fetch_bound = max(at.max_fetch_workers, cfg.num_fetch_workers)
+        if at.enabled:
+            # resume from values the controller already learned (prev epoch)
+            self.max_outstanding = min(
+                max(loader._tuned.get("outstanding", self.max_outstanding),
+                    at.min_outstanding),
+                self._max_outstanding_bound,
+            )
+            self._fetch_workers = min(
+                max(loader._tuned.get("fetch_workers", self._fetch_workers),
+                    at.min_fetch_workers),
+                self._max_fetch_bound,
+            )
+            self._fetch_hard_cap = self._max_fetch_bound
+        # queue backpressure: sized for the knob's upper bound when autotuned
+        # (the live window is enforced by _dispatch), exactly max_outstanding
+        # otherwise, as the static loader
+        qsize = self._max_outstanding_bound if at.enabled else self.max_outstanding
+        self.data_queue: "queue.Queue" = queue.Queue(maxsize=qsize)
         self.index_queues: List["queue.Queue"] = [
             queue.Queue() for _ in range(cfg.num_workers)
         ]
@@ -222,6 +318,24 @@ class _LoaderIter:
         self._shutdown = False
         self._lock = threading.Lock()
 
+        if loader.autotuner is not None:
+            # knob callbacks reach this iterator through a weakref: a strong
+            # closure would pin an abandoned iterator (and its worker
+            # threads) on the loader-lived autotuner until the next bind()
+            _wget, _wset = make_weak_knob_callbacks(self)
+            loader.autotuner.bind(
+                build_loader_knobs(
+                    at,
+                    get_fetch=_wget(lambda it: it._fetch_workers),
+                    set_fetch=_wset(lambda it, n: it._set_fetch_workers(n)),
+                    get_outstanding=_wget(lambda it: it.max_outstanding),
+                    set_outstanding=_wset(lambda it, n: it._set_outstanding(n)),
+                    hedge=loader.hedge,
+                    max_fetch_workers=self._max_fetch_bound,
+                    max_outstanding=self._max_outstanding_bound,
+                )
+            )
+
         if not cfg.lazy_init:
             # Vanilla blocking behaviour: the constructor sequentially starts
             # every worker and waits for each to come up (paper Fig. 8 left).
@@ -231,13 +345,32 @@ class _LoaderIter:
                 w.ready.wait()
             self._dispatch()
 
+    # -- autotuner control surfaces (applied between batches) ----------------
+    def _set_fetch_workers(self, n: int) -> int:
+        at = self.cfg.autotune
+        n = max(at.min_fetch_workers, min(int(n), self._max_fetch_bound))
+        applied = n
+        for w in self.workers:
+            applied = w.fetcher.resize(n)
+        self._fetch_workers = applied if self.workers else n
+        self.loader._tuned["fetch_workers"] = self._fetch_workers
+        return self._fetch_workers
+
+    def _set_outstanding(self, n: int) -> int:
+        at = self.cfg.autotune
+        n = max(at.min_outstanding, min(int(n), self._max_outstanding_bound))
+        self.max_outstanding = n
+        self.loader._tuned["outstanding"] = n
+        return n
+
     # -- worker management ----------------------------------------------------
     def _make_worker(self, i: int) -> Worker:
         cfg = self.cfg
         w = Worker(
             i,
             self.loader.dataset,
-            make_fetcher(cfg.impl, cfg.num_fetch_workers, hedge=self.loader.hedge),
+            make_fetcher(cfg.impl, self._fetch_workers, hedge=self.loader.hedge,
+                         hard_cap=self._fetch_hard_cap),
             self.index_queues[i],
             self.data_queue,
             collate_fn=self.loader.collate_fn,

@@ -30,11 +30,16 @@ This module splits the item path into an explicit stage graph::
 * **Pinned staging** — with ``staging_buffers > 0`` the default collate
   writes into a :class:`~repro_torch.core.staging.HostBatchPool`, whose
   sets a CUDA device prefetch ring pins in place.
+* **Live knobs** — with ``LoaderConfig.autotune`` enabled, the loader's
+  :class:`~repro_torch.core.autotune.AutotuneController` resizes the IO and
+  CPU executors, the outstanding window, the fetch->decode queue and the
+  reorder window between batches, or, under ``thread_budget``, one coupled
+  io/cpu split and the CPU executor kind (thread or process, swapped live).
 
-A trimmed copy of the reference's pipeline: its autotune knobs (ROADMAP §1
-item 5.3), its shared-memory transport (item 5.7) and its sharded lanes
-(item 7) are not ported and have no config field.  The module imports
-no ``torch``: ``spawn`` re-imports it in every CPU worker process.
+A trimmed copy of the reference's pipeline: its shared-memory transport
+(ROADMAP §1 item 5.4) and its sharded lanes (item 7) are not ported and
+have no config field.  The module imports no ``torch``: ``spawn``
+re-imports it in every CPU worker process.
 """
 from __future__ import annotations
 
@@ -52,6 +57,11 @@ from typing import Any, Deque, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.autotune import (
+    build_budget_knobs,
+    build_pipeline_knobs,
+    make_weak_knob_callbacks,
+)
 from repro_torch.core.fetcher import (
     AdjustableSemaphore,
     aretry_transient,
@@ -67,6 +77,7 @@ from repro_torch.core.tracing import (
     STAGE_DECODE,
     STAGE_FETCH,
 )
+from repro_torch.core.utilization import available_cpu_count
 from repro_torch.data.dataset import collate
 
 
@@ -103,11 +114,12 @@ class _Failure:
 
 
 class _BoundedQ:
-    """FIFO whose capacity is an :class:`AdjustableSemaphore`.  ``put``
-    blocks while the downstream stage is full (polling the pipeline stop
-    event): that stall, propagating back to the IO gate, is the pipeline's
-    backpressure.  Tracks occupancy so the bottleneck stage is visible (a
-    full fetch->decode queue = CPU-bound, an empty one = IO-bound)."""
+    """FIFO whose capacity is an :class:`AdjustableSemaphore`, so queue depth
+    is a live autotune knob.  ``put`` blocks while the downstream stage is
+    full (polling the pipeline stop event): that stall, propagating back to
+    the IO gate, is the pipeline's backpressure.  Tracks occupancy so the
+    bottleneck stage is visible (a full fetch->decode queue = CPU-bound, an
+    empty one = IO-bound)."""
 
     def __init__(self, depth: int, stop: threading.Event) -> None:
         self._q: "queue.Queue" = queue.Queue()
@@ -121,6 +133,11 @@ class _BoundedQ:
     @property
     def depth(self) -> int:
         return self._cap.limit
+
+    def resize(self, depth: int, hi: int) -> int:
+        d = max(1, min(int(depth), hi))
+        self._cap.set_limit(d)
+        return d
 
     def _note(self) -> None:
         size = self._q.qsize()
@@ -165,9 +182,10 @@ class _IOStage:
 
     Admission is caller-side: :meth:`submit` parks samples in a pending deque
     and ``_kick`` moves them onto the executor only when a gate permit is
-    free.  The permit is held across the fetch AND the (possibly blocking)
-    hand-off into the fetch->decode queue: when decode backs up, IO
-    concurrency drains to zero instead of buffering unboundedly.
+    free, so a ``resize`` takes effect at the next admission.  The permit
+    is held across the fetch AND the (possibly blocking) hand-off into the
+    fetch->decode queue: when decode backs up, IO concurrency drains to
+    zero instead of buffering unboundedly.
 
     Hedging (both modes): the assembler loop calls :meth:`hedge_scan`; any
     in-flight fetch older than the p95 deadline gets one ungated duplicate
@@ -181,6 +199,7 @@ class _IOStage:
         *,
         mode: str,  # "threaded" | "asyncio"
         width: int,
+        hard_cap: int,
         split: bool,
         decode_q: _BoundedQ,
         done_q: "queue.Queue",
@@ -193,6 +212,7 @@ class _IOStage:
         self.done_q = done_q
         self.tracer = tracer
         self.hedge = hedge
+        self.hard_cap = max(width, hard_cap)
         self.gate = AdjustableSemaphore(width)
         self._pending: deque = deque()
         self._lock = threading.Lock()
@@ -212,7 +232,7 @@ class _IOStage:
             # +2 headroom threads so hedge duplicates can run while every
             # gated slot is busy with stragglers
             self._pool = ThreadPoolExecutor(
-                max_workers=width + 2, thread_name_prefix="pipe-io"
+                max_workers=self.hard_cap + 2, thread_name_prefix="pipe-io"
             )
 
     # -- admission -----------------------------------------------------------
@@ -231,6 +251,12 @@ class _IOStage:
                 asyncio.run_coroutine_threadsafe(self._afetch(s), self._loop)
             else:
                 self._pool.submit(self._run_fetch, s)
+
+    def resize(self, width: int) -> int:
+        w = max(1, min(int(width), self.hard_cap))
+        self.gate.set_limit(w)
+        self._kick()  # a raised limit admits parked samples immediately
+        return w
 
     # -- completion (first response wins when hedged) ------------------------
     def _complete(self, s: _Sample, raw: Any) -> bool:
@@ -291,7 +317,7 @@ class _IOStage:
     def hedge_scan(self) -> None:
         """Issue duplicates for fetches past the p95 deadline (called from
         the assembler loop, so hedging needs no timer thread)."""
-        if self.hedge is None:
+        if self.hedge is None or not self.hedge.enabled:
             return
         deadline = self.hedge.deadline()
         now = time.monotonic()
@@ -385,13 +411,21 @@ class _IOStage:
 class _CPUStage:
     """decode + augment on a dedicated gated thread pool.  The gate is
     acquired BEFORE pulling from the fetch->decode queue, so a surplus
-    thread waits empty-handed rather than holding a sample hostage."""
+    thread waits empty-handed rather than holding a sample hostage, and a
+    shrinking ``resize`` drains as permits are released.
+
+    Threads are spawned lazily up to the CURRENT width (at most
+    ``hard_cap``): a ceiling of 32 costs no idle threads at width 4.
+    ``active=False`` parks the stage (threads idle without pulling work):
+    the iterator flips it when the ``cpu_executor`` knob swaps the CPU stage
+    to the process pool; in-flight samples still finish here."""
 
     def __init__(
         self,
         dataset,
         *,
         width: int,
+        hard_cap: int,
         decode_q: _BoundedQ,
         done_q: "queue.Queue",
         stop: threading.Event,
@@ -402,19 +436,38 @@ class _CPUStage:
         self.done_q = done_q
         self.stop = stop
         self.tracer = tracer
+        self.hard_cap = max(width, hard_cap)
         self.gate = AdjustableSemaphore(max(1, width))
+        self.active = True
         self.threads: List[threading.Thread] = []
-        for i in range(max(1, width)):
-            t = threading.Thread(target=self._run, name=f"pipe-cpu-{i}", daemon=True)
-            self.threads.append(t)
-            t.start()
+        self._spawn_lock = threading.Lock()
+        self._ensure_threads(width)
 
     @property
     def width(self) -> int:
         return self.gate.limit
 
+    def _ensure_threads(self, width: int) -> None:
+        with self._spawn_lock:
+            while len(self.threads) < min(max(width, 1), self.hard_cap):
+                t = threading.Thread(
+                    target=self._run, name=f"pipe-cpu-{len(self.threads)}",
+                    daemon=True,
+                )
+                self.threads.append(t)
+                t.start()
+
+    def resize(self, width: int) -> int:
+        w = max(1, min(int(width), self.hard_cap))
+        self.gate.set_limit(w)
+        self._ensure_threads(w)
+        return w
+
     def _run(self) -> None:
         while not self.stop.is_set():
+            if not self.active:
+                time.sleep(0.05)
+                continue
             if not self.gate.acquire(timeout=0.1):
                 continue
             try:
@@ -455,6 +508,11 @@ PROC_TASK_ATTEMPTS = 3
 # tasks in flight per worker: one EXECUTING plus one QUEUED in its pipe, so
 # the parent's round trip between samples is hidden
 PROC_PREFILL_DEPTH = 2
+
+# workers spawned by one ensure() call at most: a resize from 4 to 32 grows
+# the pool over a few pump passes instead of starting 28 interpreters, each
+# importing numpy, at once on the host's cores
+PROC_SPAWN_STEP = 4
 
 
 def _cpu_proc_main(payload: bytes, conn) -> None:
@@ -611,13 +669,22 @@ class _CPUProcessPool:
         self.workers.append(_ProcWorker(proc, parent_conn))
 
     def ensure(self, n: int) -> None:
+        """Grow toward ``n`` workers (at most ``hard_cap``), by at most
+        :data:`PROC_SPAWN_STEP` a call; the owning stage's pump calls this
+        every pass.  Never shrinks: a narrower stage leaves the surplus
+        workers idle behind its gate."""
         # under the lock: at an epoch takeover the outgoing and incoming
         # pumps briefly coexist, and unsynchronized growth could overshoot
         with self._lock:
             if self._closed:
                 return
-            while len(self.workers) < min(max(n, 1), self.hard_cap):
+            want = min(max(n, 1), self.hard_cap, len(self.workers) + PROC_SPAWN_STEP)
+            while len(self.workers) < want:
                 self.spawn_one()
+
+    def raise_cap(self, hard_cap: int) -> None:
+        with self._lock:
+            self.hard_cap = max(self.hard_cap, hard_cap)
 
     def remove(self, w: _ProcWorker) -> None:
         with self._lock:
@@ -645,7 +712,8 @@ class _CPUProcessPool:
 class _ProcCPUStage:
     """decode + augment in the spawn-process pool: same contract as
     :class:`_CPUStage` (pull from ``decode_q``, deliver to ``done_q``,
-    gate-bounded parallelism) with the work outside the GIL.
+    gate-bounded parallelism, live resize, ``active`` pause flag) with the
+    work outside the GIL.
 
     One parent-side pump thread claims samples from the fetch->decode queue
     under the gate (a permit is held from claim to final resolution),
@@ -663,6 +731,7 @@ class _ProcCPUStage:
         *,
         pool: _CPUProcessPool,
         width: int,
+        hard_cap: int,
         decode_q: _BoundedQ,
         done_q: "queue.Queue",
         stop: threading.Event,
@@ -673,18 +742,22 @@ class _ProcCPUStage:
         self.done_q = done_q
         self.stop = stop
         self.tracer = tracer
+        self.hard_cap = max(width, hard_cap)
         self._width = max(1, width)
         # the gate bounds claimed-but-unresolved samples: PREFILL_DEPTH per
         # worker, so every worker can hold a queued spare
         self.gate = AdjustableSemaphore(PROC_PREFILL_DEPTH * self._width)
+        self.active = True
         self.requeued = 0  # samples retried after a worker crash
         self.pipe_samples = 0
         self.bytes_copied = 0
         self._inflight: Dict[int, _Sample] = {}
         self._attempts: Dict[int, int] = {}
         self._pending: Deque[int] = deque()  # crash-requeued sids, FIFO
+        # no spawn here: the caller may be the consumer's thread (an
+        # executor flip mid-epoch), so the pump grows the pool from its
+        # first pass on
         pool.attach(self, payload)
-        pool.ensure(width)
         self._thread = threading.Thread(
             target=self._run, name="pipe-cpu-pool-pump", daemon=True
         )
@@ -693,6 +766,14 @@ class _ProcCPUStage:
     @property
     def width(self) -> int:
         return self._width
+
+    def resize(self, width: int) -> int:
+        """Set the stage's parallelism; the pump grows the pool toward it
+        (never on the caller's thread, which is the consumer's)."""
+        w = max(1, min(int(width), self.hard_cap))
+        self._width = w
+        self.gate.set_limit(PROC_PREFILL_DEPTH * w)
+        return w
 
     # -- pump ---------------------------------------------------------------
     def _owned(self) -> bool:
@@ -733,7 +814,7 @@ class _ProcCPUStage:
             w = min(candidates, key=lambda x: len(x.sids))
             if self._pending:
                 sid = self._pending.popleft()  # a retry holds its permit already
-            elif self.gate.acquire(timeout=0):
+            elif self.active and self.gate.acquire(timeout=0):
                 any_busy = any(x.sids for x in self.pool.workers)
                 try:
                     # bounded blocking get when the whole stage is idle: the
@@ -746,6 +827,8 @@ class _ProcCPUStage:
                 self._inflight[sid] = s
                 self._attempts[sid] = 1
             else:
+                if not self.active and not self._pending:
+                    time.sleep(0.02)  # paused: don't spin on the gate
                 return
             s = self._inflight[sid]
             w.sids.append(sid)
@@ -936,34 +1019,102 @@ class _PipelineIter:
         self.strict = pipe.reorder == "strict"
         self.window = 1 if self.strict else max(1, pipe.reorder_window)
 
+        at = cfg.autotune
         # stage sizing: 0 derives io_workers from the legacy loader's total
         # fetch-thread count so pipeline-vs-legacy runs at equal concurrency
         io_workers = pipe.io_workers or max(1, cfg.num_workers * cfg.num_fetch_workers)
         cpu_workers = pipe.cpu_workers or 4
+        queue_depth = max(1, pipe.stage_queue_depth)
         self.max_outstanding = max(1, cfg.num_workers * cfg.prefetch_factor)
-        if not self.split:
-            # monolithic fallback: the fetch stage produces finished items,
-            # so no CPU stage (thread or process) is spun up for nothing
-            cpu_workers = 1
+        # knob ceilings widen over the static config (enabling autotune must
+        # never cap the loader below its autotune=off operating point)
+        self._max_io_bound = max(at.max_fetch_workers, io_workers)
+        self._max_cpu_bound = max(at.max_cpu_workers, cpu_workers)
+        self._max_queue_bound = max(at.max_stage_queue, queue_depth)
+        self._max_outstanding_bound = max(at.max_outstanding, self.max_outstanding)
+        if at.enabled:
+            # resume from values the controller already learned (prev epoch)
+            tuned = loader._tuned
+            if not self.strict:
+                self.window = min(
+                    max(tuned.get("reorder_window", self.window),
+                        at.min_reorder_window),
+                    max(at.max_reorder_window, self.window),
+                )
+            io_workers = min(
+                max(tuned.get("io_workers", io_workers), at.min_fetch_workers),
+                self._max_io_bound,
+            )
+            cpu_workers = min(
+                max(tuned.get("cpu_workers", cpu_workers), at.min_cpu_workers),
+                self._max_cpu_bound,
+            )
+            queue_depth = min(
+                max(tuned.get("stage_queue", queue_depth), at.min_stage_queue),
+                self._max_queue_bound,
+            )
+            self.max_outstanding = min(
+                max(tuned.get("outstanding", self.max_outstanding),
+                    at.min_outstanding),
+                self._max_outstanding_bound,
+            )
+
+        # budget co-tuning (AutotuneConfig.thread_budget): io and cpu widths
+        # are one coupled knob under a fixed total; the split value is the IO
+        # width and the CPU stage always gets the remainder
+        self._budget = (
+            at.thread_budget
+            if at.enabled and at.thread_budget > 0 and self.split
+            else 0
+        )
+        if at.enabled and at.thread_budget > 0 and not self.split:
+            # monolithic fallback: no CPU stage to trade against, but the
+            # budget still caps the total width
+            self._max_io_bound = min(self._max_io_bound, at.thread_budget)
+            io_workers = min(io_workers, at.thread_budget)
+        self._split_lo = self._split_hi = 0
+        if self._budget:
+            b = self._budget
+            self._split_lo = max(at.min_fetch_workers, b - self._max_cpu_bound, 1)
+            self._split_hi = max(self._split_lo, b - max(at.min_cpu_workers, 1))
+            seed = io_workers
+            if pipe.io_workers == 0 and "io_cpu_split" not in loader._tuned:
+                # cores-aware seed: the CPU stage is compute-bound, so start
+                # it at the cores this process may use and give IO the rest
+                seed = b - available_cpu_count()
+            io_workers = min(
+                max(loader._tuned.get("io_cpu_split", seed), self._split_lo),
+                self._split_hi,
+            )
+            cpu_workers = b - io_workers
+
+        # CPU executor kind: static config, overridden by the tuned value
+        # when the budget co-tuner flipped it in a previous epoch
         self.cpu_kind = pipe.cpu_executor if self.split else "thread"
+        if at.enabled and self.split and "cpu_executor" in loader._tuned:
+            self.cpu_kind = "process" if loader._tuned["cpu_executor"] else "thread"
         # the process stage ships a pickled dataset copy to each spawned
         # worker.  Pickle once, up front: a clear construction-time error
         # beats an opaque one from inside a worker.
         self._proc_payload: Optional[bytes] = None
-        if self.cpu_kind == "process":
+        if self.split and (
+            self.cpu_kind == "process" or (self._budget and at.tune_cpu_executor)
+        ):
             try:
                 self._proc_payload = pickle.dumps(dataset)
             except Exception as e:
-                raise ValueError(
-                    "cpu_executor='process' requires a picklable dataset "
-                    "(the process CPU stage ships a pickled copy to each "
-                    "spawned worker; drop store/tracer members on pickle — "
-                    "see MapDataset's picklability contract): "
-                    f"pickling failed with {e!r}"
-                ) from e
+                if self.cpu_kind == "process":
+                    raise ValueError(
+                        "cpu_executor='process' requires a picklable dataset "
+                        "(the process CPU stage ships a pickled copy to each "
+                        "spawned worker; drop store/tracer members on pickle — "
+                        "see MapDataset's picklability contract): "
+                        f"pickling failed with {e!r}"
+                    ) from e
+                self._proc_payload = None  # the executor-kind knob is just absent
 
         self._stop = threading.Event()
-        self.decode_q = _BoundedQ(pipe.stage_queue_depth, self._stop)
+        self.decode_q = _BoundedQ(queue_depth, self._stop)
         self.done_q: "queue.Queue" = queue.Queue()
         # pinned host staging: only for the default collate (a custom
         # collate_fn owns its own batch layout)
@@ -974,31 +1125,26 @@ class _PipelineIter:
             dataset,
             mode="asyncio" if cfg.impl == "asyncio" else "threaded",
             width=io_workers,
+            hard_cap=self._max_io_bound if at.enabled else io_workers,
             split=self.split,
             decode_q=self.decode_q,
             done_q=self.done_q,
             tracer=self.tracer,
             hedge=loader.hedge,
         )
+        cpu_hard = self._max_cpu_bound if at.enabled else cpu_workers
+        if not self.split:
+            # monolithic fallback: the fetch stage produces finished items,
+            # so no CPU stage (thread or process) is spun up for nothing
+            cpu_workers = cpu_hard = 1
+        self._cpu_hard = cpu_hard
+        self._cpu_width = cpu_workers
+        # both CPU stage kinds share decode_q/done_q and are created lazily;
+        # the inactive one (if ever created) is paused, so the cpu_executor
+        # knob can swap kinds mid-epoch without disturbing in-flight samples
+        self._thread_cpu: Optional[_CPUStage] = None
         self._proc_cpu: Optional[_ProcCPUStage] = None
-        if self.cpu_kind == "process":
-            pool = loader._cpu_pool
-            if pool is None or pool.hard_cap < cpu_workers or pool._closed:
-                if pool is not None:
-                    pool.close()
-                pool = _CPUProcessPool(self._proc_payload, cpu_workers)
-                loader._cpu_pool = pool
-            self._proc_cpu = _ProcCPUStage(
-                self._proc_payload, pool=pool, width=cpu_workers,
-                decode_q=self.decode_q, done_q=self.done_q, stop=self._stop,
-                tracer=self.tracer,
-            )
-            self.cpu: Any = self._proc_cpu
-        else:
-            self.cpu = _CPUStage(
-                dataset, width=cpu_workers, decode_q=self.decode_q,
-                done_q=self.done_q, stop=self._stop, tracer=self.tracer,
-            )
+        self.cpu: Any = self._make_cpu_stage(self.cpu_kind)
 
         self._sampler_iter = iter(loader.sampler)
         self._exhausted = False
@@ -1027,7 +1173,185 @@ class _PipelineIter:
         self._shuffle = _ShuffleMeter(loader.sampler.dataset_len, self.tracer)
         # strict batch composition equals the sampler's dispatch
         self._batch_indices: Dict[int, Tuple[int, ...]] = {}
+        if loader.autotuner is not None:
+            self._bind_knobs(loader.autotuner, at)
         self._pump()
+
+    def _bind_knobs(self, auto, at) -> None:
+        """Hand this epoch's control surfaces to the loader's autotuner.  The
+        callbacks reach this iterator through a weakref: the autotuner
+        outlives every epoch's iterator, and a strong closure would pin an
+        abandoned one (and its stage threads) until the next bind()."""
+        _wget, _wset = make_weak_knob_callbacks(self)
+        extra_kw: Dict[str, Any] = {}
+        if not self.strict:
+            # the reorder-window knob exists only where the window does
+            extra_kw = dict(
+                get_reorder=_wget(lambda it: it.window),
+                set_reorder=_wset(lambda it, n: it._set_reorder_window(n)),
+            )
+        if self._budget:
+            # one coupled io/cpu split knob (+ the executor kind when the
+            # dataset is process-capable) instead of two width knobs
+            proc_ok = self._proc_payload is not None
+            knobs = build_budget_knobs(
+                at,
+                budget=self._budget,
+                lo_split=self._split_lo,
+                hi_split=self._split_hi,
+                get_split=_wget(lambda it: it.io.gate.limit),
+                set_split=_wset(lambda it, n: it._set_split(n)),
+                get_outstanding=_wget(lambda it: it.max_outstanding),
+                set_outstanding=_wset(lambda it, n: it._set_outstanding(n)),
+                get_queue=_wget(lambda it: it.decode_q.depth),
+                set_queue=_wset(lambda it, n: it._set_stage_queue(n)),
+                get_cpu_executor=(
+                    _wget(lambda it: int(it.cpu_kind == "process")) if proc_ok else None
+                ),
+                set_cpu_executor=(
+                    _wset(lambda it, n: it._set_cpu_executor(n)) if proc_ok else None
+                ),
+                hedge=self.loader.hedge,
+                max_outstanding=self._max_outstanding_bound,
+                max_queue=self._max_queue_bound,
+                **extra_kw,
+            )
+        else:
+            knobs = build_pipeline_knobs(
+                at,
+                get_io=_wget(lambda it: it.io.gate.limit),
+                set_io=_wset(lambda it, n: it._set_io_workers(n)),
+                get_cpu=_wget(lambda it: it.cpu.width),
+                set_cpu=_wset(lambda it, n: it._set_cpu_workers(n)),
+                get_outstanding=_wget(lambda it: it.max_outstanding),
+                set_outstanding=_wset(lambda it, n: it._set_outstanding(n)),
+                get_queue=_wget(lambda it: it.decode_q.depth),
+                set_queue=_wset(lambda it, n: it._set_stage_queue(n)),
+                hedge=self.loader.hedge,
+                max_io=self._max_io_bound,
+                max_cpu=self._max_cpu_bound,
+                max_outstanding=self._max_outstanding_bound,
+                max_queue=self._max_queue_bound,
+                **extra_kw,
+            )
+            if not self.split:
+                # nothing flows through the CPU stage or its queue: inert
+                # knobs would waste the controller's probe windows
+                knobs = [k for k in knobs if k.name not in ("cpu_workers", "stage_queue")]
+        auto.bind(knobs)
+
+    # -- CPU stage factory / executor swap -----------------------------------
+    def _make_cpu_stage(self, kind: str):
+        """Create (or reactivate) the CPU stage of the requested kind.  Both
+        kinds share decode_q/done_q/stop; the process kind attaches to the
+        loader-persistent :class:`_CPUProcessPool` (spawn cost is paid once,
+        not per epoch), and rebinding ships this epoch's dataset state."""
+        if kind == "process":
+            if self._proc_cpu is None:
+                pool = self.loader._cpu_pool
+                if pool is None or pool._closed:
+                    pool = _CPUProcessPool(self._proc_payload, self._cpu_hard)
+                    self.loader._cpu_pool = pool
+                else:
+                    # a pool from a narrower static epoch: lift its ceiling
+                    # instead of closing and respawning it on this thread
+                    pool.raise_cap(self._cpu_hard)
+                self._proc_cpu = _ProcCPUStage(
+                    self._proc_payload, pool=pool, width=self._cpu_width,
+                    hard_cap=self._cpu_hard, decode_q=self.decode_q,
+                    done_q=self.done_q, stop=self._stop, tracer=self.tracer,
+                )
+            else:
+                self._proc_cpu.active = True
+                self._proc_cpu.resize(self._cpu_width)
+            return self._proc_cpu
+        if self._thread_cpu is None:
+            self._thread_cpu = _CPUStage(
+                self.loader.dataset, width=self._cpu_width, hard_cap=self._cpu_hard,
+                decode_q=self.decode_q, done_q=self.done_q, stop=self._stop,
+                tracer=self.tracer,
+            )
+        else:
+            self._thread_cpu.active = True
+            self._thread_cpu.resize(self._cpu_width)
+        return self._thread_cpu
+
+    # -- autotuner control surfaces (applied between batches) ----------------
+    def _set_io_workers(self, n: int) -> int:
+        n = max(self.cfg.autotune.min_fetch_workers, int(n))
+        applied = self.io.resize(n)
+        self.loader._tuned["io_workers"] = applied
+        return applied
+
+    def _resize_cpu(self, n: int) -> int:
+        applied = self.cpu.resize(n)
+        self._cpu_width = applied
+        return applied
+
+    def _set_cpu_workers(self, n: int) -> int:
+        n = max(self.cfg.autotune.min_cpu_workers, int(n))
+        applied = self._resize_cpu(n)
+        self.loader._tuned["cpu_workers"] = applied
+        return applied
+
+    def _set_split(self, n: int) -> int:
+        """Apply one value of the coupled io/cpu split (budget mode): IO gets
+        ``n``, the CPU stage ``budget - n``.  The shrinking side is resized
+        first, so the limits never sum above the budget, even transiently
+        (surplus in-flight work drains through its gate)."""
+        n = max(self._split_lo, min(int(n), self._split_hi))
+        cpu = self._budget - n
+        if n >= self.io.gate.limit:
+            self._resize_cpu(cpu)
+            self.io.resize(n)
+        else:
+            self.io.resize(n)
+            self._resize_cpu(cpu)
+        self.loader._tuned["io_cpu_split"] = n
+        return n
+
+    def _set_cpu_executor(self, v: int) -> int:
+        """Swap the CPU stage kind live (binary budget-mode knob).  The old
+        stage is paused, not torn down: its in-flight samples finish into
+        the shared done_q (strict reorder does not care which executor
+        produced a sample), and a revert reactivates it for free."""
+        want = "process" if int(v) >= 1 else "thread"
+        cur = int(self.cpu_kind == "process")
+        if want == self.cpu_kind:
+            return cur
+        if want == "process" and self._proc_payload is None:
+            return cur  # not process-capable: echo so the controller skips
+        old = self.cpu
+        self.cpu = self._make_cpu_stage(want)
+        old.active = False
+        self.cpu_kind = want
+        applied = int(want == "process")
+        self.loader._tuned["cpu_executor"] = applied
+        return applied
+
+    def _set_outstanding(self, n: int) -> int:
+        at = self.cfg.autotune
+        n = max(at.min_outstanding, min(int(n), self._max_outstanding_bound))
+        self.max_outstanding = n
+        self.loader._tuned["outstanding"] = n
+        return n
+
+    def _set_stage_queue(self, n: int) -> int:
+        n = max(self.cfg.autotune.min_stage_queue, int(n))
+        applied = self.decode_q.resize(n, self._max_queue_bound)
+        self.loader._tuned["stage_queue"] = applied
+        return applied
+
+    def _set_reorder_window(self, n: int) -> int:
+        """Reorder-window knob (window mode only): takes effect for the NEXT
+        opened group; in-flight groups keep the size they were opened with."""
+        if self.strict:
+            return 1
+        at = self.cfg.autotune
+        n = max(at.min_reorder_window, min(int(n), max(at.max_reorder_window, 1)))
+        self.window = n
+        self.loader._tuned["reorder_window"] = n
+        return n
 
     # -- dispatch ------------------------------------------------------------
     def _pump(self) -> None:
@@ -1216,6 +1540,8 @@ class _PipelineIter:
             "reorder": "strict" if self.strict else f"window={self.window}",
             "shuffle": self._shuffle.snapshot(),
         }
+        if self._budget:
+            out["thread_budget"] = self._budget
         if self._staging is not None:
             # the reference's pool stats, and how many sets a CUDA ring
             # pinned in place (0 for any other consumer)
@@ -1257,9 +1583,12 @@ class _PipelineIter:
             pass
         self._stop.set()
         self.io.close()
-        # the process POOL persists on the loader; only the stage's pump
-        # thread (or the thread stage's threads) belong to this iterator
-        self.cpu.join()
+        # join every CPU stage created this epoch (an executor-kind flip
+        # leaves the paused one alive); the process POOL persists on the
+        # loader, and only the stage's pump thread belongs to this iterator
+        for stage in (self._thread_cpu, self._proc_cpu):
+            if stage is not None:
+                stage.join()
 
     def __del__(self) -> None:  # pragma: no cover - best effort
         try:

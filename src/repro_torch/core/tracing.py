@@ -4,7 +4,9 @@ Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
 ``run_training_batch``, and the staged pipeline's ``stage_*`` lanes) with
 wall-clock start/end and thread id, like the log-entry instrumentation in
 the paper, plus named monotonic counters (``bytes_copied``), and feeds the
-Table-3 busy/idle statistics (:mod:`repro_torch.core.utilization`).
+Table-3 busy/idle statistics (:mod:`repro_torch.core.utilization`) and the
+autotuner's windowed views (:meth:`Tracer.recent_spans`,
+:func:`window_summary`).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 # Canonical lane names (paper Fig. 1)
 GET_BATCH = "get_batch"
@@ -105,6 +107,24 @@ class Tracer:
             out = [s for s in out if s.name == name]
         return out
 
+    # threads record() spans in completion order, give or take this much
+    _REORDER_SLACK_S = 1.0
+
+    def recent_spans(self, name: str, since: float) -> List[Span]:
+        """Spans named ``name`` that ended at or after ``since``, oldest
+        first.  Walks the record backward and stops once spans end before
+        the window (minus a reorder slack), so the cost is O(matches): the
+        query the autotuner's utilization gate issues every window."""
+        out: List[Span] = []
+        with self._lock:
+            for s in reversed(self._spans):
+                if s.t1 < since - self._REORDER_SLACK_S:
+                    break
+                if s.name == name and s.t1 >= since:
+                    out.append(s)
+        out.reverse()
+        return out
+
     def durations(self, name: str) -> List[float]:
         return [s.duration for s in self.spans(name)]
 
@@ -133,6 +153,56 @@ class _NullTracer(Tracer):
 
 
 NULL_TRACER = _NullTracer()
+
+
+@dataclass(frozen=True)
+class StageWindow:
+    """Aggregate statistics for one span name over a time window."""
+
+    name: str
+    count: int
+    mean_s: float
+    p50_s: float
+    p95_s: float
+    total_s: float
+
+    @property
+    def rate_per_s(self) -> float:
+        return self.count / self.total_s if self.total_s > 0 else 0.0
+
+
+def _pctl(sorted_xs: List[float], q: float) -> float:
+    return sorted_xs[min(int(q * len(sorted_xs)), len(sorted_xs) - 1)]
+
+
+def window_summary(
+    tracer: Tracer, names: Sequence[str], since: float, until: Optional[float] = None
+) -> Dict[str, StageWindow]:
+    """Per-stage latency aggregation over spans that *ended* in
+    ``[since, until)``: the autotuner's windowed view of the loader.  Names
+    with no spans in the window map to a zero-count window."""
+    if until is None:
+        until = time.monotonic()
+    wanted = set(names)
+    durs: Dict[str, List[float]] = {n: [] for n in names}
+    for s in tracer.spans():
+        if s.name in wanted and since <= s.t1 < until:
+            durs[s.name].append(s.duration)
+    out: Dict[str, StageWindow] = {}
+    for n in names:
+        ds = sorted(durs[n])
+        if not ds:
+            out[n] = StageWindow(n, 0, 0.0, 0.0, 0.0, max(until - since, 0.0))
+            continue
+        out[n] = StageWindow(
+            name=n,
+            count=len(ds),
+            mean_s=sum(ds) / len(ds),
+            p50_s=_pctl(ds, 0.5),
+            p95_s=_pctl(ds, 0.95),
+            total_s=max(until - since, 0.0),
+        )
+    return out
 
 
 def union_duration(spans: List[Span]) -> float:

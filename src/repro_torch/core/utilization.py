@@ -7,13 +7,59 @@ a ``.item()`` read, so it covers the step's device work).
 
 * ``util_zero_pct``  — % of windows with zero coverage  (GPU_util=0)
 * ``util_pos_avg``   — mean coverage % over non-zero windows (GPU_util>0)
+
+:func:`recent_busy_fraction` is the same coverage over a trailing window,
+the autotuner's utilization gate; :func:`available_cpu_count` seeds the
+staged pipeline's io/cpu thread split.
 """
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from repro_torch.core.tracing import RUN_TRAINING_BATCH, Span, Tracer, union_duration
+
+
+def _parse_cgroup_quota() -> Optional[int]:
+    """Cores granted by the container's cpu controller, or None when
+    unlimited / not containerized.  Checks cgroup v2 (``cpu.max``:
+    ``"<quota_us> <period_us>"`` or ``"max <period_us>"``) then v1
+    (``cfs_quota_us`` / ``cfs_period_us``, quota -1 = unlimited)."""
+    try:
+        with open("/sys/fs/cgroup/cpu.max", "r") as f:
+            quota_s, period_s = f.read().split()[:2]
+        if quota_s != "max":
+            return max(1, int(int(quota_s) / int(period_s)))
+        return None
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        with open("/sys/fs/cgroup/cpu/cpu.cfs_quota_us", "r") as f:
+            quota = int(f.read())
+        with open("/sys/fs/cgroup/cpu/cpu.cfs_period_us", "r") as f:
+            period = int(f.read())
+        if quota > 0 and period > 0:
+            return max(1, quota // period)
+    except (OSError, ValueError):
+        pass
+    return None
+
+
+def available_cpu_count() -> int:
+    """Cores this process may actually use: the minimum of the cgroup cpu
+    quota and the scheduling affinity mask (``os.cpu_count()`` alone
+    overstates it inside a quota'd container)."""
+    counts = [c for c in (_parse_cgroup_quota(),) if c]
+    proc_count = getattr(os, "process_cpu_count", None)
+    if proc_count is not None:  # Python >= 3.13: affinity-aware
+        counts.append(proc_count() or 1)
+    elif hasattr(os, "sched_getaffinity"):
+        counts.append(len(os.sched_getaffinity(0)) or 1)
+    else:  # pragma: no cover - non-Linux fallback
+        counts.append(os.cpu_count() or 1)
+    return max(1, min(counts))
 
 
 @dataclass
@@ -70,3 +116,27 @@ def sample_utilization(
 
 def accelerator_stats(tracer: Tracer, t0: float, t1: float, hz: float = 10.0) -> UtilStats:
     return sample_utilization(tracer.spans(RUN_TRAINING_BATCH), t0, t1, hz)
+
+
+def recent_busy_fraction(
+    tracer: Tracer, window_s: float = 2.0, now: Optional[float] = None
+) -> Optional[float]:
+    """Busy fraction over the trailing window, the live signal of the
+    autotuner's utilization gate (``AutotuneConfig.util_gate``).
+
+    The window is anchored at the END of the last completed training-step
+    span, not at the wall clock: a now-anchored window read mid-step would
+    count the in-flight step's time as idle.  Returns ``None`` when there is
+    no usable signal (no step span in recent history, or the last one ended
+    too long ago): no signal, no gate."""
+    t_now = time.monotonic() if now is None else now
+    recent = tracer.recent_spans(RUN_TRAINING_BATCH, t_now - 3 * window_s)
+    if not recent:
+        return None
+    anchor = max(s.t1 for s in recent)
+    if t_now - anchor > 2 * window_s:
+        return None  # stale: paused, or an in-flight step we can't see
+    t1, t0 = anchor, anchor - window_s
+    spans = [s for s in recent if s.t1 > t0 and s.t0 < t1]
+    clipped = [Span(s.name, max(s.t0, t0), min(s.t1, t1), s.tid) for s in spans]
+    return min(union_duration(clipped) / max(window_s, 1e-9), 1.0)

@@ -73,7 +73,11 @@ class Worker:
         self.thread.start()
 
     def join(self, timeout: Optional[float] = None) -> None:
-        self.thread.join(timeout)
+        # a shutdown from another thread (the device ring's close) can land
+        # between a lazy start's creation of the worker and its start(); the
+        # worker then finds its stop flag and sentinel when it does start
+        if self.thread.ident is not None:
+            self.thread.join(timeout)
 
     # -- queue helpers with shutdown awareness -------------------------------
     def _put(self, obj: Any) -> bool:

@@ -6,6 +6,8 @@
         --items 16 --batch-size 4 --seq-len 64 --steps 4 --microbatches 2
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --device-ingest \
         --items 32 --batch-size 8 --steps 6 --optimizer sgd --pipeline --staging-buffers 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --device-ingest \
+        --items 256 --batch-size 8 --steps 64 --optimizer sgd --pipeline --autotune
 
 Wires the stack together: a synthetic dataset in an object store behind
 simulated S3 -> dataset -> ``make_loader`` (the paper's loader, or with
@@ -14,6 +16,9 @@ with ``--staging-buffers N``) -> device prefetch ring (H2D, then the
 ``ingest_norm`` kernel with ``--device-ingest``) -> train step -> Trainer,
 and prints the paper's Table-3 columns (throughput + accelerator busy
 stats) and, with ``--pipeline``, the per-stage stats at the end.
+``--autotune`` moves the loader's knobs online between batches (and
+``--thread-budget N`` co-tunes the pipeline's io/cpu split under N threads);
+``--hedge`` duplicates straggling GETs.
 ``--arch resnet18-imagenet`` (default) trains the paper's own model on
 synthetic ImageNet; ``--arch granite-8b`` the dense decoder on packed token
 sequences of ``--seq-len`` tokens streamed through the same loader.
@@ -30,6 +35,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.config import (
+    AutotuneConfig,
     LoaderConfig,
     ModelConfig,
     PipelineConfig,
@@ -67,20 +73,29 @@ class RunReport:
     # the loader's stage_stats() at the end of each epoch (empty for the
     # legacy loader): each epoch's pipeline iterator has its own staging pool
     stages: List[Dict[str, Any]] = field(default_factory=list)
+    # the loader itself: with --autotune, loader.autotuner.events is the
+    # controller's audit trail
+    loader: Any = None
+    # the knob values the autotuner had set at the end of each epoch
+    # (loader._tuned; empty dicts without --autotune)
+    tuned: List[Dict[str, int]] = field(default_factory=list)
 
 
 class EpochStages(Callback):
-    """Keeps ``loader.stage_stats()`` at the end of every epoch (the ring
-    has shut the epoch's iterator down by then, so the snapshot is final)."""
+    """Keeps ``loader.stage_stats()`` and the autotuned knob values at the
+    end of every epoch (the ring has shut the epoch's iterator down by then,
+    so the snapshot is final)."""
 
     def __init__(self, loader) -> None:
         self.loader = loader
         self.stats: List[Dict[str, Any]] = []
+        self.tuned: List[Dict[str, int]] = []
 
     def on_epoch_end(self, trainer, epoch: int) -> None:
         stats = self.loader.stage_stats()
         if stats is not None:
             self.stats.append(stats)
+        self.tuned.append(dict(self.loader._tuned))
 
 
 def build_dataset(cfg: ModelConfig, args, tracer: Tracer) -> MapDataset:
@@ -119,6 +134,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     default="threaded")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--fetchers", type=int, default=16)
+    ap.add_argument("--hedge", action="store_true",
+                    help="hedged requests (straggler mitigation)")
     ap.add_argument("--pipeline", action="store_true",
                     help="staged streaming pipeline (fetch/decode/augment on "
                          "dedicated IO+CPU executors)")
@@ -141,6 +158,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="resnet only: host stages stop at raw uint8 HWC and the "
                          "ingest_norm kernel runs cast+normalize on the device after "
                          "H2D (4x fewer host-side bytes per image)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="online knob control (closed-loop io/cpu/queue/"
+                         "outstanding tuning)")
+    ap.add_argument("--thread-budget", type=int, default=0,
+                    help="co-tune the pipeline io/cpu split (and executor "
+                         "kind) as ONE knob under this fixed total width; "
+                         "implies --autotune (0 = independent knobs)")
     ap.add_argument("--optimizer", choices=["adamw", "adafactor", "sgd"], default="adamw")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
@@ -164,6 +188,11 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
         LoaderConfig(
             impl=args.loader, batch_size=args.batch_size, num_workers=args.workers,
             num_fetch_workers=args.fetchers, seed=args.seed,
+            hedge_requests=args.hedge,
+            autotune=AutotuneConfig(
+                enabled=args.autotune or args.thread_budget > 0,
+                thread_budget=args.thread_budget,
+            ),
             pipeline=PipelineConfig(
                 enabled=args.pipeline, reorder=args.reorder,
                 reorder_window=args.reorder_window, io_workers=args.io_workers,
@@ -221,8 +250,12 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
     )
     if stages.stats:
         print(f"pipeline stages: {stages.stats[-1]}", flush=True)
+    if loader.autotuner is not None:
+        print(f"autotune: {len(loader.autotuner.events)} events, "
+              f"knobs {stages.tuned[-1] if stages.tuned else {}}", flush=True)
     return RunReport(cfg, result, util, tracer, trainer.state, items_per_s,
-                     len(h2d), sum(s.duration for s in h2d), stages.stats)
+                     len(h2d), sum(s.duration for s in h2d), stages.stats,
+                     loader, stages.tuned)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

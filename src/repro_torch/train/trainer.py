@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.prefetch import DevicePrefetchRing
 from repro_torch.core.tracing import NULL_TRACER, RUN_TRAINING_BATCH, Tracer
+from repro_torch.core.utilization import recent_busy_fraction
 from repro_torch.device import resolve_device
 
 
@@ -66,11 +67,26 @@ def _read_metrics(m: Dict[str, Any]) -> Dict[str, float]:
 
 
 def _make_ring(loader, depth: int, tracer: Tracer, ingest_fn, device) -> DevicePrefetchRing:
-    """The per-epoch device prefetch ring over ``iter(loader)``.  The ring is
-    the staged pipeline's final stage: a loader that can (``note_device_ring``)
-    remembers it, which folds its depth into ``loader.stage_stats()``."""
-    ring = DevicePrefetchRing(iter(loader), depth=depth, tracer=tracer,
-                              ingest_fn=ingest_fn, device=device)
+    """The per-epoch device prefetch ring over ``iter(loader)``.  When the
+    loader carries an autotuner, the ring's depth becomes a live knob (with
+    headroom up to the configured bound), and a real tracer's busy fraction
+    becomes its utilization signal, so the controller stops buying loader
+    throughput the step can't eat (``AutotuneConfig.util_gate``).  The ring
+    is the staged pipeline's final stage: a loader that can
+    (``note_device_ring``) remembers it, which folds its depth into
+    ``loader.stage_stats()``."""
+    auto = getattr(loader, "autotuner", None)
+    max_depth = depth
+    if auto is not None:
+        max_depth = max(depth, auto.cfg.max_device_prefetch)
+    ring = DevicePrefetchRing(iter(loader), depth=depth, max_depth=max_depth,
+                              tracer=tracer, ingest_fn=ingest_fn, device=device)
+    if auto is not None:
+        # iter(loader) above re-bound the loader knobs; the ring knob rides
+        # along for this epoch and is dropped at the next re-bind
+        auto.attach_ring(ring)
+        if tracer is not NULL_TRACER and auto.util_fn is None:
+            auto.util_fn = lambda: recent_busy_fraction(tracer)
     note = getattr(loader, "note_device_ring", None)
     if callable(note):
         note(ring)

@@ -2,6 +2,8 @@
 the CPU at smoke size, ResNet-18 and the granite-8b LM, each against the JAX
 trainer on the same synthetic store, loader settings, seed and initial
 weights."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -124,8 +126,6 @@ def test_pipeline_flags_take_the_reference_defaults():
 
 @pytest.mark.parametrize("flags", [
     ["--pipeline", "--transport", "shm"],
-    ["--autotune"],
-    ["--thread-budget", "4"],
     ["--delivery", "sharded"],
     ["--delivery-axis=data"],
 ])
@@ -134,6 +134,91 @@ def test_unported_launcher_flags_are_unknown(flags):
     to raise: argparse refuses them as unknown arguments."""
     with pytest.raises(SystemExit):
         launch.parse_args(ARGS + flags)
+
+
+class _Built(Exception):
+    """Carries the LoaderConfig a launcher handed to make_loader."""
+
+    def __init__(self, cfg):
+        super().__init__("loader config built")
+        self.cfg = cfg
+
+
+def _loader_config(monkeypatch, module, call):
+    def capture(cfg, dataset, **kw):
+        raise _Built(cfg)
+
+    monkeypatch.setattr(module, "make_loader", capture)
+    with pytest.raises(_Built) as built:
+        call()
+    return built.value.cfg
+
+
+@pytest.mark.parametrize("flags", [["--hedge"], ["--autotune"], ["--thread-budget", "4"]])
+def test_launcher_flags_build_the_reference_loader_config(monkeypatch, flags):
+    """``--hedge``, ``--autotune`` and ``--thread-budget N`` reach the loader
+    as the reference's launcher passes them: ``hedge_requests``, and an
+    ``AutotuneConfig`` enabled by either autotune flag, with the budget."""
+    import sys
+
+    from repro.launch import train as jax_launch
+
+    argv = ["--arch", "resnet18-imagenet", "--items", "8", "--batch-size", "4",
+            "--store", "memory", "--pipeline", "--workers", "2", "--fetchers", "2"] + flags
+    port = _loader_config(monkeypatch, launch,
+                          lambda: launch.run(argv + ["--device", "cpu"]))
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    ref = _loader_config(monkeypatch, jax_launch, jax_launch.main)
+    fields = ("impl", "batch_size", "num_workers", "num_fetch_workers", "seed",
+              "hedge_requests", "hedge_factor", "hedge_min_s")
+    assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}
+    ported = [f.name for f in dataclasses.fields(port.autotune)]
+    assert {f: getattr(port.autotune, f) for f in ported} == {
+        f: getattr(ref.autotune, f) for f in ported}
+    assert port.pipeline.enabled and ref.pipeline.enabled
+    assert port.hedge_requests is (flags[0] == "--hedge")
+    assert port.autotune.enabled is (flags[0] != "--hedge")
+    assert port.autotune.thread_budget == (4 if flags[0] == "--thread-budget" else 0)
+    assert launch.parse_args(argv).hedge is (flags[0] == "--hedge")
+
+
+def test_hedged_run_gives_the_unhedged_loss_stream():
+    """``--hedge`` (duplicate straggling GETs, first response wins) feeds the
+    same batches in the same order, so the loss stream is the same."""
+    register_arch(ARCH, resnet18_imagenet.full,
+                  lambda: replace(resnet18_imagenet.smoke(), num_classes=1000))
+    plain = launch.run(ARGS)
+    hedged = launch.run(ARGS + ["--hedge"])
+    assert hedged.loader.hedge is not None and plain.loader.hedge is None
+    for k in ("loss", "accuracy", "grad_norm"):
+        np.testing.assert_array_equal([h[k] for h in hedged.result.history],
+                                      [h[k] for h in plain.result.history], err_msg=k)
+    assert all(np.isfinite(h["loss"]) for h in hedged.result.history)
+
+
+def test_autotuned_pipeline_run_gives_the_fixed_loss_stream():
+    """``--pipeline --autotune`` moves the pipeline's knobs between batches
+    (strict reorder), and ``--thread-budget`` its io/cpu split: the loss
+    stream is the fixed-knob pipeline's."""
+    register_arch(ARCH, resnet18_imagenet.full,
+                  lambda: replace(resnet18_imagenet.smoke(), num_classes=1000))
+    pipe_args = ARGS + ["--pipeline", "--staging-buffers", "2", "--cpu-workers", "2"]
+    fixed = launch.run(pipe_args)
+    assert fixed.loader.autotuner is None and fixed.tuned == [{}, {}]
+    for flags in (["--autotune"], ["--thread-budget", "6"]):
+        tuned = launch.run(pipe_args + flags)
+        for k in ("loss", "accuracy", "grad_norm"):
+            np.testing.assert_array_equal([h[k] for h in tuned.result.history],
+                                          [h[k] for h in fixed.result.history], err_msg=k)
+        auto = tuned.loader.autotuner
+        assert auto is not None and len(tuned.tuned) == 2
+        knobs = {k.name for k in auto.knobs}
+        assert "device_prefetch" in knobs and auto.util_fn is not None
+        if flags[0] == "--thread-budget":
+            assert "io_cpu_split" in knobs
+            assert all(st["io_workers"] + st["cpu_workers"] == 6 for st in tuned.stages)
+        else:
+            assert {"io_workers", "cpu_workers"} <= knobs
 
 
 LM_ARCH = "granite-8b-f32"

@@ -63,7 +63,8 @@ print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
 
 @pytest.mark.parametrize("module", ["repro_torch.models.rwkv6",
                                     "repro_torch.kernels.rwkv6_wkv.ops",
-                                    "repro_torch.kernels.rmsnorm.ops"])
+                                    "repro_torch.kernels.rmsnorm.ops",
+                                    "repro_torch.core.autotune"])
 def test_slice_module_imports_alone_without_jax_or_repro(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, str(ROOT / "src"), module],
@@ -82,6 +83,7 @@ print("torch" in sys.modules)
 
 @pytest.mark.parametrize("module", ["repro_torch.core.pipeline", "repro_torch.core.staging",
                                     "repro_torch.core.loader", "repro_torch.core.factory",
+                                    "repro_torch.core.autotune",
                                     "repro_torch.data.dataset",
                                     "repro_torch.data.imagenet_synth"])
 def test_loader_module_imports_without_torch(module):
