@@ -68,10 +68,25 @@ Phases, each printing one JSON line:
    walked through the trained blocks, each layer's time-mix run through
    the WKV kernel (``wkv_impl``) beside the plain chunked scan; the kernel
    gated on the real r, k, v, w, and RMSNorm on a real residual.
+11. main_serve — the serving path: granite-8b whole (36 layers, full
+   width) through ``launch/serve.py`` at the reference launcher's defaults
+   (32 requests of 2-16 prompt tokens, 8 slots, max_len 256, 32 new
+   tokens each): (a) tokens/s, TTFT and total latency, ticks, decode and
+   prefill ms behind synchronizes, peak memory of the init and of serving,
+   gated on the reference's token accounting and tick bound; (b) 4
+   requests' pooled tokens held to the batch-1 decode on the same weights
+   (each within SERVE_TIE_TOL of the batch-1 maximum); (c) 2 requests' last
+   decode step against a cacheless forward; (d) the engine with
+   ``attention_impl="pallas"``: no flash launch; (e) one 16384-token prompt
+   prefilled in 2 chunks against one pass; (f) the granite and RWKV smoke
+   models served on the card against the CPU, fp32; (g) rwkv6-7b at full
+   width, 4 layers, 8 requests over 4 slots, held as in (b).  No kernel
+   runs on this path (the reference takes no Pallas route with a cache).
 
 Launch counts are set to 0 just before each main path and read just after
 (for main_pipeline and main_autotune, around each launcher run; for main_rwkv, before and
-after its eval walk; rmsnorm, which no model
+after its eval walk; for main_serve, around its launcher run, and flash's
+again around (d); rmsnorm, which no model
 calls, counts its own phase's checked calls).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
@@ -184,6 +199,22 @@ WKV_CHUNK = 32  # the chunk of the plain scan, for the underflow readings
 # RMSNorm at the LM phases' residual stream: (B*S, d_model)
 RMS_SHAPE = (LM_BS * LM_SEQ, 4096)
 ROW_REL_BF16 = 5e-3  # a bf16 output row's error relative to its norm, as flash's gate
+
+# The serving path: granite-8b whole (36 layers, full width) through
+# launch/serve.py at the reference launcher's defaults (32 requests of
+# 2-16 prompt tokens and 32 new ones, 8 slots, max_len 256).  Tolerances on
+# bf16 logits (random weights put them within about +-5; bf16's spacing
+# there is 1/32): a greedy token is a tie where its logit is within
+# SERVE_TIE_TOL of the largest; a decode step against a cacheless forward,
+# and chunked against single-pass prefill, within SERVE_LOGIT_TOL over the
+# whole vocabulary; card against CPU in fp32 with TF32 off within 1e-4.
+SERVE_ARGS = ["--arch", "granite-8b", "--full", "--device", "cuda"]
+SERVE_TIE_TOL, SERVE_LOGIT_TOL, SERVE_DEVICE_TOL = 0.125, 0.25, 1e-4
+SERVE_CHECKED, SERVE_CACHELESS, SERVE_PALLAS_REQUESTS = 4, 2, 4
+SERVE_PROFILED = 4  # decode ticks and prefills under torch.profiler after the run
+SERVE_LONG, SERVE_LONG_NEW = 16_384, 4  # one prompt of 2 x PREFILL_CHUNK tokens
+# RWKV serving: rwkv6-7b at full width, main_rwkv's 4 layers, 8 requests over 4 slots
+RWKV_SERVE_REQUESTS, RWKV_SERVE_SLOTS = 8, 4
 
 
 def fail(msg: str) -> None:
@@ -1597,7 +1628,7 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
                 kern, _ = apply_rwkv_timemix(p["tm"], h, cfg, wkv_impl=wkv_recorded)
                 diff = (kern.float() - plain.float()).norm(dim=-1)
                 row_errs.append((diff / plain.float().norm(dim=-1).clamp_min(1e-30)).max().item())
-                x = _apply_sublayer(p, x, cfg, kinds[li], positions=positions)
+                x, _ = _apply_sublayer(p, x, cfg, kinds[li], positions=positions)
     walk_launches = wkv_ops.wkv.launches
     ingest_launches, flash_launches = ingest_ops.ingest_norm.launches, \
         flash_ops.flash_attention.launches
@@ -1671,6 +1702,319 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
     return out
 
 
+class SyncTimer:
+    """Wraps functions of ``module`` with host timers behind
+    ``torch.cuda.synchronize()`` on both sides, so a call's time is the
+    device finishing its work; ``restore`` puts them back."""
+
+    def __init__(self, torch, module, names) -> None:
+        self.torch, self.module = torch, module
+        self.real = {name: getattr(module, name) for name in names}
+        self.times = {name: [] for name in names}
+        for name, fn in self.real.items():
+            setattr(module, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.times[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def restore(self) -> None:
+        for name, fn in self.real.items():
+            setattr(self.module, name, fn)
+
+
+def order_stat(xs, q: float) -> float:
+    """The reference launcher's percentile: sorted(xs)[int(q * n)]."""
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+
+def forced_logits(torch, transformer, cfg, params, prompt, tokens, max_len, device="cuda"):
+    """Sequential batch-1 decode fed ``tokens`` (teacher forcing; the twin
+    of ``tests/test_serve.py``'s reference_greedy): each step's logits in
+    fp32, (len(tokens), V)."""
+    logits, cache = transformer.prefill(
+        params, {"tokens": torch.tensor([list(prompt)], device=device)}, cfg,
+        transformer.init_cache(cfg, 1, max_len, device))
+    steps = [logits[0].float()]
+    for i, tok in enumerate(tokens[:-1]):
+        logits, cache = transformer.decode_step(
+            params, cache, torch.tensor([[tok]], device=device), len(prompt) + i, cfg)
+        steps.append(logits[0].float())
+    return torch.stack(steps)
+
+
+def held_to_batch1(torch, transformer, cfg, params, requests, max_len, tol) -> dict:
+    """Pooled against sequential: each request's engine tokens fed to the
+    batch-1 decode; at every step the engine's token must have a logit
+    within ``tol`` of the batch-1 maximum.  Counts exact matches and ties
+    (within ``tol``, not the argmax); keeps each request's last step."""
+    out = {"requests": len(requests), "steps": 0, "exact": 0, "ties": 0, "max_gap": 0.0,
+           "tolerance": tol, "last_steps": []}
+    for req in requests:
+        steps = forced_logits(torch, transformer, cfg, params, req.prompt.tolist(),
+                              req.output, max_len)
+        toks = torch.tensor(req.output, device=steps.device)
+        gaps = steps.max(-1).values - steps.gather(1, toks[:, None])[:, 0]
+        exact = int((steps.argmax(-1) == toks).sum().item())
+        out["steps"] += len(req.output)
+        out["exact"] += exact
+        out["ties"] += len(req.output) - exact
+        out["max_gap"] = max(out["max_gap"], gaps.max().item())
+        out["last_steps"].append(steps[-1])
+    out["ok"] = out["max_gap"] <= tol
+    return out
+
+
+def phase_main_serve(torch, counted, smi: str) -> dict:
+    """The serving path, granite-8b whole on the card: (a) the launcher at
+    the reference's defaults; (b) pooled against sequential decode; (c) a
+    decode step against a cacheless forward; (d) no flash launch with a
+    cache; (e) chunked prefill of 16384 tokens against a single pass; (f)
+    card against CPU at smoke size; (g) RWKV served at full width."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import ServeSpec, get_arch, register_arch, replace
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.convert import lm_params_from_jax, to_jax
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tools.profile_lm_step import busy_ms, profiled
+    from repro_torch.tree import leaves
+
+    flash = counted["flash_attention"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    # (a) the path, with the init's peak read apart from serving's
+    init = {}
+    real_init = transformer.init_lm
+
+    def init_lm(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = real_init(*args, **kwargs)
+        torch.cuda.synchronize()
+        init.update(s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
+                    param_bytes=sum(t.numel() * t.element_size() for t in leaves(params)))
+        torch.cuda.reset_peak_memory_stats()
+        return params
+
+    transformer.init_lm = init_lm
+    timer = SyncTimer(torch, transformer, ("prefill", "decode_step"))
+    for fn in counted.values():
+        fn.launches = 0
+    try:
+        report = serve.run(SERVE_ARGS)
+    finally:
+        timer.restore()
+        transformer.init_lm = real_init
+    launches = {name: fn.launches for name, fn in counted.items()}
+    serve_peak = torch.cuda.max_memory_allocated()
+    args = serve.parse_args(SERVE_ARGS)
+    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
+    params = eng.params
+    ttfts = [r.t_first_token - r.t_submit for r in done]
+    totals = [r.t_done - r.t_submit for r in done]
+    tick_bound = args.requests * (args.max_new - 1) / args.slots + args.max_new
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(eng.cache))
+    path = {
+        "arch": cfg.name, "args": SERVE_ARGS, "num_layers": cfg.num_layers,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+        "params": sum(t.numel() for t in leaves(params)), "requests": len(done),
+        "slots": args.slots, "max_len": args.max_len, "max_new": args.max_new,
+        "prompt_lens": [len(r.prompt) for r in done], "wall_s": report.wall_s,
+        "tokens_generated": eng.tokens_generated, "tokens_per_s": report.tokens_per_s,
+        "ttft_p50_s": order_stat(ttfts, 0.5), "ttft_p95_s": order_stat(ttfts, 0.95),
+        "total_p50_s": order_stat(totals, 0.5), "total_p95_s": order_stat(totals, 0.95),
+        "ticks": eng.ticks, "ticks_bound": tick_bound,
+        "decode_calls": len(timer.times["decode_step"]),
+        "decode_ms_median": 1e3 * statistics.median(timer.times["decode_step"]),
+        "decode_ms_min": 1e3 * min(timer.times["decode_step"]),
+        "prefill_calls": len(timer.times["prefill"]),
+        "prefill_ms_median": 1e3 * statistics.median(timer.times["prefill"]),
+        "init_s": init["s"], "init_peak_bytes": init["peak"],
+        "param_bytes": init["param_bytes"], "cache_bytes": cache_bytes,
+        "max_memory_allocated_bytes": serve_peak, "launches": launches, "nvidia_smi": smi,
+    }
+    emit({"phase": "main_serve", "check": "a_path", **path})
+    want = args.requests * (args.max_new - 1)
+    if len(done) != args.requests or any(len(r.output) != args.max_new for r in done):
+        fail(f"serving returned {[len(r.output) for r in done]} tokens for "
+             f"{args.requests} requests of {args.max_new}")
+    if eng.tokens_generated != want or eng.ticks > tick_bound:
+        fail(f"serving accounted {eng.tokens_generated} tokens (want {want}) in "
+             f"{eng.ticks} ticks (at most {tick_bound})")
+    if any(launches.values()):
+        fail(f"a kernel launched on the serving path: {launches}")
+    # where a tick's time goes: torch.profiler over pooled decode ticks and
+    # batch-1 prefills after the run, each call's device busy time (the
+    # union of its kernels) against its wall time
+    toks = torch.tensor(eng.last_token[:, None], device="cuda")
+    one = {"tokens": torch.tensor(done[0].prompt[None], device="cuda")}
+    where = {}
+    for name, fn in (
+            ("decode", lambda: transformer.decode_step(params, eng.cache, toks, eng.positions,
+                                                       cfg)),
+            ("prefill", lambda: transformer.prefill(
+                params, one, cfg, transformer.init_cache(cfg, 1, args.max_len, "cuda")))):
+        prof = profiled(torch, fn, SERVE_PROFILED)
+        busy = busy_ms(prof["intervals"]) / SERVE_PROFILED
+        where[name] = {"calls": SERVE_PROFILED, "wall_ms": prof["wall_ms"],
+                       "device_busy_ms": busy, "idle_share": 1 - busy / prof["wall_ms"],
+                       "kernels_per_call": len(prof["intervals"]) / SERVE_PROFILED,
+                       "device_ms_by_category": dict(sorted(
+                           prof["by_cat"].items(), key=lambda kv: -kv[1]))}
+    emit({"phase": "main_serve", "check": "a_profile", "prompt_len": len(done[0].prompt),
+          **where})
+
+    # (b) pooled equals sequential, and (c) cache equals no cache
+    checked = done[:: len(done) // SERVE_CHECKED][:SERVE_CHECKED]
+    pooled = held_to_batch1(torch, transformer, cfg, params, checked, args.max_len,
+                            SERVE_TIE_TOL)
+    cacheless = []
+    for req, last in zip(checked[:SERVE_CACHELESS], pooled.pop("last_steps")):
+        seq = req.prompt.tolist() + req.output[:-1]
+        logits, _ = transformer.prefill(
+            params, {"tokens": torch.tensor([seq], device="cuda")}, cfg,
+            transformer.init_cache(cfg, 1, len(seq), "cuda"))
+        cacheless.append((logits[0].float() - last).abs().max().item())
+    emit({"phase": "main_serve", "check": "b_pooled_vs_sequential", "uids":
+          [r.uid for r in checked], **pooled})
+    emit({"phase": "main_serve", "check": "c_cache_vs_cacheless", "max_abs_diff": cacheless,
+          "tolerance": SERVE_LOGIT_TOL})
+    if not pooled["ok"]:
+        fail(f"pooled decode left the batch-1 maximum by {pooled['max_gap']}")
+    if not max(cacheless) <= SERVE_LOGIT_TOL:
+        fail(f"last decode step against a cacheless forward: {cacheless}")
+
+    # (d) no kernel with a cache, attention_impl="pallas"
+    flash.launches = 0
+    pallas = ServeEngine(dataclasses.replace(cfg, attention_impl="pallas"), params,
+                         spec=ServeSpec(num_slots=args.slots, max_len=args.max_len),
+                         device="cuda")
+    for req in done[:SERVE_PALLAS_REQUESTS]:
+        pallas.submit(req.prompt, max_new_tokens=args.max_new)
+    pdone = sorted(pallas.run_until_drained(), key=lambda r: r.uid)
+    same = sum(a.output == b.output for a, b in zip(pdone, done))
+    emit({"phase": "main_serve", "check": "d_pallas_with_cache", "requests": len(pdone),
+          "flash_attention_launches": flash.launches, "outputs_equal_to_a": same})
+    if flash.launches or any(len(r.output) != args.max_new for r in pdone):
+        fail(f"attention_impl='pallas' with a cache: {flash.launches} flash launches")
+    del pallas
+
+    # (e) chunked prefill at full width: 2 chunks of PREFILL_CHUNK against one pass
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (1, SERVE_LONG)).astype(np.int32)).to("cuda")
+    chunk = transformer.PREFILL_CHUNK
+    long_runs = {}
+    for label, value in (("chunked", chunk), ("single_pass", 2 * SERVE_LONG)):
+        transformer.PREFILL_CHUNK = value
+        try:
+            cache = transformer.init_cache(cfg, 1, SERVE_LONG + SERVE_LONG_NEW, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, cache = transformer.prefill(params, {"tokens": prompt}, cfg, cache)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            last, toks = logits[0].float(), [int(logits[0].argmax())]
+            for i in range(SERVE_LONG_NEW - 1):
+                logits, cache = transformer.decode_step(
+                    params, cache, torch.tensor([[toks[-1]]], device="cuda"), SERVE_LONG + i,
+                    cfg)
+                toks.append(int(logits[0].argmax()))
+        finally:
+            transformer.PREFILL_CHUNK = chunk
+        long_runs[label] = {"prefill_ms": ms, "max_memory_allocated_bytes": peak,
+                            "tokens": toks, "last": last}
+        del cache, logits
+        torch.cuda.empty_cache()
+    diff = (long_runs["chunked"].pop("last") - long_runs["single_pass"].pop("last")).abs().max()
+    emit({"phase": "main_serve", "check": "e_chunked_prefill", "prompt_len": SERVE_LONG,
+          "prefill_chunk": chunk, **long_runs, "max_abs_diff": diff.item(),
+          "tolerance": SERVE_LOGIT_TOL})
+    if not diff.item() <= SERVE_LOGIT_TOL or \
+            long_runs["chunked"]["tokens"] != long_runs["single_pass"]["tokens"]:
+        fail(f"chunked prefill against a single pass: {diff.item()}, {long_runs}")
+    del params, report, eng, done, checked, prompt
+    torch.cuda.empty_cache()
+
+    # (f) card against CPU at smoke size, fp32, TF32 off
+    smoke = []
+    for arch in ("granite-8b", "rwkv6-7b"):
+        scfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
+        np_params = to_jax(transformer.init_lm(scfg, torch.Generator().manual_seed(2), "cpu"))
+        prompts = np.random.default_rng(3).integers(1, scfg.vocab_size, (2, 12)).astype(np.int32)
+        logits, tokens, fed = {}, {}, []
+        for dev in ("cpu", "cuda"):  # the card is fed the CPU's greedy tokens
+            sp = lm_params_from_jax(np_params, dev, requires_grad=False)
+            out, cache = transformer.prefill(sp, {"tokens": torch.from_numpy(prompts).to(dev)},
+                                             scfg, transformer.init_cache(scfg, 2, 20, dev))
+            steps = [out.cpu()]
+            for i in range(4):
+                if dev == "cpu":
+                    fed.append(steps[-1].argmax(-1))
+                out, cache = transformer.decode_step(sp, cache, fed[i][:, None].to(dev),
+                                                     np.array([12 + i, 12 + i]), scfg)
+                steps.append(out.cpu())
+            logits[dev] = torch.stack(steps)
+            eng_d = ServeEngine(scfg, sp, spec=ServeSpec(num_slots=2, max_len=32), device=dev)
+            for p in prompts.tolist() + [[5, 7], [9, 9, 9]]:
+                eng_d.submit(p, max_new_tokens=6)
+            tokens[dev] = [r.output for r in sorted(eng_d.run_until_drained(),
+                                                    key=lambda r: r.uid)]
+        smoke.append({"arch": scfg.name,
+                      "max_abs_diff": (logits["cpu"] - logits["cuda"]).abs().max().item(),
+                      "tokens_equal": tokens["cpu"] == tokens["cuda"]})
+    emit({"phase": "main_serve", "check": "f_card_vs_cpu", "dtype": "float32",
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "tolerance":
+          SERVE_DEVICE_TOL, "prefill_then_decode_steps": 4, "cases": smoke})
+    if not all(c["max_abs_diff"] <= SERVE_DEVICE_TOL and c["tokens_equal"] for c in smoke):
+        fail(f"serving on the card against the CPU: {smoke}")
+
+    # (g) RWKV: rwkv6-7b at full width, depth 4, 8 requests over 4 slots
+    register_arch(RWKV_ARCH, lambda: replace(rwkv6_7b.full(), num_layers=RWKV_LAYERS),
+                  rwkv6_7b.smoke)
+    rcfg = get_arch(RWKV_ARCH)
+    rparams = transformer.init_lm(rcfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    reng = ServeEngine(rcfg, rparams, spec=ServeSpec(num_slots=RWKV_SERVE_SLOTS,
+                                                     max_len=args.max_len), device="cuda")
+    rng = np.random.default_rng(0)
+    for _ in range(RWKV_SERVE_REQUESTS):
+        reng.submit(rng.integers(1, rcfg.vocab_size, size=int(rng.integers(2, 17))),
+                    max_new_tokens=args.max_new)
+    t0 = time.perf_counter()
+    rdone = sorted(reng.run_until_drained(), key=lambda r: r.uid)
+    rwall = time.perf_counter() - t0
+    rpooled = held_to_batch1(torch, transformer, rcfg, rparams, rdone, args.max_len,
+                             SERVE_TIE_TOL)
+    rpooled.pop("last_steps")
+    rwant = RWKV_SERVE_REQUESTS * (args.max_new - 1)
+    emit({"phase": "main_serve", "check": "g_rwkv", "arch": rcfg.name,
+          "num_layers": rcfg.num_layers, "reduced": {"num_layers": "32 -> 4, as main_rwkv"},
+          "requests": len(rdone), "slots": RWKV_SERVE_SLOTS, "ticks": reng.ticks,
+          "tokens_generated": reng.tokens_generated, "wall_s": rwall,
+          "tokens_per_s": reng.tokens_generated / rwall, **rpooled})
+    if len(rdone) != RWKV_SERVE_REQUESTS or any(len(r.output) != args.max_new for r in rdone) \
+            or reng.tokens_generated != rwant or not rpooled["ok"]:
+        fail(f"RWKV serving: {len(rdone)} requests, {reng.tokens_generated} tokens "
+             f"(want {rwant}), max gap {rpooled['max_gap']}")
+    del rparams, reng
+    torch.cuda.empty_cache()
+    return {**path, "pooled": pooled, "cacheless": cacheless, "rwkv": rpooled}
+
+
 def build_all(builders) -> dict:
     """Build every kernel library at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1737,6 +2081,10 @@ def main() -> int:
     auto_out = phase_main_autotune(torch, ops, main_out, pipe_out["figures"]["pipeline"], smi)
     lm_out = phase_main_lm(torch, flash_ops, ops)
     rwkv_out = phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ops, flash_ops)
+    serve_out = phase_main_serve(torch, {"ingest_norm": ops.ingest_norm,
+                                         "flash_attention": flash_ops.flash_attention,
+                                         "rwkv6_wkv": wkv_ops.wkv, "rmsnorm": rms_ops.rmsnorm},
+                                 smi)
 
     emit({"kernels": [{
         "name": "ingest_norm",
@@ -1747,6 +2095,7 @@ def main() -> int:
         "launches_pipeline": pipe_out["ingest_norm_launches"],
         "launches_autotune": auto_out["launches"]["autotune"],
         "launches_thread_budget": auto_out["launches"]["thread_budget"],
+        "launches_serve": serve_out["launches"]["ingest_norm"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"],
         "kernel_ms": kern["kernel_ms"],
@@ -1761,6 +2110,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
         "launches": lm_out["flash_attention_launches"],
+        "launches_serve": serve_out["launches"]["flash_attention"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["kernel_ms"],
         "kernel_ms": flash["kernel_ms"],
@@ -1776,6 +2126,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:78",
         "launches": rwkv_out["wkv_launches"],
+        "launches_serve": serve_out["launches"]["rwkv6_wkv"],
         "max_abs_err": wkv["max_abs_err"],
         "ms": wkv["kernel_ms"],
         "kernel_ms": wkv["kernel_ms"],
@@ -1789,6 +2140,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
         "launches": rms["launches"],
+        "launches_serve": serve_out["launches"]["rmsnorm"],
         "max_abs_err": rms["max_abs_err"],
         "ms": rms["kernel_ms"],
         "kernel_ms": rms["kernel_ms"],

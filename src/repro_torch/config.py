@@ -11,8 +11,10 @@ flat-kwarg shim (``pipeline=True, reorder=...`` folded into
 fields until the shared-memory transport is ported, and
 :class:`AutotuneConfig` no field of a feature the port lacks (the
 multi-host lease and shedding, cache knobs, slab knob, lane-skew gate,
-serving bounds).  MoE, SSM, MLA, enc-dec and VLM fields come with their
-slices.  ``replace()`` (from dataclasses) derives variants.
+serving bounds).  :class:`ServeSpec` sizes the serving engine only; the
+reference's read-path fields come with its read path.  MoE, SSM, MLA,
+enc-dec and VLM fields come with their slices.  ``replace()`` (from
+dataclasses) derives variants.
 """
 from __future__ import annotations
 
@@ -290,6 +292,16 @@ def _loader_config_shim_init(self, *args: Any, **kwargs: Any) -> None:
 
 
 LoaderConfig.__init__ = _loader_config_shim_init  # type: ignore[method-assign]
+
+
+@dataclass(frozen=True)
+class ServeSpec:
+    """Sizing of the continuous-batching engine (:mod:`repro_torch.serve`):
+    ``num_slots`` requests decode together over a pooled KV cache of
+    ``max_len`` positions a slot."""
+
+    num_slots: int = 4
+    max_len: int = 512
 
 
 @dataclass(frozen=True)

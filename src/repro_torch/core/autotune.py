@@ -33,9 +33,11 @@ and a heartbeat re-probes every ``reprobe_windows`` quiescent windows.
 A trimmed copy of the reference's controller: its multi-host up-probe
 lease, fleet-wide shedding and lane-skew gate are not ported (ROADMAP §1
 items 5.2 and 7), nor are the serving read path's latency objective
-(``on_request``), ``build_serve_knobs`` and ``build_cache_knobs`` (items 2
-and 5.1).  With those features off the reference gives the same events as
-this controller.  The module imports no ``torch``: the staged
+(``on_request``), ``build_serve_knobs`` and ``build_cache_knobs`` (items
+5.7 and 5.1).  With those features off the reference gives the same events
+as this controller, except where an additive knob (the thread budget's
+split) sits at its upper wall: the reference never probes it down from
+there (ROADMAP §3).  The module imports no ``torch``: the staged
 pipeline imports it, and ``spawn`` re-imports the pipeline in every CPU
 worker process.
 """
@@ -462,8 +464,11 @@ class AutotuneController:
         then round-robin) until one can move.
 
         A knob pinned at its LOWER wall with a downward direction flips back
-        up; a knob at its UPPER wall is skipped (flipping there would
-        momentum-probe a 4x drop right after reaching the top).  While the
+        up; a multiplicative knob at its UPPER wall is skipped (flipping there
+        would momentum-probe a 4x drop right after reaching the top), while an
+        additive one steps down by its schedule's step: skipped, a wall that
+        an up-probe reached and held (or that was accepted on a window still
+        draining the old setting's work) would never be left.  While the
         utilization gate is active, upward moves and binary trials are
         skipped (they would buy throughput nobody eats); downward moves
         still run.  Reorder-window up-moves are skipped below the shuffle
@@ -487,6 +492,10 @@ class AutotuneController:
             if nxt is None and not k.is_binary and self._dir[k.name] < 0:
                 # pinned at the lower wall pointing down: climb instead
                 self._dir[k.name] = +1
+                nxt = self._next_value(k, cur)
+            elif nxt is None and k.scale == "add" and self._dir[k.name] > 0:
+                # an additive knob pinned at its upper wall pointing up
+                self._dir[k.name] = -1
                 nxt = self._next_value(k, cur)
             if nxt is None:
                 continue

@@ -1076,7 +1076,11 @@ class _PipelineIter:
         if self._budget:
             b = self._budget
             self._split_lo = max(at.min_fetch_workers, b - self._max_cpu_bound, 1)
-            self._split_hi = max(self._split_lo, b - max(at.min_cpu_workers, 1))
+            # the IO stage's hard cap bounds the split too: a split above it
+            # (the reference allows one) runs IO at the cap and leaves
+            # threads of the budget unused
+            self._split_hi = max(self._split_lo, min(b - max(at.min_cpu_workers, 1),
+                                                     self._max_io_bound))
             seed = io_workers
             if pipe.io_workers == 0 and "io_cpu_split" not in loader._tuned:
                 # cores-aware seed: the CPU stage is compute-bound, so start

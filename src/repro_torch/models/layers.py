@@ -13,8 +13,9 @@ Attention dispatch (``_sdpa``) follows ``layers.py:167-191``:
 (:mod:`repro_torch.kernels.flash_attention`) for causal self-attention with
 no cache and ``S == T``; otherwise q lengths of 4096 and more (multiples of
 1024) take the q-chunked ``_sdpa_chunked``, and shorter ones ``_sdpa_dense``.
-The KV-cache branch of ``apply_attention`` and MLA come with the serving
-and MLA slices.
+``apply_attention`` has the reference's self-attention KV-cache branch
+(prefill and decode, with per-slot positions); cross-attention and MLA come
+with their slices.
 """
 from __future__ import annotations
 
@@ -114,24 +115,43 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
+Offset = Union[int, torch.Tensor]  # a host int, or a (B,) tensor on q's device
+
+
+def _per_row(offset: Offset) -> Offset:
+    """An int stays an int (a kernel argument: nothing crosses to the
+    device); a (B,) tensor becomes (B, 1)."""
+    return offset[:, None] if isinstance(offset, torch.Tensor) else offset
+
+
 def _sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                q_offset: int) -> torch.Tensor:
+                q_offset: Offset, kv_len: Optional[Offset] = None) -> torch.Tensor:
     """q: (B,S,Hkv,G,D), k, v: (B,T,Hkv,D).  Matmuls in the compute dtype,
-    softmax in fp32; ``q_offset`` is the position of q[0]."""
+    softmax in fp32.  ``q_offset`` is the position of q[0], ``kv_len`` the
+    valid cache length (positions from it on are masked): each an int, or a
+    (B,) tensor for per-slot decode, so the mask is (B|1, S, T) as the
+    reference's."""
     B, S, Hkv, G, D = q.shape
     T = k.shape[1]
     scale = 1.0 / math.sqrt(D)
     scores = (torch.einsum("bshgd,bthd->bhgst", q, k) * scale).float()  # (B,Hkv,G,S,T)
+    tpos = torch.arange(T, device=q.device)
+    mask = None
     if causal:
-        tpos = torch.arange(T, device=q.device)
-        qpos = torch.arange(S, device=q.device) + q_offset
-        scores = scores.masked_fill(tpos[None, :] > qpos[:, None], NEG_INF)
+        qpos = torch.arange(S, device=q.device)[None, :] + _per_row(q_offset)  # (B|1,S)
+        mask = tpos[None, None, :] <= qpos[:, :, None]
+    if kv_len is not None:
+        valid = (tpos[None, :] < _per_row(kv_len))[:, None, :]  # (B|1,1,T)
+        mask = valid if mask is None else mask & valid
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhgst,bthd->bshgd", w, v)  # (B,S,Hkv,G,Dv)
 
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                  q_offset: int, chunk: int = 1024) -> torch.Tensor:
+                  q_offset: Offset, kv_len: Optional[Offset] = None,
+                  chunk: int = 1024) -> torch.Tensor:
     """O(S) score memory: ``_sdpa_dense`` over q chunks, so one (chunk x T)
     score tile is live at a time (the reference's ``lax.scan``)."""
     S = q.shape[1]
@@ -139,18 +159,20 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
     if S % chunk:
         raise ValueError(f"q length {S} is not a multiple of the chunk {chunk}")
     outs = [
-        _sdpa_dense(q[:, i: i + chunk], k, v, causal=causal, q_offset=q_offset + i)
+        _sdpa_dense(q[:, i: i + chunk], k, v, causal=causal, q_offset=q_offset + i,
+                    kv_len=kv_len)
         for i in range(0, S, chunk)
     ]
     return torch.cat(outs, dim=1)
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_offset: int,
-          impl: str = "ref") -> torch.Tensor:
-    """Dispatch as ``layers.py:167-191`` (no KV cache in this slice, so
-    ``kv_len`` is always None)."""
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+          q_offset: Offset, kv_len: Optional[Offset] = None, impl: str = "ref") -> torch.Tensor:
+    """Dispatch as ``layers.py:167-191``: the flash kernel only for causal
+    self-attention with no cache (``kv_len is None``) and ``S == T``, so
+    prefill and decode, which attend over a cache, never take it."""
     S = q.shape[1]
-    if impl == "pallas" and causal and S == k.shape[1]:
+    if impl == "pallas" and kv_len is None and causal and S == k.shape[1]:
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
         B, _, Hkv, G, D = q.shape
@@ -158,15 +180,45 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_
         out = flash_attention(qf, k.transpose(1, 2), v.transpose(1, 2), causal=True)
         return out.transpose(1, 2).reshape(B, S, Hkv, G, D)
     if S >= CHUNKED_SDPA_THRESHOLD and S % 1024 == 0:
-        return _sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset)
-    return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset)
+        return _sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+
+def _cache_update(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                  cache_pos: Offset) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write k, v (B,S,Hkv,D) into the cache's (B,max_len,Hkv,D) leaves at
+    ``cache_pos``, in place, and return the leaves.  An int writes one slice
+    of every row (a write past ``max_len`` raises, where the reference's
+    ``dynamic_update_slice`` clamps it onto earlier positions); a (B,)
+    tensor writes row b at its own position (per-slot decode; the caller
+    checks its bounds on the host, as ``transformer.decode_step`` does)."""
+    kc, vc = cache["k"], cache["v"]
+    S, max_len = k.shape[1], kc.shape[1]
+    if isinstance(cache_pos, torch.Tensor):
+        rows = torch.arange(k.shape[0], device=kc.device)[:, None]
+        cols = cache_pos.to(kc.device).long()[:, None] + torch.arange(S, device=kc.device)
+        kc[rows, cols] = k.to(kc.dtype)
+        vc[rows, cols] = v.to(vc.dtype)
+        return kc, vc
+    if not 0 <= cache_pos <= max_len - S:
+        raise ValueError(f"cache write of {S} positions at {cache_pos} runs past "
+                         f"max_len {max_len}")
+    kc[:, cache_pos: cache_pos + S] = k.to(kc.dtype)
+    vc[:, cache_pos: cache_pos + S] = v.to(vc.dtype)
+    return kc, vc
 
 
 def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                    q_offset: int = 0, causal: bool = True) -> torch.Tensor:
-    """GQA/MHA self-attention over the whole sequence (no cache).
-    ``q_offset`` is ``positions[0]`` as a host int (the reference reads it
-    from the array; here that would wait for the device)."""
+                    q_offset: int = 0, causal: bool = True, cache: Optional[Params] = None,
+                    cache_pos: Optional[Offset] = None) -> Tuple[torch.Tensor, Optional[Params]]:
+    """GQA/MHA self-attention; returns (y, cache).  Without a cache it runs
+    over the whole sequence, and ``q_offset`` is ``positions[0]`` as a host
+    int (the reference reads it from the array; here that would wait for
+    the device).  With one, k and v are written at ``cache_pos`` (an int,
+    or a (B,) tensor per slot) and q attends over the cache up to
+    ``cache_pos + S``; q's positions start at ``cache_pos`` in every caller
+    (prefill, its chunks, decode), so that is its offset.  Cross-attention
+    (the reference's ``kv_source``) comes with the encoder-decoder family."""
     a = cfg.attention
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
@@ -175,10 +227,16 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions: 
     if a.rope:
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
+    kv_len = None
+    if cache is not None:
+        k, v = _cache_update(cache, k, v, cache_pos)
+        cache = {"k": k, "v": v}
+        q_offset, kv_len = cache_pos, cache_pos + S
     qg = q.reshape(B, S, a.num_kv_heads, a.q_heads_per_kv, a.head_dim)
-    out = _sdpa(qg, k, v, causal=causal, q_offset=q_offset, impl=cfg.attention_impl)
+    out = _sdpa(qg, k.to(x.dtype), v.to(x.dtype), causal=causal, q_offset=q_offset,
+                kv_len=kv_len, impl=cfg.attention_impl)
     out = out.reshape(B, S, a.num_heads, a.head_dim)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -12,16 +12,28 @@ the whole stack for each layer).  ``cfg.remat`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` with
 ``nothing_saveable`` does.
 
-The port has ``forward_train``; prefill and decode (with the KV cache)
-come with the serving slice, MoE, Mamba and MLA mixers with theirs.  The
-RWKV time-mix runs the plain chunked scan on sequences longer than one
-token, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is
+Three programs, as the reference's:
+
+* ``forward_train`` — full-sequence causal forward, returns (loss, aux).
+* ``prefill`` — writes positions [0, S) into the cache (chunked above
+  ``PREFILL_CHUNK`` tokens), returns the last position's logits.
+* ``decode_step`` — one token a row against the cache, at one position for
+  every row or one per row (continuous batching).
+
+The cache (``init_cache``) has the reference's tree and layout, so it
+crosses with :func:`repro_torch.convert.from_jax`.  Where the reference
+returns a new cache, the port writes the pooled tensors in place and
+returns them.  Prefill and decode run under ``torch.inference_mode``.
+MoE, Mamba and MLA mixers come with their slices.  The RWKV time-mix runs
+the plain chunked scan on sequences longer than one token and the plain
+loop on one, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is
 reached by calling ``rwkv6.apply_rwkv_timemix`` directly.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -29,12 +41,14 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rwkv6
 from repro_torch.models.layers import (
+    Offset,
     Params,
     apply_attention,
     apply_embedding,
     apply_lm_head,
     apply_mlp,
     apply_norm,
+    cdtype,
     cross_entropy_loss,
     init_attention,
     init_embedding,
@@ -42,7 +56,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map
 
 # ---------------------------------------------------------------------------
 # layer-kind schedule
@@ -99,12 +113,6 @@ def _init_sublayer(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _stack(trees: List[Any]) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
             device: Union[str, torch.device] = "cuda") -> Params:
     """Parameters in the reference's tree: embed, blocks (stacked over
@@ -121,13 +129,65 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     def init_block() -> Params:
         return {f"sub{j}": _init_sublayer(generator, cfg, kinds[j]) for j in range(P_)}
 
-    blocks = [init_block() for _ in range(n_blocks)]
-    params["blocks"] = _stack(blocks) if _stacked(cfg) else blocks[0]
-    del blocks
+    first = init_block()
+    if _stacked(cfg):
+        # each stacked leaf is allocated once and filled block by block, in
+        # the same draw order: one block is live beside the model, where
+        # stacking a list of blocks would hold the model twice
+        blocks = tree_map(lambda t: t.new_empty((n_blocks, *t.shape)), first)
+        tree_map(lambda dst, src: dst[0].copy_(src), blocks, first)
+        del first
+        for i in range(1, n_blocks):
+            tree_map(lambda dst, src: dst[i].copy_(src), blocks, init_block())
+        params["blocks"] = blocks
+    else:
+        params["blocks"] = first
     params["final_norm"] = init_norm(cfg, generator.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_lm_head(generator, cfg)
     return tree_map(lambda t: t.to(dev), params)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _sublayer_cache(cfg: ModelConfig, kind: Tuple[str, str], batch: int, max_len: int,
+                    device: torch.device) -> Params:
+    mixer, _ = kind
+    if mixer == "attn":
+        a = cfg.attention
+        shape = (batch, max_len, a.num_kv_heads, a.head_dim)
+        return {"k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+                "v": torch.zeros(shape, dtype=cdtype(cfg), device=device)}
+    if mixer == "rwkv":
+        return rwkv6.init_rwkv_cache(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[str, torch.device] = "cuda") -> Params:
+    """Zeros in the reference's tree: ``{"sub0": {"k", "v"}}`` of (B,
+    max_len, Hkv, D) in the compute dtype for attention, RWKV's state and
+    token shifts in fp32; each leaf with a leading layer axis when blocks
+    are stacked."""
+    dev = resolve_device(device)
+    kinds = layer_kinds(cfg)
+    P_ = period(cfg)
+    one = {f"sub{j}": _sublayer_cache(cfg, kinds[j], batch, max_len, dev) for j in range(P_)}
+    if not _stacked(cfg):
+        return one
+    n_blocks = cfg.num_layers // P_
+    return tree_map(lambda t: torch.zeros((n_blocks, *t.shape), dtype=t.dtype, device=dev), one)
+
+
+def _cache_len(cache: Params) -> Optional[int]:
+    """Positions an attention cache holds (None for a recurrent one)."""
+    for path, leaf in flatten(cache).items():
+        if path.endswith("/k"):
+            return leaf.shape[-3]
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -136,14 +196,21 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[str, str], *,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, cache: Optional[Params] = None,
+                    cache_pos: Optional[Offset] = None
+                    ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """One layer; returns (x, the layer's new cache, or None without one)."""
     mixer, ffn = kind
     h = apply_norm(p["ln1"], x, cfg)
+    new_cache = cache
     if mixer == "attn":
-        out = apply_attention(p["attn"], h, cfg, positions=positions, causal=True)
+        out, new_cache = apply_attention(p["attn"], h, cfg, positions=positions, causal=True,
+                                         cache=cache, cache_pos=cache_pos)
     elif mixer == "rwkv":
-        out, _ = rwkv6.apply_rwkv_timemix(p["tm"], h, cfg,
-                                          scan_mode="chunk" if h.shape[1] > 1 else "seq")
+        out, tm_cache = rwkv6.apply_rwkv_timemix(p["tm"], h, cfg, cache=cache,
+                                                 scan_mode="chunk" if h.shape[1] > 1 else "seq")
+        if tm_cache is not None:
+            new_cache = dict(cache, **tm_cache)
     else:
         raise ValueError(mixer)
     x = x + out
@@ -151,10 +218,12 @@ def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[st
     if ffn == "mlp":
         out = apply_mlp(p["mlp"], h, cfg)
     elif ffn == "rwkv_cm":
-        out, _ = rwkv6.apply_rwkv_channelmix(p["cm"], h, cfg)
+        out, cm_cache = rwkv6.apply_rwkv_channelmix(p["cm"], h, cfg, cache=new_cache)
+        if cm_cache is not None:
+            new_cache = dict(new_cache, **cm_cache)
     else:
         raise ValueError(ffn)
-    return x + out
+    return x + out, new_cache
 
 
 def _unbind(tree: Any) -> List[Any]:
@@ -166,24 +235,45 @@ def _unbind(tree: Any) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
+def _write_back(pooled: torch.Tensor, new: torch.Tensor) -> None:
+    if new is not pooled:  # attention leaves were written in place already
+        pooled.copy_(new)
+
+
 def _apply_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  positions: torch.Tensor, cache: Optional[Params] = None,
+                  cache_pos: Optional[Offset] = None
+                  ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Every layer; returns (x, cache, aux).  A given cache is updated in
+    place, layer by layer through views of its stacked leaves."""
     kinds = layer_kinds(cfg)
     P_ = period(cfg)
 
-    def block_fn(xc: torch.Tensor, bp: Params) -> torch.Tensor:
+    def block_fn(xc: torch.Tensor, bp: Params, bc: Optional[Params]):
+        new_bc = None if bc is None else {}
         for j in range(P_):
-            xc = _apply_sublayer(bp[f"sub{j}"], xc, cfg, kinds[j], positions=positions)
-        return xc
+            xc, nc = _apply_sublayer(bp[f"sub{j}"], xc, cfg, kinds[j], positions=positions,
+                                     cache=None if bc is None else bc[f"sub{j}"],
+                                     cache_pos=cache_pos)
+            if bc is not None:
+                new_bc[f"sub{j}"] = nc
+        return xc, new_bc
 
-    blocks = _unbind(params["blocks"]) if _stacked(cfg) else [params["blocks"]]
-    for bp in blocks:
+    stacked = _stacked(cfg)
+    blocks = _unbind(params["blocks"]) if stacked else [params["blocks"]]
+    if cache is None:
+        caches = [None] * len(blocks)
+    else:
+        caches = _unbind(cache) if stacked else [cache]
+    for bp, bc in zip(blocks, caches):
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(block_fn, x, bp, use_reentrant=False)
+            x, new_bc = checkpoint(block_fn, x, bp, bc, use_reentrant=False)
         else:
-            x = block_fn(x, bp)
+            x, new_bc = block_fn(x, bp, bc)
+        if bc is not None:
+            tree_map(_write_back, bc, new_bc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)  # MoE aux loss: none here
-    return x, aux
+    return x, cache, aux
 
 
 def forward_train(params: Params, batch: Dict[str, torch.Tensor],
@@ -191,7 +281,62 @@ def forward_train(params: Params, batch: Dict[str, torch.Tensor],
     """Returns (loss, aux_loss)."""
     x = apply_embedding(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _apply_blocks(params, x, cfg, positions=positions)
+    x, _, aux = _apply_blocks(params, x, cfg, positions=positions)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = apply_lm_head(params.get("lm_head"), x, cfg, embed=params["embed"])
     return cross_entropy_loss(logits, batch["targets"]), aux
+
+
+PREFILL_CHUNK = 8_192  # sequence-chunked prefill above this length
+
+
+def _last_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = apply_norm(params["final_norm"], x[:, -1:], cfg)
+    return apply_lm_head(params.get("lm_head"), x, cfg, embed=params["embed"])[:, 0]
+
+
+@torch.inference_mode()
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            cache: Params) -> Tuple[torch.Tensor, Params]:
+    """Writes positions [0, S) into the cache; returns (last-position
+    logits, cache).
+
+    A dense decoder's prompt longer than ``PREFILL_CHUNK`` (and a multiple
+    of it) runs chunked, as the reference's (vLLM-style): each chunk of
+    tokens attends over the cache written so far, so activation memory is
+    O(chunk), not O(S).  RWKV keeps the single pass (its state is O(1) a
+    token)."""
+    tokens = batch["tokens"]
+    S, C = tokens.shape[1], PREFILL_CHUNK
+    chunked = cfg.family == "decoder" and S > C and S % C == 0
+    for s0 in range(0, S, C if chunked else S):
+        s1 = s0 + C if chunked else S
+        x = apply_embedding(params["embed"], tokens[:, s0:s1], cfg)
+        positions = torch.arange(s0, s1, device=x.device)
+        x, cache, _ = _apply_blocks(params, x, cfg, positions=positions, cache=cache,
+                                    cache_pos=s0)
+    return _last_logits(params, x, cfg), cache
+
+
+@torch.inference_mode()
+def decode_step(params: Params, cache: Params, tokens: torch.Tensor, pos: Any,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+    """One token a row, ``tokens`` (B, 1), written at ``pos``: an int for
+    every row, or a (B,) array of host ints, one a slot (continuous
+    batching).  Host positions are checked against the cache's length here
+    and cross to the device once a call.  Returns (logits (B, V), cache)."""
+    dev = tokens.device
+    if getattr(pos, "ndim", 0) == 0:
+        cache_pos: Offset = int(pos)
+        positions = torch.arange(cache_pos, cache_pos + 1, device=dev)
+    else:
+        host = np.asarray(pos.cpu() if isinstance(pos, torch.Tensor) else pos)
+        limit = _cache_len(cache)
+        if host.min() < 0 or (limit is not None and host.max() >= limit):
+            raise ValueError(f"decode positions {host.tolist()} outside a cache of {limit}")
+        cache_pos = torch.tensor(host, dtype=torch.long, device=dev)
+        positions = cache_pos[:, None]  # (B, 1)
+    x = apply_embedding(params["embed"], tokens, cfg)
+    x, cache, _ = _apply_blocks(params, x, cfg, positions=positions, cache=cache,
+                                cache_pos=cache_pos)
+    return _last_logits(params, x, cfg), cache

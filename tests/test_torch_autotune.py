@@ -6,7 +6,8 @@ Controller cases drive the reference's and the port's
 ``AutotuneController`` with the same synthetic throughput profile and the
 same deterministic clock (``now=``), and require the same event sequence
 (batch, action, knob, value; throughput to 1e-12 relative) on top of each
-reference test's own asserts.  The windowed signals (``window_summary``,
+reference test's own asserts, except where the port departs on purpose (an
+additive knob at its upper wall steps down).  The windowed signals (``window_summary``,
 ``recent_busy_fraction``, ``available_cpu_count``) and the
 ``build_*_knobs`` functions give the reference's values on the same
 inputs.  Loader cases run the port only and check its own contracts:
@@ -295,6 +296,61 @@ def test_additive_knob_steps_by_one():
     ctrl, vals = twin(scenario)
     assert vals["policy"] == 1, ctrl.events
     assert {e.value for e in ctrl.events if e.action == "probe"} <= {0, 1, 2}
+
+
+@pytest.mark.parametrize("wall", ["held", "accepted_then_starved", "regressed"])
+def test_additive_knob_steps_down_from_its_upper_wall(wall):
+    """A budget split's first up-probe lands on its upper wall (57 + 16 past
+    64).  There the split is held in the dead band, or accepted on windows
+    still draining the old width's work and then starved, or reverted.  The
+    reference skips a knob at its upper wall and its heartbeats explore
+    upward, so only a revert ever turns its split down; the port steps an
+    additive knob down from the wall (ROADMAP §3) and leaves a starved wall.
+    After a revert both give the same events."""
+
+    def scenario(Cfg, at):
+        vals, seen = {"split": 57, "out": 8}, {"wall": 0}
+
+        def tput(v):
+            if v["split"] != 64:
+                return 100.0
+            seen["wall"] += 1
+            if wall == "held":
+                return 100.0
+            if wall == "accepted_then_starved" and seen["wall"] <= 2:
+                return 150.0  # the settle and measure windows after the move
+            return 10.0
+
+        split = at.Knob("split", lambda: vals["split"],
+                        lambda v: vals.__setitem__("split", max(33, min(int(v), 64)))
+                        or vals["split"], 33, 64, scale="add", step_schedule=(16, 8, 1))
+        out = at.Knob("out", lambda: vals["out"],
+                      lambda v: vals.__setitem__("out", max(8, min(int(v), 16)))
+                      or vals["out"], 8, 16)
+        cfg = Cfg(enabled=True, interval_batches=1, min_window_s=0.0,
+                  patience=2, reprobe_windows=4)
+        ctrl = at.AutotuneController(cfg, [split, out])
+        drive(ctrl, vals, tput, steps=200)
+        return ctrl, vals
+
+    if wall == "regressed":
+        ctrl, _ = twin(scenario)
+        moves = [(e.action, e.value) for e in ctrl.events if e.knob == "split"]
+        assert moves[:2] == [("probe", 64), ("revert", 57)]
+        assert any(a == "probe" and v < 57 for a, v in moves), ctrl.events
+        return
+    (ref, ref_vals), (port, port_vals) = (scenario(*SIDES[side])
+                                          for side in ("reference", "port"))
+    for ctrl in (ref, port):
+        assert [(e.action, e.value) for e in ctrl.events if e.knob == "split"][0] == ("probe", 64)
+    ref_downs = [e.value for e in ref.events if e.action == "probe" and e.knob == "split"
+                 and e.value < 64]
+    port_downs = [e.value for e in port.events if e.action == "probe" and e.knob == "split"
+                  and e.value < 64]
+    assert not ref_downs and any(e.action == "reprobe" for e in ref.events), ref.events
+    assert port_downs, port.events
+    if wall == "accepted_then_starved":
+        assert ref_vals["split"] == 64 and port_vals["split"] < 64, (ref_vals, port_vals)
 
 
 def test_util_gate_blocks_up_probes_until_headroom():
@@ -852,7 +908,7 @@ UNPORTED = {
     "min_slab_slots", "max_slab_slots",  # item 5.4
     "skew_gate",  # item 7
     "min_hedge_delay_ms", "max_hedge_delay_ms", "min_coalesce_ms", "max_coalesce_ms",
-    "objective", "latency_target_s", "latency_quantile",  # item 2
+    "objective", "latency_target_s", "latency_quantile",  # item 5.7
 }
 
 
@@ -931,6 +987,27 @@ def test_thread_budget_holds_the_total_width(dataset):
     assert [k.name for k in dl.autotuner.knobs] == ["io_cpu_split", "outstanding",
                                                     "stage_queue"]
     assert any(e.action == "probe" and e.knob == "io_cpu_split" for e in dl.autotuner.events)
+
+
+def test_thread_budget_split_stays_under_the_io_cap(dataset):
+    """A budget wider than the IO stage's hard cap plus one CPU worker: the
+    split's ceiling is the cap, so a split learned above it (the reference's
+    ceiling is budget - 1, which left IO at the cap and threads of the
+    budget unused) still gives IO + CPU = the budget."""
+    budget, cap = 10, 4
+    kw = dict(impl="threaded", batch_size=8, num_workers=1, prefetch_factor=1,
+              num_fetch_workers=cap, seed=11)
+    at = AutotuneConfig(enabled=True, interval_batches=10**6, thread_budget=budget,
+                        max_fetch_workers=cap, tune_cpu_executor=False)
+    dl = ConcurrentDataLoader(dataset, LoaderConfig(
+        autotune=at, pipeline=PipelineConfig(enabled=True), **kw))
+    dl._tuned["io_cpu_split"] = budget - 1  # as if learned in an earlier epoch
+    dl.set_epoch(0)
+    it = iter(dl)
+    sums = [it.io.gate.limit + it.cpu.width for _ in it]
+    assert sums == [budget] * len(sums) and len(sums) == 12
+    assert (it._split_hi, it.io.gate.limit) == (cap, cap)
+    assert it._set_split(budget - 1) == cap
 
 
 def test_cpu_executor_swap_keeps_the_strict_stream(dataset):
@@ -1027,3 +1104,18 @@ def test_stages_grow_lazily_toward_their_width(dataset):
         pool.ensure(10)
         grown.append(len(pool.workers))
     assert grown == [P.PROC_SPAWN_STEP, 2 * P.PROC_SPAWN_STEP, 10, 10]
+
+
+def test_budget_split_probe_runs_chip_smokes_budget_run(monkeypatch):
+    """``repro_torch.tools.budget_split_probe`` repeats chip_smoke's budget
+    run at other budgets: the same launcher arguments, and a card it asks
+    for rather than falling back to the CPU."""
+    import chip_smoke
+    import torch
+
+    from repro_torch.tools import budget_split_probe
+
+    assert budget_split_probe.ARGS == chip_smoke.AUTO_ARGS
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        budget_split_probe.main(["65"])

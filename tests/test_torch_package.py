@@ -64,7 +64,12 @@ print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
 @pytest.mark.parametrize("module", ["repro_torch.models.rwkv6",
                                     "repro_torch.kernels.rwkv6_wkv.ops",
                                     "repro_torch.kernels.rmsnorm.ops",
-                                    "repro_torch.core.autotune"])
+                                    "repro_torch.core.autotune",
+                                    "repro_torch.serve", "repro_torch.serve.steps",
+                                    "repro_torch.serve.engine", "repro_torch.launch.serve",
+                                    "repro_torch.configs.granite_3_8b",
+                                    "repro_torch.configs.nemotron_4_340b",
+                                    "repro_torch.tools.budget_split_probe"])
 def test_slice_module_imports_alone_without_jax_or_repro(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, str(ROOT / "src"), module],
