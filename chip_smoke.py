@@ -82,12 +82,32 @@ Phases, each printing one JSON line:
    models served on the card against the CPU, fp32; (g) rwkv6-7b at full
    width, 4 layers, 8 requests over 4 slots, held as in (b).  No kernel
    runs on this path (the reference takes no Pallas route with a cache).
+9b. model_families — two AdamW steps of the minicpm3-4b (MLA) and
+   granite-moe-3b-a800m (MoE) smoke models on the card against the CPU
+   (fp32, TF32 off), loss and aux loss.
+12. main_mla — minicpm3-4b at full width (depth 62 cut to 4) trained from
+   simulated S3 through the launcher as main_lm, then served whole (62
+   layers) through ``launch/serve.py`` at the reference launcher's
+   defaults, with main_serve's (a), (b), (c) and (e), and the absorbed
+   MLA decode against the expanded one (``MLA_ABSORB_MAX_S = 0``) on the
+   engine's pooled cache.
+13. main_moe — granite-moe-3b-a800m at full width (32 cut to 4) trained
+   the same way (aux loss positive), gather against einsum dispatch on one
+   full-width layer at the training shape (fp32, within 2e-5), then
+   granite-moe-3b-a800m served whole with (a) and (b), and
+   qwen2-moe-a2.7b served whole (15.15 B parameters) with (a), its init
+   and serving peaks against the card's memory, finite logits, and pooled
+   against batch-1 decode printed, not gated (its decode capacity of 4
+   drops assignments a batch-1 decode keeps, as the reference's does),
+   beside the ticks where a live slot lost an assignment.  No kernel runs
+   on the MLA or MoE paths (no Pallas route in the reference's MLA or
+   MoE).
 
 Launch counts are set to 0 just before each main path and read just after
 (for main_pipeline and main_autotune, around each launcher run; for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
-again around (d); rmsnorm, which no model
-calls, counts its own phase's checked calls).
+again around (d); for main_mla and main_moe, around each launcher run;
+rmsnorm, which no model calls, counts its own phase's checked calls).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
 nothing of JAX and nothing of the JAX package.
@@ -215,6 +235,27 @@ SERVE_PROFILED = 4  # decode ticks and prefills under torch.profiler after the r
 SERVE_LONG, SERVE_LONG_NEW = 16_384, 4  # one prompt of 2 x PREFILL_CHUNK tokens
 # RWKV serving: rwkv6-7b at full width, main_rwkv's 4 layers, 8 requests over 4 slots
 RWKV_SERVE_REQUESTS, RWKV_SERVE_SLOTS = 8, 4
+
+# The MLA and MoE families.  Training: minicpm3-4b (depth 62 -> 4) and
+# granite-moe-3b-a800m (32 -> 4) at full width with main_lm's loader,
+# sequences, batch, microbatches and steps.  Serving: minicpm3-4b,
+# granite-moe-3b-a800m and qwen2-moe-a2.7b whole, through launch/serve.py at
+# the reference launcher's defaults, held as main_serve's granite-8b.
+MLA_ARCH, MOE_ARCH, QWEN_ARCH = "minicpm3-4b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"
+MLA_TRAIN_ARCH, MOE_TRAIN_ARCH, FAMILY_LAYERS = "minicpm3-4b-4l", "granite-moe-3b-a800m-4l", 4
+MLA_TRAIN_ARGS = [a if a != LM_ARCH else MLA_TRAIN_ARCH for a in LM_ARGS]
+MOE_TRAIN_ARGS = [a if a != LM_ARCH else MOE_TRAIN_ARCH for a in LM_ARGS]
+MLA_REDUCED = {"num_layers": "62 -> 4, as main_lm", "items": LM_REDUCED["items"],
+               "steps": LM_STEPS}
+MOE_REDUCED = {"num_layers": "32 -> 4, as main_lm", "items": LM_REDUCED["items"],
+               "steps": LM_STEPS}
+MLA_SERVE_ARGS = ["--arch", MLA_ARCH, "--full", "--device", "cuda"]
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--full", "--device", "cuda"]
+QWEN_SERVE_ARGS = ["--arch", QWEN_ARCH, "--full", "--device", "cuda"]
+# gather against einsum dispatch on one full-width granite-moe layer at the
+# training shape (a microbatch: 2 x 4096 tokens), fp32 with TF32 off, within
+# the reference's tests/test_moe_dispatch.py tolerance
+MOE_ROUTE_TOL = 2e-5
 
 
 def fail(msg: str) -> None:
@@ -1628,7 +1669,7 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
                 kern, _ = apply_rwkv_timemix(p["tm"], h, cfg, wkv_impl=wkv_recorded)
                 diff = (kern.float() - plain.float()).norm(dim=-1)
                 row_errs.append((diff / plain.float().norm(dim=-1).clamp_min(1e-30)).max().item())
-                x, _ = _apply_sublayer(p, x, cfg, kinds[li], positions=positions)
+                x, _, _ = _apply_sublayer(p, x, cfg, kinds[li], positions=positions)
     walk_launches = wkv_ops.wkv.launches
     ingest_launches, flash_launches = ingest_ops.ingest_norm.launches, \
         flash_ops.flash_attention.launches
@@ -1772,29 +1813,45 @@ def held_to_batch1(torch, transformer, cfg, params, requests, max_len, tol) -> d
     return out
 
 
-def phase_main_serve(torch, counted, smi: str) -> dict:
-    """The serving path, granite-8b whole on the card: (a) the launcher at
-    the reference's defaults; (b) pooled against sequential decode; (c) a
-    decode step against a cacheless forward; (d) no flash launch with a
-    cache; (e) chunked prefill of 16384 tokens against a single pass; (f)
-    card against CPU at smoke size; (g) RWKV served at full width."""
-    import dataclasses
+def pooled_and_cacheless(torch, cfg, params, done, max_len: int, phase: str,
+                         gate: bool = True, cacheless: bool = True):
+    """(b) SERVE_CHECKED requests' pooled tokens held to the batch-1 decode
+    (``held_to_batch1``) and (c) SERVE_CACHELESS of them: the last decode
+    step's logits against a cacheless forward (a prefill of the whole
+    sequence), each emitted and, with ``gate``, gated."""
+    from repro_torch.models import transformer
 
-    import numpy as np
+    checked = done[:: len(done) // SERVE_CHECKED][:SERVE_CHECKED]
+    pooled = held_to_batch1(torch, transformer, cfg, params, checked, max_len, SERVE_TIE_TOL)
+    lasts, diffs = pooled.pop("last_steps"), []
+    for req, last in zip(checked[:SERVE_CACHELESS] if cacheless else [], lasts):
+        seq = req.prompt.tolist() + req.output[:-1]
+        logits, _ = transformer.prefill(
+            params, {"tokens": torch.tensor([seq], device="cuda")}, cfg,
+            transformer.init_cache(cfg, 1, len(seq), "cuda"))
+        diffs.append((logits[0].float() - last).abs().max().item())
+    emit({"phase": phase, "check": "b_pooled_vs_sequential", "arch": cfg.name,
+          "uids": [r.uid for r in checked], "gated": gate, **pooled})
+    if cacheless:
+        emit({"phase": phase, "check": "c_cache_vs_cacheless", "arch": cfg.name,
+              "max_abs_diff": diffs, "tolerance": SERVE_LOGIT_TOL})
+    if gate and not pooled["ok"]:
+        fail(f"{cfg.name}: pooled decode left the batch-1 maximum by {pooled['max_gap']}")
+    if cacheless and not max(diffs) <= SERVE_LOGIT_TOL:
+        fail(f"{cfg.name}: last decode step against a cacheless forward: {diffs}")
+    return pooled, diffs
 
-    from repro_torch.config import ServeSpec, get_arch, register_arch, replace
-    from repro_torch.configs import rwkv6_7b
-    from repro_torch.convert import lm_params_from_jax, to_jax
+
+def serve_path(torch, counted, serve_args: list, smi: str, phase: str):
+    """A serving phase's (a): ``launch/serve.py`` with ``serve_args``, the
+    init's peak read apart from serving's, prefill and decode behind
+    synchronizes, every counted kernel's launches set to 0 just before the
+    run and read just after; gated on the reference's token accounting and
+    tick bound and on no kernel launch.  Returns (report, args, figures)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    from repro_torch.serve import ServeEngine
-    from repro_torch.tools.profile_lm_step import busy_ms, profiled
     from repro_torch.tree import leaves
 
-    flash = counted["flash_attention"]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.empty_cache()
-    # (a) the path, with the init's peak read apart from serving's
     init = {}
     real_init = transformer.init_lm
 
@@ -1811,28 +1868,29 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
 
     transformer.init_lm = init_lm
     timer = SyncTimer(torch, transformer, ("prefill", "decode_step"))
+    allocated_before = torch.cuda.memory_allocated()  # what earlier phases left
     for fn in counted.values():
         fn.launches = 0
     try:
-        report = serve.run(SERVE_ARGS)
+        report = serve.run(serve_args)
     finally:
         timer.restore()
         transformer.init_lm = real_init
     launches = {name: fn.launches for name, fn in counted.items()}
     serve_peak = torch.cuda.max_memory_allocated()
-    args = serve.parse_args(SERVE_ARGS)
-    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
-    params = eng.params
+    args = serve.parse_args(serve_args)
+    cfg, eng, done = report.cfg, report.engine, report.done
     ttfts = [r.t_first_token - r.t_submit for r in done]
     totals = [r.t_done - r.t_submit for r in done]
     tick_bound = args.requests * (args.max_new - 1) / args.slots + args.max_new
     cache_bytes = sum(t.numel() * t.element_size() for t in leaves(eng.cache))
     path = {
-        "arch": cfg.name, "args": SERVE_ARGS, "num_layers": cfg.num_layers,
+        "arch": cfg.name, "args": serve_args, "num_layers": cfg.num_layers,
         "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
-        "params": sum(t.numel() for t in leaves(params)), "requests": len(done),
+        "params": sum(t.numel() for t in leaves(eng.params)), "requests": len(done),
         "slots": args.slots, "max_len": args.max_len, "max_new": args.max_new,
-        "prompt_lens": [len(r.prompt) for r in done], "wall_s": report.wall_s,
+        "prompt_lens": [len(r.prompt) for r in sorted(done, key=lambda r: r.uid)],
+        "wall_s": report.wall_s,
         "tokens_generated": eng.tokens_generated, "tokens_per_s": report.tokens_per_s,
         "ttft_p50_s": order_stat(ttfts, 0.5), "ttft_p95_s": order_stat(ttfts, 0.95),
         "total_p50_s": order_stat(totals, 0.5), "total_p95_s": order_stat(totals, 0.95),
@@ -1844,29 +1902,40 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
         "prefill_ms_median": 1e3 * statistics.median(timer.times["prefill"]),
         "init_s": init["s"], "init_peak_bytes": init["peak"],
         "param_bytes": init["param_bytes"], "cache_bytes": cache_bytes,
-        "max_memory_allocated_bytes": serve_peak, "launches": launches, "nvidia_smi": smi,
+        "max_memory_allocated_bytes": serve_peak, "allocated_before_bytes": allocated_before,
+        "device_total_bytes": torch.cuda.get_device_properties(0).total_memory,
+        "launches": launches, "nvidia_smi": smi,
     }
-    emit({"phase": "main_serve", "check": "a_path", **path})
+    emit({"phase": phase, "check": "a_path", **path})
     want = args.requests * (args.max_new - 1)
     if len(done) != args.requests or any(len(r.output) != args.max_new for r in done):
-        fail(f"serving returned {[len(r.output) for r in done]} tokens for "
+        fail(f"{cfg.name} serving returned {[len(r.output) for r in done]} tokens for "
              f"{args.requests} requests of {args.max_new}")
     if eng.tokens_generated != want or eng.ticks > tick_bound:
-        fail(f"serving accounted {eng.tokens_generated} tokens (want {want}) in "
+        fail(f"{cfg.name} serving accounted {eng.tokens_generated} tokens (want {want}) in "
              f"{eng.ticks} ticks (at most {tick_bound})")
     if any(launches.values()):
-        fail(f"a kernel launched on the serving path: {launches}")
-    # where a tick's time goes: torch.profiler over pooled decode ticks and
-    # batch-1 prefills after the run, each call's device busy time (the
-    # union of its kernels) against its wall time
+        fail(f"a kernel launched on the {cfg.name} serving path: {launches}")
+    return report, args, path
+
+
+def serve_profile(torch, report, max_len: int, phase: str) -> dict:
+    """Where a tick's time goes: torch.profiler over pooled decode ticks and
+    batch-1 prefills after the run, each call's device busy time (the
+    union of its kernels) against its wall time."""
+    from repro_torch.models import transformer
+    from repro_torch.tools.profile_lm_step import busy_ms, profiled
+
+    cfg, eng = report.cfg, report.engine
+    first = min(report.done, key=lambda r: r.uid)
     toks = torch.tensor(eng.last_token[:, None], device="cuda")
-    one = {"tokens": torch.tensor(done[0].prompt[None], device="cuda")}
+    one = {"tokens": torch.tensor(first.prompt[None], device="cuda")}
     where = {}
     for name, fn in (
-            ("decode", lambda: transformer.decode_step(params, eng.cache, toks, eng.positions,
-                                                       cfg)),
+            ("decode", lambda: transformer.decode_step(eng.params, eng.cache, toks,
+                                                       eng.positions, cfg)),
             ("prefill", lambda: transformer.prefill(
-                params, one, cfg, transformer.init_cache(cfg, 1, args.max_len, "cuda")))):
+                eng.params, one, cfg, transformer.init_cache(cfg, 1, max_len, "cuda")))):
         prof = profiled(torch, fn, SERVE_PROFILED)
         busy = busy_ms(prof["intervals"]) / SERVE_PROFILED
         where[name] = {"calls": SERVE_PROFILED, "wall_ms": prof["wall_ms"],
@@ -1874,45 +1943,19 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
                        "kernels_per_call": len(prof["intervals"]) / SERVE_PROFILED,
                        "device_ms_by_category": dict(sorted(
                            prof["by_cat"].items(), key=lambda kv: -kv[1]))}
-    emit({"phase": "main_serve", "check": "a_profile", "prompt_len": len(done[0].prompt),
-          **where})
+    emit({"phase": phase, "check": "a_profile", "arch": cfg.name,
+          "prompt_len": len(first.prompt), **where})
+    return where
 
-    # (b) pooled equals sequential, and (c) cache equals no cache
-    checked = done[:: len(done) // SERVE_CHECKED][:SERVE_CHECKED]
-    pooled = held_to_batch1(torch, transformer, cfg, params, checked, args.max_len,
-                            SERVE_TIE_TOL)
-    cacheless = []
-    for req, last in zip(checked[:SERVE_CACHELESS], pooled.pop("last_steps")):
-        seq = req.prompt.tolist() + req.output[:-1]
-        logits, _ = transformer.prefill(
-            params, {"tokens": torch.tensor([seq], device="cuda")}, cfg,
-            transformer.init_cache(cfg, 1, len(seq), "cuda"))
-        cacheless.append((logits[0].float() - last).abs().max().item())
-    emit({"phase": "main_serve", "check": "b_pooled_vs_sequential", "uids":
-          [r.uid for r in checked], **pooled})
-    emit({"phase": "main_serve", "check": "c_cache_vs_cacheless", "max_abs_diff": cacheless,
-          "tolerance": SERVE_LOGIT_TOL})
-    if not pooled["ok"]:
-        fail(f"pooled decode left the batch-1 maximum by {pooled['max_gap']}")
-    if not max(cacheless) <= SERVE_LOGIT_TOL:
-        fail(f"last decode step against a cacheless forward: {cacheless}")
 
-    # (d) no kernel with a cache, attention_impl="pallas"
-    flash.launches = 0
-    pallas = ServeEngine(dataclasses.replace(cfg, attention_impl="pallas"), params,
-                         spec=ServeSpec(num_slots=args.slots, max_len=args.max_len),
-                         device="cuda")
-    for req in done[:SERVE_PALLAS_REQUESTS]:
-        pallas.submit(req.prompt, max_new_tokens=args.max_new)
-    pdone = sorted(pallas.run_until_drained(), key=lambda r: r.uid)
-    same = sum(a.output == b.output for a, b in zip(pdone, done))
-    emit({"phase": "main_serve", "check": "d_pallas_with_cache", "requests": len(pdone),
-          "flash_attention_launches": flash.launches, "outputs_equal_to_a": same})
-    if flash.launches or any(len(r.output) != args.max_new for r in pdone):
-        fail(f"attention_impl='pallas' with a cache: {flash.launches} flash launches")
-    del pallas
+def long_prefill(torch, cfg, params, phase: str) -> dict:
+    """One SERVE_LONG-token prompt prefilled in 2 chunks of PREFILL_CHUNK
+    and in one pass, then SERVE_LONG_NEW - 1 decode steps after each: time,
+    peak, last logits within SERVE_LOGIT_TOL and the same tokens (gated)."""
+    import numpy as np
 
-    # (e) chunked prefill at full width: 2 chunks of PREFILL_CHUNK against one pass
+    from repro_torch.models import transformer
+
     prompt = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, (1, SERVE_LONG)).astype(np.int32)).to("cuda")
     chunk = transformer.PREFILL_CHUNK
@@ -1941,13 +1984,63 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
         del cache, logits
         torch.cuda.empty_cache()
     diff = (long_runs["chunked"].pop("last") - long_runs["single_pass"].pop("last")).abs().max()
-    emit({"phase": "main_serve", "check": "e_chunked_prefill", "prompt_len": SERVE_LONG,
-          "prefill_chunk": chunk, **long_runs, "max_abs_diff": diff.item(),
-          "tolerance": SERVE_LOGIT_TOL})
+    out = {"phase": phase, "check": "e_chunked_prefill", "arch": cfg.name,
+           "prompt_len": SERVE_LONG, "prefill_chunk": chunk, **long_runs,
+           "max_abs_diff": diff.item(), "tolerance": SERVE_LOGIT_TOL}
+    emit(out)
     if not diff.item() <= SERVE_LOGIT_TOL or \
             long_runs["chunked"]["tokens"] != long_runs["single_pass"]["tokens"]:
-        fail(f"chunked prefill against a single pass: {diff.item()}, {long_runs}")
-    del params, report, eng, done, checked, prompt
+        fail(f"{cfg.name}: chunked prefill against a single pass: {diff.item()}, {long_runs}")
+    return out
+
+
+def phase_main_serve(torch, counted, smi: str) -> dict:
+    """The serving path, granite-8b whole on the card: (a) the launcher at
+    the reference's defaults; (b) pooled against sequential decode; (c) a
+    decode step against a cacheless forward; (d) no flash launch with a
+    cache; (e) chunked prefill of 16384 tokens against a single pass; (f)
+    card against CPU at smoke size; (g) RWKV served at full width."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import ServeSpec, get_arch, register_arch, replace
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.convert import lm_params_from_jax, to_jax
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    flash = counted["flash_attention"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    # (a) the path
+    report, args, path = serve_path(torch, counted, SERVE_ARGS, smi, "main_serve")
+    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
+    params = eng.params
+    serve_profile(torch, report, args.max_len, "main_serve")
+
+    # (b) pooled equals sequential, and (c) cache equals no cache
+    pooled, cacheless = pooled_and_cacheless(torch, cfg, params, done, args.max_len,
+                                             "main_serve")
+
+    # (d) no kernel with a cache, attention_impl="pallas"
+    flash.launches = 0
+    pallas = ServeEngine(dataclasses.replace(cfg, attention_impl="pallas"), params,
+                         spec=ServeSpec(num_slots=args.slots, max_len=args.max_len),
+                         device="cuda")
+    for req in done[:SERVE_PALLAS_REQUESTS]:
+        pallas.submit(req.prompt, max_new_tokens=args.max_new)
+    pdone = sorted(pallas.run_until_drained(), key=lambda r: r.uid)
+    same = sum(a.output == b.output for a, b in zip(pdone, done))
+    emit({"phase": "main_serve", "check": "d_pallas_with_cache", "requests": len(pdone),
+          "flash_attention_launches": flash.launches, "outputs_equal_to_a": same})
+    if flash.launches or any(len(r.output) != args.max_new for r in pdone):
+        fail(f"attention_impl='pallas' with a cache: {flash.launches} flash launches")
+    del pallas
+
+    # (e) chunked prefill at full width: 2 chunks of PREFILL_CHUNK against one pass
+    long_prefill(torch, cfg, params, "main_serve")
+    del params, report, eng, done
     torch.cuda.empty_cache()
 
     # (f) card against CPU at smoke size, fp32, TF32 off
@@ -2015,6 +2108,306 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
     return {**path, "pooled": pooled, "cacheless": cacheless, "rwkv": rpooled}
 
 
+def phase_model_families(torch) -> dict:
+    """The minicpm3-4b (MLA) and granite-moe-3b-a800m (MoE) smoke models: two
+    AdamW steps on the card against the CPU from the same weights, in fp32
+    with TF32 off (the devices differ only in summation order): loss and
+    aux loss within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.convert import lm_params_from_jax, to_jax
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.steps import lm_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-3, warmup_steps=1)
+    cases = []
+    for arch in (MLA_ARCH, MOE_ARCH):
+        cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
+        np_params = to_jax(init_lm(cfg, torch.Generator().manual_seed(1), "cpu"))
+        rng = np.random.default_rng(2)
+        batches = [{k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+                    for k in ("tokens", "targets")} for _ in range(2)]
+        got = {}
+        for dev in ("cpu", "cuda"):
+            state = lm_train_state(lm_params_from_jax(np_params, dev), tcfg)
+            step = make_train_step(cfg, tcfg)
+            got[dev] = []
+            for b in batches:
+                state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+                got[dev] += [m["loss"].item(), m["aux_loss"].item()]
+        cases.append({"arch": cfg.name, "loss_aux_cpu": got["cpu"], "loss_aux_cuda": got["cuda"],
+                      "max_diff": max(abs(a - b) for a, b in zip(got["cpu"], got["cuda"])),
+                      "finite": all(math.isfinite(x) for x in got["cuda"])})
+    out = {"phase": "model_families", "steps": 2, "dtype": "float32", "seq_len": 64,
+           "cases": cases, "limit": 1e-4, "cudnn_allow_tf32": False, "matmul_allow_tf32": False}
+    emit(out)
+    if not all(c["finite"] and c["max_diff"] <= 1e-4 for c in cases):
+        fail(f"MLA / MoE train steps on the card differ from the CPU: {cases}")
+    return out
+
+
+def train_family(torch, counted, base, train_arch: str, train_args: list, reduced: dict,
+                 phase: str):
+    """A family's LM path: ``base`` at full width, depth cut to
+    FAMILY_LAYERS and registered as ``train_arch``, trained from simulated
+    S3 through the launcher with ``train_args``; every counted kernel's
+    launches set to 0 just before the run and read just after.  Gated on
+    the steps and epochs, finite losses, parameters on the card and no
+    kernel launch.  Returns (report, figures)."""
+    import dataclasses
+
+    from repro_torch.config import register_arch, replace
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import leaves
+
+    register_arch(train_arch, lambda: replace(base.full(), num_layers=FAMILY_LAYERS), base.smoke)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    report = launch.run(train_args)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params = report.cfg, report.state["params"]
+    losses = [h["loss"] for h in report.result.history]
+    aux = [h["aux_loss"] for h in report.result.history]
+    devices = sorted({str(p.device.type) for p in leaves(params)})
+    ends = sorted(sp.t1 for sp in report.tracer.spans("run_training_batch"))
+    steady = (len(ends) - 1) * LM_BS / (ends[-1] - ends[0]) if len(ends) > 1 else None
+    out = {
+        "phase": phase, "check": "train", "arch": cfg.name, "args": train_args,
+        "reduced": reduced, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+        "attention": dataclasses.asdict(cfg.attention),
+        "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+        "params": sum(p.numel() for p in leaves(params)),
+        "steps": report.result.steps, "epochs": report.result.epochs,
+        "wall_s": report.result.wall_s, "tokens_per_s": report.items_per_s * LM_SEQ,
+        "tokens_per_s_after_first_step": steady * LM_SEQ if steady else None,
+        "first_step_ms": 1e3 * report.tracer.spans("run_training_batch")[0].duration,
+        "spans": span_stats(report.tracer),
+        "busy_fraction": report.util.busy_fraction, "util_zero_pct": report.util.util_zero_pct,
+        "max_memory_allocated_bytes": peak, "losses": losses, "aux_losses": aux,
+        "param_devices": devices, "launches": launches,
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+    emit(out)
+    if report.result.steps < LM_STEPS or report.result.epochs < 2:
+        fail(f"{cfg.name} ran {report.result.steps} steps over {report.result.epochs} epochs")
+    if not losses or not all(math.isfinite(x) for x in losses + aux):
+        fail(f"non-finite loss on the {cfg.name} path: {losses}, aux {aux}")
+    if devices != ["cuda"]:
+        fail(f"{cfg.name} params live on {devices}, not on cuda")
+    if any(launches.values()):
+        fail(f"a kernel launched on the {cfg.name} training path: {launches}")
+    return report, out
+
+
+def add_launches(*runs) -> dict:
+    return {name: sum(r["launches"][name] for r in runs) for name in runs[0]["launches"]}
+
+
+def phase_main_mla(torch, counted, smi: str) -> dict:
+    """The MLA family, minicpm3-4b: trained at full width (4 layers), then
+    served whole through the launcher: (a) figures; (b) pooled against
+    batch-1 decode; (c) a decode step against a cacheless forward; the
+    absorbed decode against the expanded one (MLA_ABSORB_MAX_S = 0) on the
+    engine's pooled cache at its per-slot positions; (e) chunked against
+    single-pass prefill of SERVE_LONG tokens."""
+    from repro_torch.configs import minicpm3_4b
+    from repro_torch.models import layers, transformer
+
+    report, train = train_family(torch, counted, minicpm3_4b, MLA_TRAIN_ARCH, MLA_TRAIN_ARGS,
+                                 MLA_REDUCED, "main_mla")
+    del report
+    torch.cuda.empty_cache()
+    report, args, path = serve_path(torch, counted, MLA_SERVE_ARGS, smi, "main_mla")
+    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
+    params = eng.params
+    serve_profile(torch, report, args.max_len, "main_mla")
+    pooled, cacheless = pooled_and_cacheless(torch, cfg, params, done, args.max_len,
+                                             "main_mla")
+    toks = torch.tensor(eng.last_token[:, None], device="cuda")
+    absorbed, _ = transformer.decode_step(params, eng.cache, toks, eng.positions, cfg)
+    absorb_max = layers.MLA_ABSORB_MAX_S
+    layers.MLA_ABSORB_MAX_S = 0
+    try:
+        expanded, _ = transformer.decode_step(params, eng.cache, toks, eng.positions, cfg)
+    finally:
+        layers.MLA_ABSORB_MAX_S = absorb_max
+    branches = (absorbed.float() - expanded.float()).abs().max().item()
+    emit({"phase": "main_mla", "check": "absorbed_vs_expanded", "arch": cfg.name,
+          "positions": eng.positions.tolist(), "max_abs_diff": branches,
+          "tolerance": SERVE_LOGIT_TOL})
+    if not branches <= SERVE_LOGIT_TOL:
+        fail(f"{cfg.name}: absorbed against expanded decode: {branches}")
+    long = long_prefill(torch, cfg, params, "main_mla")
+    del params, report, eng, done, absorbed, expanded
+    torch.cuda.empty_cache()
+    return {"train": train, "serve": path, "pooled": pooled, "cacheless": cacheless,
+            "absorbed_vs_expanded": branches, "long": long,
+            "launches": add_launches(train, path)}
+
+
+def moe_route_check(torch) -> dict:
+    """Gather against einsum dispatch on one full-width granite-moe layer at
+    the training shape (a microbatch of LM_BS // 2 x LM_SEQ tokens, groups of
+    128), fp32 with TF32 off, within MOE_ROUTE_TOL; each route's CUDA-event
+    time beside it."""
+    from repro_torch.config import replace
+    from repro_torch.configs import granite_moe_3b_a800m
+    from repro_torch.models import moe
+    from repro_torch.tools.profile_lm_step import event_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(granite_moe_3b_a800m.full(), dtype="float32")
+    gen = torch.Generator("cuda").manual_seed(0)
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn((LM_BS // 2, LM_SEQ, cfg.d_model), generator=gen, device="cuda")
+    routes = {d: replace(cfg, moe=replace(cfg.moe, dispatch=d)) for d in ("einsum", "gather")}
+    with torch.no_grad():
+        (y1, a1), (y2, a2) = (moe.apply_moe(p, x, routes[d]) for d in ("einsum", "gather"))
+        ms = {d: event_ms(torch, lambda d=d: moe.apply_moe(p, x, routes[d])) for d in routes}
+        N = x.shape[0] * x.shape[1]
+        G = -(-N // cfg.moe.group_size)
+        gsz = -(-N // G)
+        capacity = max(int(gsz * cfg.moe.top_k / cfg.moe.num_experts * moe.CAPACITY_FACTOR),
+                       cfg.moe.top_k)
+        keep = moe._router_assignments(p, x.reshape(G, gsz, -1), cfg.moe, capacity)[3]
+    ok = torch.allclose(y1, y2, atol=MOE_ROUTE_TOL, rtol=MOE_ROUTE_TOL) and \
+        abs(a1.item() - a2.item()) <= 1e-5 * abs(a2.item())
+    out = {"check": "gather_vs_einsum", "shape": list(x.shape), "dtype": "float32",
+           "groups": G, "group_size": gsz, "capacity": capacity,
+           "assignments": keep.numel(), "dropped": int((~keep).sum()),
+           "max_abs_diff": (y1 - y2).abs().max().item(), "aux": [a1.item(), a2.item()],
+           "tolerance": MOE_ROUTE_TOL, "ms": ms, "ok": ok}
+    del p, x, y1, y2
+    torch.cuda.empty_cache()
+    return out
+
+
+class DropWatch:
+    """During a serving run: each pooled decode tick's live slots (read after
+    the engine admits) and every MoE layer's keep mask of that tick (kept
+    on the card, read after the run).  ``summary`` counts the ticks where a
+    live slot lost an assignment.  ``restore`` puts the functions back."""
+
+    def __init__(self, torch, moe, transformer, engine_cls, slots: int) -> None:
+        self.torch, self.mods = torch, (moe, transformer, engine_cls)
+        self.real = (moe._router_assignments, transformer.decode_step, engine_cls._admit)
+        self.ticks, self.live, self.in_decode = [], [], False
+        route, decode, admit = self.real
+
+        def watched_admit(eng):
+            admit(eng)
+            self.live = [a is not None for a in eng.active]
+
+        def watched_decode(*args, **kwargs):
+            pooled = args[2].shape[0] == slots
+            if pooled:
+                self.ticks.append((self.live, []))
+            self.in_decode = pooled
+            try:
+                return decode(*args, **kwargs)
+            finally:
+                self.in_decode = False
+
+        def watched_route(*args):
+            out = route(*args)
+            if self.in_decode:
+                self.ticks[-1][1].append(out[3].clone())
+            return out
+
+        moe._router_assignments = watched_route
+        transformer.decode_step = watched_decode
+        engine_cls._admit = watched_admit
+
+    def restore(self) -> None:
+        moe, transformer, engine_cls = self.mods
+        moe._router_assignments, transformer.decode_step, engine_cls._admit = self.real
+
+    def summary(self) -> dict:
+        torch = self.torch
+        out = {"decode_ticks": len(self.ticks), "ticks_live_slot_lost": 0,
+               "live_assignments_lost": 0, "idle_assignments_lost": 0}
+        for live, keeps in self.ticks:
+            lost = (~torch.stack(keeps)[:, 0]).sum(dim=(0, 2)).cpu()  # (slots,) over layers
+            mask = torch.tensor(live)
+            out["ticks_live_slot_lost"] += int((lost[mask] > 0).any())
+            out["live_assignments_lost"] += int(lost[mask].sum())
+            out["idle_assignments_lost"] += int(lost[~mask].sum())
+        return out
+
+
+def phase_main_moe(torch, counted, smi: str) -> dict:
+    """The MoE family: granite-moe-3b-a800m trained at full width (4 layers,
+    the config's einsum dispatch; aux loss positive), gather against einsum
+    on one full-width layer, then granite-moe-3b-a800m served whole (pooled
+    held to batch-1: its decode capacity, max(int(8 * 8 / 40 * 1.25), 8) =
+    8, never drops) and qwen2-moe-a2.7b served whole (15.15 B parameters;
+    pooled against batch-1 printed, not gated: its decode capacity is
+    max(int(8 * 4 / 60 * 1.25), 4) = 4, so a pooled tick can drop an
+    assignment that batch-1 keeps, as in the reference; the ticks where a
+    live slot lost one are counted)."""
+    from repro_torch.configs import granite_moe_3b_a800m
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    report, train = train_family(torch, counted, granite_moe_3b_a800m, MOE_TRAIN_ARCH,
+                                 MOE_TRAIN_ARGS, MOE_REDUCED, "main_moe")
+    del report
+    if not all(a > 0 for a in train["aux_losses"]):
+        fail(f"{MOE_TRAIN_ARCH}: aux loss not positive: {train['aux_losses']}")
+    route = moe_route_check(torch)
+    emit({"phase": "main_moe", **route})
+    if not route["ok"]:
+        fail(f"gather against einsum dispatch on the card: {route}")
+
+    report, args, granite = serve_path(torch, counted, MOE_SERVE_ARGS, smi, "main_moe")
+    done = sorted(report.done, key=lambda r: r.uid)
+    serve_profile(torch, report, args.max_len, "main_moe")
+    gpooled, _ = pooled_and_cacheless(torch, report.cfg, report.engine.params, done,
+                                      args.max_len, "main_moe", cacheless=False)
+    del report, done
+    torch.cuda.empty_cache()
+
+    slots = serve.parse_args(QWEN_SERVE_ARGS).slots
+    watch = DropWatch(torch, moe, transformer, ServeEngine, slots)
+    try:
+        report, args, qwen = serve_path(torch, counted, QWEN_SERVE_ARGS, smi, "main_moe")
+    finally:
+        watch.restore()
+    drops = watch.summary()
+    del watch
+    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
+    serve_profile(torch, report, args.max_len, "main_moe")
+    toks = torch.tensor(eng.last_token[:, None], device="cuda")
+    logits, _ = transformer.decode_step(eng.params, eng.cache, toks, eng.positions, cfg)
+    finite = bool(torch.isfinite(logits).all())
+    qpooled, _ = pooled_and_cacheless(torch, cfg, eng.params, done, args.max_len, "main_moe",
+                                      gate=False, cacheless=False)
+    emit({"phase": "main_moe", "check": "qwen_drops", "arch": cfg.name, "slots": slots,
+          "decode_capacity": max(int(args.slots * cfg.moe.top_k / cfg.moe.num_experts
+                                     * moe.CAPACITY_FACTOR), cfg.moe.top_k),
+          **drops, "finite_logits": finite,
+          "pooled_not_gated": "capacity is set per group, so a pooled tick can drop an "
+                              "assignment that batch-1 decode keeps, as in the reference"})
+    if not finite:
+        fail(f"{cfg.name}: non-finite logits after serving")
+    del logits, report, eng, done
+    torch.cuda.empty_cache()
+    return {"train": train, "route": route, "granite": granite, "granite_pooled": gpooled,
+            "qwen": qwen, "qwen_pooled": qpooled, "qwen_drops": drops,
+            "launches": add_launches(train, granite, qwen)}
+
+
 def build_all(builders) -> dict:
     """Build every kernel library at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2076,15 +2469,19 @@ def main() -> int:
     phase_model(torch)
     phase_model_lm(torch)
     phase_model_rwkv(torch)
+    phase_model_families(torch)
     main_out = phase_main(torch, ops)
     pipe_out = phase_main_pipeline(torch, ops, main_out, smi)
     auto_out = phase_main_autotune(torch, ops, main_out, pipe_out["figures"]["pipeline"], smi)
     lm_out = phase_main_lm(torch, flash_ops, ops)
     rwkv_out = phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ops, flash_ops)
-    serve_out = phase_main_serve(torch, {"ingest_norm": ops.ingest_norm,
-                                         "flash_attention": flash_ops.flash_attention,
-                                         "rwkv6_wkv": wkv_ops.wkv, "rmsnorm": rms_ops.rmsnorm},
-                                 smi)
+    counted = {"ingest_norm": ops.ingest_norm, "flash_attention": flash_ops.flash_attention,
+               "rwkv6_wkv": wkv_ops.wkv, "rmsnorm": rms_ops.rmsnorm}
+    serve_out = phase_main_serve(torch, counted, smi)
+    mla_out = phase_main_mla(torch, counted, smi)
+    moe_out = phase_main_moe(torch, counted, smi)
+    family = {name: {"launches_mla": mla_out["launches"][name],
+                     "launches_moe": moe_out["launches"][name]} for name in counted}
 
     emit({"kernels": [{
         "name": "ingest_norm",
@@ -2096,6 +2493,7 @@ def main() -> int:
         "launches_autotune": auto_out["launches"]["autotune"],
         "launches_thread_budget": auto_out["launches"]["thread_budget"],
         "launches_serve": serve_out["launches"]["ingest_norm"],
+        **family["ingest_norm"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["kernel_ms"],
         "kernel_ms": kern["kernel_ms"],
@@ -2111,6 +2509,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
         "launches": lm_out["flash_attention_launches"],
         "launches_serve": serve_out["launches"]["flash_attention"],
+        **family["flash_attention"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["kernel_ms"],
         "kernel_ms": flash["kernel_ms"],
@@ -2127,6 +2526,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:78",
         "launches": rwkv_out["wkv_launches"],
         "launches_serve": serve_out["launches"]["rwkv6_wkv"],
+        **family["rwkv6_wkv"],
         "max_abs_err": wkv["max_abs_err"],
         "ms": wkv["kernel_ms"],
         "kernel_ms": wkv["kernel_ms"],
@@ -2141,6 +2541,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
         "launches": rms["launches"],
         "launches_serve": serve_out["launches"]["rmsnorm"],
+        **family["rmsnorm"],
         "max_abs_err": rms["max_abs_err"],
         "ms": rms["kernel_ms"],
         "kernel_ms": rms["kernel_ms"],

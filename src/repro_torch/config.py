@@ -1,20 +1,21 @@
 """Frozen-dataclass configuration for the port's slices, and the arch registry.
 
 A trimmed copy of ``repro/config.py``: only the fields the ResNet, dense
-decoder (LM) and RWKV-6 training slices read, with the reference's names and
-defaults (``LoaderConfig`` drops ``pin_device`` and ``device_prefetch``,
-which the reference declares but never reads; the ring's depth is
-``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops ``token_shift``, for
-the same reason).  ``LoaderConfig`` keeps the reference's warn-once
-flat-kwarg shim (``pipeline=True, reorder=...`` folded into
-:class:`PipelineConfig`).  ``PipelineConfig`` has no ``transport`` or slab
-fields until the shared-memory transport is ported, and
-:class:`AutotuneConfig` no field of a feature the port lacks (the
+decoder (LM, with gqa/mha or mla attention, and MoE FFNs) and RWKV-6 slices
+read, with the reference's names and defaults (``LoaderConfig`` drops
+``pin_device`` and ``device_prefetch``, which the reference declares but
+never reads; the ring's depth is ``Trainer(device_prefetch=...)``;
+``RWKVConfig`` drops ``token_shift`` and ``MoEConfig`` drops
+``router_jitter``, for the same reason).  ``LoaderConfig`` keeps the
+reference's warn-once flat-kwarg shim (``pipeline=True, reorder=...``
+folded into :class:`PipelineConfig`).  ``PipelineConfig`` has no
+``transport`` or slab fields until the shared-memory transport is ported,
+and :class:`AutotuneConfig` no field of a feature the port lacks (the
 multi-host lease and shedding, cache knobs, slab knob, lane-skew gate,
 serving bounds).  :class:`ServeSpec` sizes the serving engine only; the
-reference's read-path fields come with its read path.  MoE, SSM, MLA,
-enc-dec and VLM fields come with their slices.  ``replace()`` (from
-dataclasses) derives variants.
+reference's read-path fields come with its read path.  SSM and hybrid
+fields (``moe_every_k`` with them), enc-dec and VLM fields come with their
+slices.  ``replace()`` (from dataclasses) derives variants.
 """
 from __future__ import annotations
 
@@ -26,12 +27,18 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 @dataclass(frozen=True)
 class AttentionConfig:
-    """Attention flavour. kind: mha | gqa (mla comes with its slice)."""
+    """Attention flavour. kind: mha | gqa | mla."""
 
     kind: str = "gqa"
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 128
+    # MLA (multi-head latent attention, MiniCPM3/DeepSeek style)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     causal: bool = True
     rope: bool = True
     rope_theta: float = 10_000.0
@@ -39,6 +46,27 @@ class AttentionConfig:
     @property
     def q_heads_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k mixture of experts."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    expert_d_ff: int = 512
+    num_shared_experts: int = 0
+    shared_d_ff: int = 0
+    load_balance_coef: float = 0.01
+    # dispatch: "einsum" (dense one-hot (g, E, C) dispatch and combine
+    # tensors) or "gather" (tokens scattered into the (E, C) expert buffer
+    # and gathered back); the two give the same result
+    dispatch: str = "einsum"
+    # token-group size for routing: capacity is set per group
+    group_size: int = 4096
+    # pad the stacked expert weights to this count (0 = no padding);
+    # padded experts receive no tokens
+    pad_experts_to: int = 0
 
 
 @dataclass(frozen=True)
@@ -58,6 +86,7 @@ class ModelConfig:
     d_ff: int = 1024
     vocab_size: int = 32_000
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     mlp: str = "swiglu"  # swiglu | relu2 | gelu
     norm: str = "rmsnorm"  # rmsnorm | layernorm

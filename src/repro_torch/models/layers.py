@@ -1,4 +1,4 @@
-"""Building blocks of the dense decoder: norms, RoPE, MHA/GQA attention,
+"""Building blocks of the decoder: norms, RoPE, MHA/GQA and MLA attention,
 MLPs, embedding, LM head and the loss.
 
 Plain functions over parameter trees (nested dicts of tensors) laid out as
@@ -14,8 +14,13 @@ Attention dispatch (``_sdpa``) follows ``layers.py:167-191``:
 no cache and ``S == T``; otherwise q lengths of 4096 and more (multiples of
 1024) take the q-chunked ``_sdpa_chunked``, and shorter ones ``_sdpa_dense``.
 ``apply_attention`` has the reference's self-attention KV-cache branch
-(prefill and decode, with per-slot positions); cross-attention and MLA come
-with their slices.
+(prefill and decode, with per-slot positions); cross-attention comes with
+the encoder-decoder family.  ``apply_mla_attention`` (multi-head latent
+attention) caches the latent and the shared rope key; with a cache and at
+most ``MLA_ABSORB_MAX_S`` query positions it attends in the latent space
+(the absorbed branch), otherwise it expands the latent over the whole
+cache and calls ``_sdpa`` on the plain route, as the reference does (its
+qk and v head dims differ, and it never takes the flash kernel).
 """
 from __future__ import annotations
 
@@ -104,9 +109,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Params:
     a = cfg.attention
-    if a is None or a.kind not in ("mha", "gqa"):
-        raise ValueError(f"the port's attention is mha or gqa; got {a and a.kind!r}")
+    if a is None or a.kind not in ("mha", "gqa", "mla"):
+        raise ValueError(f"the port's attention is mha, gqa or mla; got {a and a.kind!r}")
     d, dt, hd = cfg.d_model, pdtype(cfg), a.head_dim
+    if a.kind == "mla":
+        rd, nd, vd = a.qk_rope_head_dim, a.qk_nope_head_dim, a.v_head_dim
+        dev = generator.device
+        return {
+            "wq_a": dense_init(generator, d, (a.q_lora_rank,), dt),
+            "q_norm": torch.ones((a.q_lora_rank,), dtype=dt, device=dev),
+            "wq_b": dense_init(generator, a.q_lora_rank, (a.num_heads, nd + rd), dt),
+            "wkv_a": dense_init(generator, d, (a.kv_lora_rank,), dt),
+            "kv_norm": torch.ones((a.kv_lora_rank,), dtype=dt, device=dev),
+            "wk_rope": dense_init(generator, d, (rd,), dt),
+            "wkv_b": dense_init(generator, a.kv_lora_rank, (a.num_heads, nd + vd), dt),
+            "wo": dense_init(generator, a.num_heads * vd, (d,), dt).reshape(a.num_heads, vd, d),
+        }
     return {
         "wq": dense_init(generator, d, (a.num_heads, hd), dt),
         "wk": dense_init(generator, d, (a.num_kv_heads, hd), dt),
@@ -184,28 +202,36 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
 
 
-def _cache_update(cache: Params, k: torch.Tensor, v: torch.Tensor,
-                  cache_pos: Offset) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write k, v (B,S,Hkv,D) into the cache's (B,max_len,Hkv,D) leaves at
-    ``cache_pos``, in place, and return the leaves.  An int writes one slice
-    of every row (a write past ``max_len`` raises, where the reference's
-    ``dynamic_update_slice`` clamps it onto earlier positions); a (B,)
-    tensor writes row b at its own position (per-slot decode; the caller
-    checks its bounds on the host, as ``transformer.decode_step`` does)."""
-    kc, vc = cache["k"], cache["v"]
-    S, max_len = k.shape[1], kc.shape[1]
+def _write_at(leaves: Tuple[torch.Tensor, ...], news: Tuple[torch.Tensor, ...],
+              cache_pos: Offset) -> Tuple[torch.Tensor, ...]:
+    """Write each of ``news`` (B,S,...) into its cache leaf (B,max_len,...)
+    at ``cache_pos``, in place, and return the leaves.  An int writes one
+    slice of every row (a write past ``max_len`` raises, where the
+    reference's ``dynamic_update_slice`` clamps it onto earlier positions);
+    a (B,) tensor writes row b at its own position (per-slot decode; the
+    caller checks its bounds on the host, as ``transformer.decode_step``
+    does)."""
+    first = leaves[0]
+    B, S, max_len = news[0].shape[0], news[0].shape[1], first.shape[1]
     if isinstance(cache_pos, torch.Tensor):
-        rows = torch.arange(k.shape[0], device=kc.device)[:, None]
-        cols = cache_pos.to(kc.device).long()[:, None] + torch.arange(S, device=kc.device)
-        kc[rows, cols] = k.to(kc.dtype)
-        vc[rows, cols] = v.to(vc.dtype)
-        return kc, vc
+        rows = torch.arange(B, device=first.device)[:, None]
+        cols = cache_pos.to(first.device).long()[:, None] + torch.arange(S, device=first.device)
+        for leaf, new in zip(leaves, news):
+            leaf[rows, cols] = new.to(leaf.dtype)
+        return leaves
     if not 0 <= cache_pos <= max_len - S:
         raise ValueError(f"cache write of {S} positions at {cache_pos} runs past "
                          f"max_len {max_len}")
-    kc[:, cache_pos: cache_pos + S] = k.to(kc.dtype)
-    vc[:, cache_pos: cache_pos + S] = v.to(vc.dtype)
-    return kc, vc
+    for leaf, new in zip(leaves, news):
+        leaf[:, cache_pos: cache_pos + S] = new.to(leaf.dtype)
+    return leaves
+
+
+def _cache_update(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                  cache_pos: Offset) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write k, v (B,S,Hkv,D) into the cache's (B,max_len,Hkv,D) leaves at
+    ``cache_pos`` (:func:`_write_at`) and return the leaves."""
+    return _write_at((cache["k"], cache["v"]), (k, v), cache_pos)
 
 
 def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
@@ -236,6 +262,75 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions: 
     out = _sdpa(qg, k.to(x.dtype), v.to(x.dtype), causal=causal, q_offset=q_offset,
                 kv_len=kv_len, impl=cfg.attention_impl)
     out = out.reshape(B, S, a.num_heads, a.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+
+
+MLA_ABSORB_MAX_S = 64  # with a cache, q lengths up to this attend in the latent space (0: never)
+
+
+def _mla_rms(z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """MLA's inner RMSNorm: fp32, eps 1e-6, an fp32 scale."""
+    zf = z.float()
+    return (zf * torch.rsqrt((zf * zf).mean(-1, keepdim=True) + 1e-6)
+            * scale.float()).to(z.dtype)
+
+
+def apply_mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                        positions: torch.Tensor, q_offset: int = 0, causal: bool = True,
+                        cache: Optional[Params] = None, cache_pos: Optional[Offset] = None
+                        ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head latent attention (MiniCPM3 / DeepSeek-V2), as
+    ``repro/models/layers.py:279-379``; returns (y, cache).
+
+    The cache holds only the normalized latent ``c_kv`` (kv_lora_rank) and
+    the shared rope key ``k_rope`` (qk_rope_head_dim), written in place at
+    ``cache_pos`` as :func:`_write_at` writes.  With a cache and S <=
+    ``MLA_ABSORB_MAX_S``, wkv_b's key half is absorbed into the query and
+    its value half into the output, so the cache is never expanded;
+    otherwise (training, long prefill, each prefill chunk) the latent is
+    expanded to per-head keys and values over the whole cache length and
+    attended by ``_sdpa`` on its plain route, masked at ``kv_len``.
+    ``q_offset`` is as in :func:`apply_attention`."""
+    a = cfg.attention
+    B, S, _ = x.shape
+    rd, nd, vd, H = a.qk_rope_head_dim, a.qk_nope_head_dim, a.v_head_dim, a.num_heads
+
+    cq = _mla_rms(x @ p["wq_a"].to(x.dtype), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"].to(x.dtype))  # (B,S,H,nd+rd)
+    q_nope, q_rope = q[..., :nd], apply_rope(q[..., nd:], positions, a.rope_theta)
+    c_kv = _mla_rms(x @ p["wkv_a"].to(x.dtype), p["kv_norm"])  # (B,S,r)
+    k_rope = apply_rope((x @ p["wk_rope"].to(x.dtype))[:, :, None], positions,
+                        a.rope_theta)[:, :, 0]  # (B,S,rd)
+
+    kv_len = None
+    if cache is not None:
+        c_kv, k_rope = _write_at((cache["c_kv"], cache["k_rope"]), (c_kv, k_rope), cache_pos)
+        cache = {"c_kv": c_kv, "k_rope": k_rope}
+        q_offset, kv_len = cache_pos, cache_pos + S
+
+    if cache is not None and S <= MLA_ABSORB_MAX_S:
+        wkv_b = p["wkv_b"].to(x.dtype)  # (r, H, nd+vd)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wkv_b[..., :nd])  # (B,S,H,r)
+        ckv, krt = c_kv.to(x.dtype), k_rope.to(x.dtype)  # (B,T,r), (B,T,rd)
+        scores = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+                  + torch.einsum("bshr,btr->bhst", q_rope, krt)).float() * (1.0 / math.sqrt(nd + rd))
+        T = ckv.shape[1]
+        tpos = torch.arange(T, device=x.device)
+        qpos = torch.arange(S, device=x.device)[None, :] + _per_row(q_offset)  # (B|1,S)
+        mask = (tpos[None, None, :] <= qpos[:, :, None]) \
+            & (tpos[None, :] < _per_row(kv_len))[:, None, :]
+        w = torch.softmax(scores.masked_fill(~mask[:, None], NEG_INF), dim=-1).to(x.dtype)
+        out_lat = torch.einsum("bhst,btr->bshr", w, ckv)  # (B,S,H,r)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, wkv_b[..., nd:])  # (B,S,H,vd)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+
+    kv = torch.einsum("btr,rhk->bthk", c_kv.to(x.dtype), p["wkv_b"].to(x.dtype))
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    T = k_nope.shape[1]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].to(x.dtype).expand(B, T, H, rd)], dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, nd + rd)
+    out = _sdpa(qh, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out = out.reshape(B, S, H, vd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
 
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense and RWKV families (the reference's
-``repro/models/transformer.py``).
+"""Decoder-only LM assembly: the dense, MLA, MoE and RWKV families (the
+reference's ``repro/models/transformer.py``).
 
 Block parameters are stacked over layers as in the reference (each leaf of
 ``params["blocks"]`` has a leading ``num_layers`` axis whenever there is more
@@ -24,7 +24,10 @@ The cache (``init_cache``) has the reference's tree and layout, so it
 crosses with :func:`repro_torch.convert.from_jax`.  Where the reference
 returns a new cache, the port writes the pooled tensors in place and
 returns them.  Prefill and decode run under ``torch.inference_mode``.
-MoE, Mamba and MLA mixers come with their slices.  The RWKV time-mix runs
+An MLA layer caches its latent and rope key (``c_kv``, ``k_rope``); an MoE
+FFN returns its load-balancing loss, summed over layers into ``aux``.
+Mamba (hybrid), encoder-decoder and VLM come with their slices.  The RWKV
+time-mix runs
 the plain chunked scan on sequences longer than one token and the plain
 loop on one, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is
 reached by calling ``rwkv6.apply_rwkv_timemix`` directly.
@@ -46,6 +49,7 @@ from repro_torch.models.layers import (
     apply_attention,
     apply_embedding,
     apply_lm_head,
+    apply_mla_attention,
     apply_mlp,
     apply_norm,
     cdtype,
@@ -56,6 +60,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
 )
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.tree import flatten, tree_map
 
 # ---------------------------------------------------------------------------
@@ -64,18 +69,20 @@ from repro_torch.tree import flatten, tree_map
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """Per layer: (mixer, ffn).  The port has the dense decoder, ("attn",
-    "mlp") on every layer, and RWKV-6, ("rwkv", "rwkv_cm"); other families
+    """Per layer: (mixer, ffn), the same on every layer: the decoder's mixer
+    is "attn" (mha/gqa) or "mla" and its FFN "mlp" or "moe"; RWKV-6 has
+    ("rwkv", "rwkv_cm").  Other families (hybrid, encoder-decoder, VLM)
     raise until their slice."""
     if cfg.family == "rwkv":
         return [("rwkv", "rwkv_cm")] * cfg.num_layers
     if cfg.family != "decoder":
-        raise ValueError(f"the port's LM is the dense decoder or RWKV-6; "
+        raise ValueError(f"the port's LM is the decoder or RWKV-6; "
                          f"{cfg.name} is {cfg.family!r}")
-    if cfg.attention is None or cfg.attention.kind not in ("mha", "gqa"):
+    if cfg.attention is None or cfg.attention.kind not in ("mha", "gqa", "mla"):
         kind = cfg.attention.kind if cfg.attention is not None else None
-        raise ValueError(f"the port's LM has mha/gqa attention; {cfg.name} has {kind!r}")
-    return [("attn", "mlp")] * cfg.num_layers
+        raise ValueError(f"the port's LM has mha/gqa/mla attention; {cfg.name} has {kind!r}")
+    mixer = "mla" if cfg.attention.kind == "mla" else "attn"
+    return [(mixer, "mlp" if cfg.moe is None else "moe")] * cfg.num_layers
 
 
 def period(cfg: ModelConfig) -> int:
@@ -102,12 +109,14 @@ def _init_sublayer(generator: torch.Generator, cfg: ModelConfig,
     mixer, ffn = kind
     dev = generator.device
     p: Params = {"ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev)}
-    if mixer == "attn":
+    if mixer in ("attn", "mla"):
         p["attn"] = init_attention(generator, cfg)
     elif mixer == "rwkv":
         p["tm"] = rwkv6.init_rwkv_timemix(generator, cfg)
     if ffn == "mlp":
         p["mlp"] = init_mlp(generator, cfg)
+    elif ffn == "moe":
+        p["moe"] = init_moe(generator, cfg)
     elif ffn == "rwkv_cm":
         p["cm"] = rwkv6.init_rwkv_channelmix(generator, cfg)
     return p
@@ -156,11 +165,16 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 def _sublayer_cache(cfg: ModelConfig, kind: Tuple[str, str], batch: int, max_len: int,
                     device: torch.device) -> Params:
     mixer, _ = kind
+    a = cfg.attention
     if mixer == "attn":
-        a = cfg.attention
         shape = (batch, max_len, a.num_kv_heads, a.head_dim)
         return {"k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
                 "v": torch.zeros(shape, dtype=cdtype(cfg), device=device)}
+    if mixer == "mla":
+        return {"c_kv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=cdtype(cfg),
+                                    device=device),
+                "k_rope": torch.zeros((batch, max_len, a.qk_rope_head_dim), dtype=cdtype(cfg),
+                                      device=device)}
     if mixer == "rwkv":
         return rwkv6.init_rwkv_cache(cfg, batch, device)
     raise ValueError(kind)
@@ -169,9 +183,10 @@ def _sublayer_cache(cfg: ModelConfig, kind: Tuple[str, str], batch: int, max_len
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> Params:
     """Zeros in the reference's tree: ``{"sub0": {"k", "v"}}`` of (B,
-    max_len, Hkv, D) in the compute dtype for attention, RWKV's state and
-    token shifts in fp32; each leaf with a leading layer axis when blocks
-    are stacked."""
+    max_len, Hkv, D) in the compute dtype for attention, ``{"c_kv",
+    "k_rope"}`` of (B, max_len, kv_lora_rank) and (B, max_len,
+    qk_rope_head_dim) for MLA, RWKV's state and token shifts in fp32; each
+    leaf with a leading layer axis when blocks are stacked."""
     dev = resolve_device(device)
     kinds = layer_kinds(cfg)
     P_ = period(cfg)
@@ -183,10 +198,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _cache_len(cache: Params) -> Optional[int]:
-    """Positions an attention cache holds (None for a recurrent one)."""
+    """Positions an attention cache holds: the length axis of a ``k``
+    (B, max_len, Hkv, D) or an MLA ``c_kv`` (B, max_len, r) leaf; None for a
+    recurrent cache."""
     for path, leaf in flatten(cache).items():
         if path.endswith("/k"):
             return leaf.shape[-3]
+        if path.endswith("/c_kv"):
+            return leaf.shape[-2]
     return None
 
 
@@ -198,14 +217,20 @@ def _cache_len(cache: Params) -> Optional[int]:
 def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[str, str], *,
                     positions: torch.Tensor, cache: Optional[Params] = None,
                     cache_pos: Optional[Offset] = None
-                    ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One layer; returns (x, the layer's new cache, or None without one)."""
+                    ) -> Tuple[torch.Tensor, Optional[Params], Optional[torch.Tensor]]:
+    """One layer; returns (x, the layer's new cache, or None without one,
+    the MoE aux loss, or None for another FFN: a dense layer adds no
+    kernel for it)."""
     mixer, ffn = kind
+    aux = None
     h = apply_norm(p["ln1"], x, cfg)
     new_cache = cache
     if mixer == "attn":
         out, new_cache = apply_attention(p["attn"], h, cfg, positions=positions, causal=True,
                                          cache=cache, cache_pos=cache_pos)
+    elif mixer == "mla":
+        out, new_cache = apply_mla_attention(p["attn"], h, cfg, positions=positions,
+                                             causal=True, cache=cache, cache_pos=cache_pos)
     elif mixer == "rwkv":
         out, tm_cache = rwkv6.apply_rwkv_timemix(p["tm"], h, cfg, cache=cache,
                                                  scan_mode="chunk" if h.shape[1] > 1 else "seq")
@@ -217,13 +242,15 @@ def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[st
     h = apply_norm(p["ln2"], x, cfg)
     if ffn == "mlp":
         out = apply_mlp(p["mlp"], h, cfg)
+    elif ffn == "moe":
+        out, aux = apply_moe(p["moe"], h, cfg)
     elif ffn == "rwkv_cm":
         out, cm_cache = rwkv6.apply_rwkv_channelmix(p["cm"], h, cfg, cache=new_cache)
         if cm_cache is not None:
             new_cache = dict(new_cache, **cm_cache)
     else:
         raise ValueError(ffn)
-    return x + out, new_cache
+    return x + out, new_cache, aux
 
 
 def _unbind(tree: Any) -> List[Any]:
@@ -244,20 +271,25 @@ def _apply_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor, cache: Optional[Params] = None,
                   cache_pos: Optional[Offset] = None
                   ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Every layer; returns (x, cache, aux).  A given cache is updated in
-    place, layer by layer through views of its stacked leaves."""
+    """Every layer; returns (x, cache, aux), aux the sum of the layers' MoE
+    aux losses (through the checkpointed blocks too, as the reference's
+    scan carries it).  A given cache is updated in place, layer by layer
+    through views of its stacked leaves."""
     kinds = layer_kinds(cfg)
     P_ = period(cfg)
 
     def block_fn(xc: torch.Tensor, bp: Params, bc: Optional[Params]):
         new_bc = None if bc is None else {}
+        aux_b = None
         for j in range(P_):
-            xc, nc = _apply_sublayer(bp[f"sub{j}"], xc, cfg, kinds[j], positions=positions,
-                                     cache=None if bc is None else bc[f"sub{j}"],
-                                     cache_pos=cache_pos)
+            xc, nc, a = _apply_sublayer(bp[f"sub{j}"], xc, cfg, kinds[j], positions=positions,
+                                        cache=None if bc is None else bc[f"sub{j}"],
+                                        cache_pos=cache_pos)
             if bc is not None:
                 new_bc[f"sub{j}"] = nc
-        return xc, new_bc
+            if a is not None:
+                aux_b = a if aux_b is None else aux_b + a
+        return xc, new_bc, aux_b
 
     stacked = _stacked(cfg)
     blocks = _unbind(params["blocks"]) if stacked else [params["blocks"]]
@@ -265,14 +297,16 @@ def _apply_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         caches = [None] * len(blocks)
     else:
         caches = _unbind(cache) if stacked else [cache]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, bc in zip(blocks, caches):
         if cfg.remat and torch.is_grad_enabled():
-            x, new_bc = checkpoint(block_fn, x, bp, bc, use_reentrant=False)
+            x, new_bc, aux_b = checkpoint(block_fn, x, bp, bc, use_reentrant=False)
         else:
-            x, new_bc = block_fn(x, bp, bc)
+            x, new_bc, aux_b = block_fn(x, bp, bc)
+        if aux_b is not None:
+            aux = aux + aux_b
         if bc is not None:
             tree_map(_write_back, bc, new_bc)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # MoE aux loss: none here
     return x, cache, aux
 
 
@@ -301,11 +335,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Writes positions [0, S) into the cache; returns (last-position
     logits, cache).
 
-    A dense decoder's prompt longer than ``PREFILL_CHUNK`` (and a multiple
-    of it) runs chunked, as the reference's (vLLM-style): each chunk of
-    tokens attends over the cache written so far, so activation memory is
-    O(chunk), not O(S).  RWKV keeps the single pass (its state is O(1) a
-    token)."""
+    A decoder's prompt (dense, MLA or MoE) longer than ``PREFILL_CHUNK``
+    (and a multiple of it) runs chunked, as the reference's (vLLM-style):
+    each chunk of tokens attends over the cache written so far, so
+    activation memory is O(chunk), not O(S); an MoE layer routes each chunk
+    in its own groups, as there.  RWKV keeps the single pass (its state is
+    O(1) a token)."""
     tokens = batch["tokens"]
     S, C = tokens.shape[1], PREFILL_CHUNK
     chunked = cfg.family == "decoder" and S > C and S % C == 0

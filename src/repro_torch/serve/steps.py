@@ -13,10 +13,10 @@ from repro_torch.models import transformer
 
 def make_serve_fns(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"
                    ) -> Dict[str, Callable]:
-    """Returns dict(init_cache, prefill, decode) for the dense decoder and
-    RWKV families; caches are made on ``device``."""
+    """Returns dict(init_cache, prefill, decode) for the decoder (dense,
+    MLA, MoE) and RWKV families; caches are made on ``device``."""
     if cfg.family not in ("decoder", "rwkv"):
-        raise ValueError(f"the port serves the dense decoder and RWKV-6; {cfg.name} is "
+        raise ValueError(f"the port serves the decoder and RWKV-6; {cfg.name} is "
                          f"{cfg.family!r}")
     dev = resolve_device(device)
     return {

@@ -9,7 +9,9 @@ Gradients come from autograd; the optimizer updates parameters and moments
 in place (:mod:`repro_torch.train.optim`).  ``state["step"]`` is a host int.
 For the LM, as in ``repro/train/steps.py``:
 
-* loss = model loss + aux loss (zero for the dense decoder);
+* loss = model loss + aux loss (the MoE load-balancing loss summed over
+  layers; zero for a model without MoE layers), both in the metrics as
+  ``loss`` and ``aux_loss``;
 * ``microbatches > 1`` splits the batch along its leading dim and sums the
   microbatches' gradients in fp32, then divides by their count;
 * the gradients then take the compression round trip (none / bf16 /

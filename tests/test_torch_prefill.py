@@ -1,8 +1,10 @@
 """The port's KV cache, prefill (single pass and chunked) and decode_step
 against the JAX reference, for the granite-8b, granite-3-8b,
-nemotron-4-340b and rwkv6-7b smoke configs, from the reference's own
-initial weights carried across with ``lm_params_from_jax``; the two dense
-configs of this slice also train against the reference.
+nemotron-4-340b, minicpm3-4b (MLA), granite-moe-3b-a800m and
+qwen2-moe-a2.7b (MoE) and rwkv6-7b smoke configs, from the reference's own
+initial weights carried across with ``lm_params_from_jax``; every config
+but granite-8b and rwkv6-7b (``tests/test_torch_lm.py``,
+``tests/test_torch_rwkv6.py``) also trains against the reference here.
 
 Tolerances: fp32 logits and cache leaves within 1e-4 of the reference's
 (summation order only; measured about 3e-6 on the logits); chunked against
@@ -31,6 +33,7 @@ from repro_torch.train.steps import lm_train_state, make_train_step  # noqa: E40
 from repro_torch.tree import flatten  # noqa: E402
 
 DENSE = ["granite-8b", "granite-3-8b", "nemotron-4-340b"]
+MLA_MOE = ["minicpm3-4b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"]
 F32 = dict(dtype="float32")
 TOL_F32 = 1e-4
 TOL_CHUNKED = 0.05
@@ -64,24 +67,34 @@ def _caches_close(cache, jcache, tol):
 
 
 # ---------------------------------------------------------------------------
-# the two configs of this slice
+# the configs trained here
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "nemotron-4-340b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "nemotron-4-340b"] + MLA_MOE)
 def test_configs_match_the_reference(arch):
+    """Field for field; the port's ``MoEConfig`` is the reference's without
+    ``router_jitter`` (declared there, never read)."""
     for smoke in (False, True):
         got, want = get_arch(arch, smoke=smoke), jax_get_arch(arch, smoke=smoke)
         for f in dataclasses.fields(got):
-            if f.name != "attention":
+            if f.name not in ("attention", "moe"):
                 assert getattr(got, f.name) == getattr(want, f.name), f.name
-        for f in dataclasses.fields(got.attention):
-            assert getattr(got.attention, f.name) == getattr(want.attention, f.name), f.name
+        for sub in ("attention", "moe"):
+            if getattr(want, sub) is None:
+                assert getattr(got, sub) is None, sub
+                continue
+            names = [f.name for f in dataclasses.fields(getattr(got, sub))]
+            assert names == [f.name for f in dataclasses.fields(getattr(want, sub))
+                             if f.name != "router_jitter"], sub
+            for name in names:
+                assert getattr(getattr(got, sub), name) == getattr(getattr(want, sub), name), \
+                    (sub, name)
     assert get_arch("granite-3-8b").vocab_size == 49_155  # odd: no multiple of 8
     assert get_arch("nemotron-4-340b").attention.head_dim == 192
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "nemotron-4-340b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "nemotron-4-340b"] + MLA_MOE)
 def test_forward_loss_and_a_train_step_match_the_reference(arch):
     cfg, params, jcfg, np_params = _models(arch, **F32)
     rng = np.random.default_rng(3)
@@ -89,10 +102,12 @@ def test_forward_loss_and_a_train_step_match_the_reference(arch):
              for k in ("tokens", "targets")}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    want, _ = jax.jit(lambda p, b: jT.forward_train(p, b, jcfg))(np_params, jb)
+    want, want_aux = jax.jit(lambda p, b: jT.forward_train(p, b, jcfg))(np_params, jb)
     with torch.no_grad():
-        got, _ = transformer.forward_train(params, tb, cfg)
+        got, got_aux = transformer.forward_train(params, tb, cfg)
     _close(got, want, 1e-5, "forward loss")
+    _close(got_aux, want_aux, 1e-5, "aux loss")
+    assert (float(got_aux) > 0) == (cfg.moe is not None)
 
     hp = dict(optimizer="adamw", learning_rate=1e-3, warmup_steps=1, total_steps=10)
     jt, tcfg = JaxTrainConfig(**hp), TrainConfig(**hp)
@@ -103,7 +118,7 @@ def test_forward_loss_and_a_train_step_match_the_reference(arch):
     state = lm_train_state(params, tcfg)
     jstate, jm = jax.jit(jax_make_train_step(jcfg, jt))(jstate, jb)
     state, m = make_train_step(cfg, tcfg)(state, tb)
-    for k in ("loss", "grad_norm"):
+    for k in ("loss", "aux_loss", "grad_norm"):
         _close(m[k], jm[k], 1e-4, k)
     want_p = flatten(jax.device_get(jstate["params"]))
     for path, leaf in flatten(state["params"]).items():
@@ -115,12 +130,14 @@ def test_forward_loss_and_a_train_step_match_the_reference(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,chunk", [(a, None) for a in DENSE + ["rwkv6-7b"]]
-                         + [(a, 8) for a in DENSE])  # RWKV prefill has no chunked branch
+@pytest.mark.parametrize("arch,chunk", [(a, None) for a in DENSE + MLA_MOE + ["rwkv6-7b"]]
+                         + [(a, 8) for a in DENSE + MLA_MOE])  # RWKV has no chunked branch
 def test_prefill_and_per_slot_decode_match_the_reference(arch, chunk, monkeypatch):
     """fp32: prefill's logits and every cache leaf (single pass, and chunked
-    by 8), then one ``decode_step`` with a (B,) position (row 1 rewrites an
-    earlier position, as a reused slot does), logits and cache."""
+    by 8, each against the reference's own run: an MoE layer routes each
+    chunk in its own groups), then one ``decode_step`` with a (B,) position
+    (row 1 rewrites an earlier position, as a reused slot does), logits and
+    cache."""
     if chunk is not None:
         monkeypatch.setattr(transformer, "PREFILL_CHUNK", chunk)
         monkeypatch.setattr(jT, "PREFILL_CHUNK", chunk)
@@ -144,9 +161,11 @@ def test_prefill_and_per_slot_decode_match_the_reference(arch, chunk, monkeypatc
     _caches_close(cache, jcache, TOL_F32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["minicpm3-4b"])
 def test_chunked_prefill_matches_single_pass(arch, monkeypatch):
-    """Twin of the reference's test of the same name, bf16 as there."""
+    """Twin of the reference's test of the same name (granite-8b and
+    minicpm3-4b there), bf16 as there.  Not for MoE: its groups are per
+    chunk, so a chunk's capacity drops differ from a single pass's."""
     cfg = get_arch(arch, smoke=True)
     _, params, _, _ = _models(arch)
     B, S = 2, 32
@@ -191,7 +210,7 @@ def test_chunked_prefill_then_decode_consistent(arch, monkeypatch):
 
 
 @pytest.mark.parametrize("layers_", [None, 1], ids=["stacked", "one_layer"])
-@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b", "minicpm3-4b", "qwen2-moe-a2.7b"])
 def test_init_cache_has_the_reference_tree(arch, layers_):
     kw = {} if layers_ is None else {"num_layers": layers_}
     cfg = dataclasses.replace(get_arch(arch, smoke=True), **kw)
@@ -203,7 +222,7 @@ def test_init_cache_has_the_reference_tree(arch, layers_):
         assert tuple(got[path].shape) == want[path].shape, path
         assert str(got[path].dtype).replace("torch.", "") == str(want[path].dtype), path
         assert not got[path].any()
-    stacked_k = [v for p, v in got.items() if p.endswith("/k") or p.endswith("/state")][0]
+    stacked_k = [v for p, v in got.items() if p.endswith(("/k", "/c_kv", "/state"))][0]
     assert (stacked_k.shape[0] == cfg.num_layers) == (layers_ is None)
 
 

@@ -1,7 +1,8 @@
 """The port's serving engine and launcher against the JAX reference: twins
 of ``tests/test_serve.py`` (the same greedy tokens as the reference's
 ``ServeEngine`` and its sequential batch-1 decode, from the reference's
-own weights, in fp32), the bf16 engine held to the reference's logits
+own weights, in fp32; for the MLA and MoE configs, the same tokens as the
+reference's engine), the bf16 engine held to the reference's logits
 within a stated tolerance, and ``init_lm``'s fill-in-place.
 
 Tolerance at the smoke config's bf16: the port's and the reference's
@@ -26,7 +27,7 @@ from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro_torch.config import ServeSpec, get_arch  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.steps import greedy_sample, temperature_sample  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
@@ -141,6 +142,35 @@ def test_rwkv_family_serving():
     _, got, want = rwkv.serve(subs, spec=dict(num_slots=2, max_len=32), jax_too=True)
     assert len(got) == 2 and all(len(o) == 4 for o in got.values())
     assert got == want
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_mla_and_moe_engines_match_the_reference_engine(arch, monkeypatch):
+    """The pooled engine's tokens equal the reference engine's (fp32), 8
+    requests over 4 slots.  Both MoE smoke routers (qwen2-moe: 6 experts,
+    granite-moe: 8, top 2 each) have a decode capacity of 2 at 4 slots
+    (max(int(4 * 2 / E * 1.25), 2)), under the 8 assignments a tick makes,
+    so pooled decode drops assignments, idle slots' stale tokens included,
+    as the reference's does: the drop case, seen here by the port's
+    routing."""
+    model = Model(arch, dtype="float32")
+    drops = []
+    real = moe._router_assignments
+
+    def spy(p, xg, m, capacity):
+        out = real(p, xg, m, capacity)
+        if xg.shape[:2] == (1, 4):  # a pooled decode: one group of the 4 slots
+            drops.append(int((~out[3]).sum()))
+        return out
+
+    monkeypatch.setattr(moe, "_router_assignments", spy)
+    rng = np.random.default_rng(5)
+    subs = [(rng.integers(1, model.cfg.vocab_size, size=int(rng.integers(2, 9))).tolist(),
+             dict(max_new_tokens=int(rng.integers(3, 9)))) for _ in range(8)]
+    eng, got, want = model.serve(subs, spec=dict(num_slots=4, max_len=32), jax_too=True)
+    assert len(got) == 8 and got == want
+    assert eng.tokens_generated == sum(kw["max_new_tokens"] - 1 for _, kw in subs)
+    assert (sum(drops) > 0) == (model.cfg.moe is not None)
 
 
 def test_engine_takes_no_flat_sizing_kwargs(granite):
