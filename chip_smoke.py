@@ -82,9 +82,10 @@ Phases, each printing one JSON line:
    models served on the card against the CPU, fp32; (g) rwkv6-7b at full
    width, 4 layers, 8 requests over 4 slots, held as in (b).  No kernel
    runs on this path (the reference takes no Pallas route with a cache).
-9b. model_families — two AdamW steps of the minicpm3-4b (MLA) and
-   granite-moe-3b-a800m (MoE) smoke models on the card against the CPU
-   (fp32, TF32 off), loss and aux loss.
+9b. model_families — two AdamW steps of the minicpm3-4b (MLA),
+   granite-moe-3b-a800m (MoE) and jamba-v0.1-52b (hybrid, 8 layers and 16
+   in stacked blocks) smoke models on the card against the CPU (fp32, TF32
+   off), loss and aux loss.
 12. main_mla — minicpm3-4b at full width (depth 62 cut to 4) trained from
    simulated S3 through the launcher as main_lm, then served whole (62
    layers) through ``launch/serve.py`` at the reference launcher's
@@ -102,12 +103,29 @@ Phases, each printing one JSON line:
    beside the ticks where a live slot lost an assignment.  No kernel runs
    on the MLA or MoE paths (no Pallas route in the reference's MLA or
    MoE).
+14. main_hybrid — jamba-v0.1-52b: (t) trained through the launcher at its
+   smoke widths (full width does not train on one card), main_lm's loader
+   and steps, aux loss positive; (a) one full-width period (8 layers, 13.30
+   B parameters) served through ``launch/serve.py`` at the reference
+   launcher's defaults, main_serve's figures; (b) pooled against batch-1
+   decode printed, not gated (decode capacity 2), beside the ticks where a
+   live slot lost an assignment; (c) one served Mamba layer's state
+   carried from a 4092-token prefill through 4 decode steps against the
+   cacheless scan (gated), and that layer over 16384 tokens timed at
+   several scan chunks; (e) a 16384-token prompt in one pass (never
+   chunked): time, the Mamba scan's share, peak, finite logits; (k) the
+   flash kernel on its attention layer: ``make_eval_step`` with
+   ``attention_impl="pallas"`` against ``"ref"`` over 4 batches of 2 x
+   4096 tokens, flash launched 4 times and no other kernel; (f) the smoke
+   model and its stacked variant served on the card against the CPU.
 
 Launch counts are set to 0 just before each main path and read just after
 (for main_pipeline and main_autotune, around each launcher run; for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
-again around (d); for main_mla and main_moe, around each launcher run;
-rmsnorm, which no model calls, counts its own phase's checked calls).
+again around (d); for main_mla, main_moe and main_hybrid, around each
+launcher run, and for main_hybrid around its flash eval (k); rmsnorm,
+which no model calls, counts its own phase's checked calls).  Each main
+phase prints its wall time (``phase_wall``).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
 nothing of JAX and nothing of the JAX package.
@@ -256,6 +274,36 @@ QWEN_SERVE_ARGS = ["--arch", QWEN_ARCH, "--full", "--device", "cuda"]
 # training shape (a microbatch: 2 x 4096 tokens), fp32 with TF32 off, within
 # the reference's tests/test_moe_dispatch.py tolerance
 MOE_ROUTE_TOL = 2e-5
+
+# The hybrid family, jamba-v0.1-52b.  Training at its smoke widths through
+# the launcher with main_lm's loader, sequences, batch, microbatches and
+# steps: at full width even 4 layers (6.88 B parameters) do not train on
+# one card (ROADMAP §1 item 4.7).  Serving: one full-width period of 8
+# layers (13.30 B parameters, every sublayer kind: 7 Mamba mixers and
+# attention at index 3, MoE FFNs at the odd indices), registered as
+# HYBRID_SERVE_ARCH, at the reference launcher's defaults.
+HYBRID_ARCH, HYBRID_SERVE_ARCH, HYBRID_SERVE_LAYERS = "jamba-v0.1-52b", "jamba-v0.1-52b-8l", 8
+HYBRID_STACKED_LAYERS = 16  # the smoke model in two stacked blocks of 8
+HYBRID_TRAIN_ARGS = [HYBRID_ARCH if a == LM_ARCH else a for a in LM_ARGS if a != "--full"]
+HYBRID_TRAIN_REDUCED = {
+    "widths": "smoke config (d_model 64, 8 layers): full width does not train on one card "
+              "(4 layers are 6.88 B parameters, 110 GB with AdamW state; ROADMAP 4.7)",
+    "items": LM_REDUCED["items"], "steps": LM_STEPS}
+HYBRID_SERVE_ARGS = ["--arch", HYBRID_SERVE_ARCH, "--full", "--device", "cuda"]
+HYBRID_SERVE_REDUCED = {"num_layers": "32 -> 8, one period"}
+# (c) the Mamba state carried from prefill to decode on one served layer:
+# HYBRID_CARRY_S hidden states, the last HYBRID_CARRY_DECODE of them decoded
+# one at a time; each decoded output row within HYBRID_CARRY_TOL of its
+# norm of the cacheless row (bf16 compute: 2^-8 relative spacing, the single
+# token's projections rounded apart from the batched ones', about 5
+# spacings), the fp32 state after them within HYBRID_CARRY_TOL of the
+# single pass's largest entry
+HYBRID_CARRY_S, HYBRID_CARRY_DECODE, HYBRID_CARRY_TOL = 4096, 4, 2e-2
+HYBRID_SCAN_CHUNKS = (64, 128, 256, 512)  # the Mamba scan's chunk, timed at full width
+# (k) the flash kernel on the hybrid's attention layer: make_eval_step over
+# LM_EVAL_BATCHES batches of HYBRID_EVAL_BS x LM_SEQ tokens, within
+# main_lm's 5e-3 of the plain attention's loss
+HYBRID_EVAL_BS, HYBRID_EVAL_TOL = 2, 5e-3
 
 
 def fail(msg: str) -> None:
@@ -1842,12 +1890,13 @@ def pooled_and_cacheless(torch, cfg, params, done, max_len: int, phase: str,
     return pooled, diffs
 
 
-def serve_path(torch, counted, serve_args: list, smi: str, phase: str):
+def serve_path(torch, counted, serve_args: list, smi: str, phase: str, reduced=None):
     """A serving phase's (a): ``launch/serve.py`` with ``serve_args``, the
     init's peak read apart from serving's, prefill and decode behind
     synchronizes, every counted kernel's launches set to 0 just before the
     run and read just after; gated on the reference's token accounting and
-    tick bound and on no kernel launch.  Returns (report, args, figures)."""
+    tick bound and on no kernel launch.  ``reduced`` names the cuts of a
+    registered arch.  Returns (report, args, figures)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.tree import leaves
@@ -1885,7 +1934,8 @@ def serve_path(torch, counted, serve_args: list, smi: str, phase: str):
     tick_bound = args.requests * (args.max_new - 1) / args.slots + args.max_new
     cache_bytes = sum(t.numel() * t.element_size() for t in leaves(eng.cache))
     path = {
-        "arch": cfg.name, "args": serve_args, "num_layers": cfg.num_layers,
+        "arch": cfg.name, "args": serve_args, **({"reduced": reduced} if reduced else {}),
+        "num_layers": cfg.num_layers,
         "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
         "params": sum(t.numel() for t in leaves(eng.params)), "requests": len(done),
         "slots": args.slots, "max_len": args.max_len, "max_new": args.max_new,
@@ -1994,6 +2044,52 @@ def long_prefill(torch, cfg, params, phase: str) -> dict:
     return out
 
 
+def card_vs_cpu(torch, cfgs, phase: str) -> list:
+    """(f) Smoke models served on the card against the CPU from the same
+    weights, fp32 with TF32 off: a prefill and 4 decode steps' logits
+    within SERVE_DEVICE_TOL (the card fed the CPU's greedy tokens), and the
+    engine's tokens equal (gated)."""
+    import numpy as np
+
+    from repro_torch.config import ServeSpec
+    from repro_torch.convert import lm_params_from_jax, to_jax
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = []
+    for scfg in cfgs:
+        np_params = to_jax(transformer.init_lm(scfg, torch.Generator().manual_seed(2), "cpu"))
+        prompts = np.random.default_rng(3).integers(1, scfg.vocab_size, (2, 12)).astype(np.int32)
+        logits, tokens, fed = {}, {}, []
+        for dev in ("cpu", "cuda"):  # the card is fed the CPU's greedy tokens
+            sp = lm_params_from_jax(np_params, dev, requires_grad=False)
+            out, cache = transformer.prefill(sp, {"tokens": torch.from_numpy(prompts).to(dev)},
+                                             scfg, transformer.init_cache(scfg, 2, 20, dev))
+            steps = [out.cpu()]
+            for i in range(4):
+                if dev == "cpu":
+                    fed.append(steps[-1].argmax(-1))
+                out, cache = transformer.decode_step(sp, cache, fed[i][:, None].to(dev),
+                                                     np.array([12 + i, 12 + i]), scfg)
+                steps.append(out.cpu())
+            logits[dev] = torch.stack(steps)
+            eng_d = ServeEngine(scfg, sp, spec=ServeSpec(num_slots=2, max_len=32), device=dev)
+            for p in prompts.tolist() + [[5, 7], [9, 9, 9]]:
+                eng_d.submit(p, max_new_tokens=6)
+            tokens[dev] = [r.output for r in sorted(eng_d.run_until_drained(),
+                                                    key=lambda r: r.uid)]
+        smoke.append({"arch": scfg.name, "num_layers": scfg.num_layers,
+                      "max_abs_diff": (logits["cpu"] - logits["cuda"]).abs().max().item(),
+                      "tokens_equal": tokens["cpu"] == tokens["cuda"]})
+    emit({"phase": phase, "check": "f_card_vs_cpu", "dtype": "float32",
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "tolerance":
+          SERVE_DEVICE_TOL, "prefill_then_decode_steps": 4, "cases": smoke})
+    if not all(c["max_abs_diff"] <= SERVE_DEVICE_TOL and c["tokens_equal"] for c in smoke):
+        fail(f"serving on the card against the CPU: {smoke}")
+    return smoke
+
+
 def phase_main_serve(torch, counted, smi: str) -> dict:
     """The serving path, granite-8b whole on the card: (a) the launcher at
     the reference's defaults; (b) pooled against sequential decode; (c) a
@@ -2006,7 +2102,6 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
 
     from repro_torch.config import ServeSpec, get_arch, register_arch, replace
     from repro_torch.configs import rwkv6_7b
-    from repro_torch.convert import lm_params_from_jax, to_jax
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
 
@@ -2044,37 +2139,8 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # (f) card against CPU at smoke size, fp32, TF32 off
-    smoke = []
-    for arch in ("granite-8b", "rwkv6-7b"):
-        scfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
-        np_params = to_jax(transformer.init_lm(scfg, torch.Generator().manual_seed(2), "cpu"))
-        prompts = np.random.default_rng(3).integers(1, scfg.vocab_size, (2, 12)).astype(np.int32)
-        logits, tokens, fed = {}, {}, []
-        for dev in ("cpu", "cuda"):  # the card is fed the CPU's greedy tokens
-            sp = lm_params_from_jax(np_params, dev, requires_grad=False)
-            out, cache = transformer.prefill(sp, {"tokens": torch.from_numpy(prompts).to(dev)},
-                                             scfg, transformer.init_cache(scfg, 2, 20, dev))
-            steps = [out.cpu()]
-            for i in range(4):
-                if dev == "cpu":
-                    fed.append(steps[-1].argmax(-1))
-                out, cache = transformer.decode_step(sp, cache, fed[i][:, None].to(dev),
-                                                     np.array([12 + i, 12 + i]), scfg)
-                steps.append(out.cpu())
-            logits[dev] = torch.stack(steps)
-            eng_d = ServeEngine(scfg, sp, spec=ServeSpec(num_slots=2, max_len=32), device=dev)
-            for p in prompts.tolist() + [[5, 7], [9, 9, 9]]:
-                eng_d.submit(p, max_new_tokens=6)
-            tokens[dev] = [r.output for r in sorted(eng_d.run_until_drained(),
-                                                    key=lambda r: r.uid)]
-        smoke.append({"arch": scfg.name,
-                      "max_abs_diff": (logits["cpu"] - logits["cuda"]).abs().max().item(),
-                      "tokens_equal": tokens["cpu"] == tokens["cuda"]})
-    emit({"phase": "main_serve", "check": "f_card_vs_cpu", "dtype": "float32",
-          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "tolerance":
-          SERVE_DEVICE_TOL, "prefill_then_decode_steps": 4, "cases": smoke})
-    if not all(c["max_abs_diff"] <= SERVE_DEVICE_TOL and c["tokens_equal"] for c in smoke):
-        fail(f"serving on the card against the CPU: {smoke}")
+    card_vs_cpu(torch, [dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
+                        for arch in ("granite-8b", "rwkv6-7b")], "main_serve")
 
     # (g) RWKV: rwkv6-7b at full width, depth 4, 8 requests over 4 slots
     register_arch(RWKV_ARCH, lambda: replace(rwkv6_7b.full(), num_layers=RWKV_LAYERS),
@@ -2109,10 +2175,11 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
 
 
 def phase_model_families(torch) -> dict:
-    """The minicpm3-4b (MLA) and granite-moe-3b-a800m (MoE) smoke models: two
-    AdamW steps on the card against the CPU from the same weights, in fp32
-    with TF32 off (the devices differ only in summation order): loss and
-    aux loss within 1e-4."""
+    """The minicpm3-4b (MLA), granite-moe-3b-a800m (MoE) and jamba-v0.1-52b
+    (hybrid: one block of 8 layers, and HYBRID_STACKED_LAYERS in stacked
+    blocks) smoke models: two AdamW steps on the card against the CPU from
+    the same weights, in fp32 with TF32 off (the devices differ only in
+    summation order): loss and aux loss within 1e-4."""
     import dataclasses
 
     import numpy as np
@@ -2126,8 +2193,9 @@ def phase_model_families(torch) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-3, warmup_steps=1)
     cases = []
-    for arch in (MLA_ARCH, MOE_ARCH):
-        cfg = dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
+    f32 = [dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
+           for arch in (MLA_ARCH, MOE_ARCH, HYBRID_ARCH)]
+    for cfg in f32 + [dataclasses.replace(f32[-1], num_layers=HYBRID_STACKED_LAYERS)]:
         np_params = to_jax(init_lm(cfg, torch.Generator().manual_seed(1), "cpu"))
         rng = np.random.default_rng(2)
         batches = [{k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
@@ -2140,22 +2208,24 @@ def phase_model_families(torch) -> dict:
             for b in batches:
                 state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
                 got[dev] += [m["loss"].item(), m["aux_loss"].item()]
-        cases.append({"arch": cfg.name, "loss_aux_cpu": got["cpu"], "loss_aux_cuda": got["cuda"],
+        cases.append({"arch": cfg.name, "num_layers": cfg.num_layers,
+                      "loss_aux_cpu": got["cpu"], "loss_aux_cuda": got["cuda"],
                       "max_diff": max(abs(a - b) for a, b in zip(got["cpu"], got["cuda"])),
                       "finite": all(math.isfinite(x) for x in got["cuda"])})
     out = {"phase": "model_families", "steps": 2, "dtype": "float32", "seq_len": 64,
            "cases": cases, "limit": 1e-4, "cudnn_allow_tf32": False, "matmul_allow_tf32": False}
     emit(out)
     if not all(c["finite"] and c["max_diff"] <= 1e-4 for c in cases):
-        fail(f"MLA / MoE train steps on the card differ from the CPU: {cases}")
+        fail(f"MLA / MoE / hybrid train steps on the card differ from the CPU: {cases}")
     return out
 
 
 def train_family(torch, counted, base, train_arch: str, train_args: list, reduced: dict,
                  phase: str):
     """A family's LM path: ``base`` at full width, depth cut to
-    FAMILY_LAYERS and registered as ``train_arch``, trained from simulated
-    S3 through the launcher with ``train_args``; every counted kernel's
+    FAMILY_LAYERS and registered as ``train_arch`` (or, with ``base``
+    None, ``train_arch`` as registered), trained from simulated S3
+    through the launcher with ``train_args``; every counted kernel's
     launches set to 0 just before the run and read just after.  Gated on
     the steps and epochs, finite losses, parameters on the card and no
     kernel launch.  Returns (report, figures)."""
@@ -2165,7 +2235,9 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
     from repro_torch.launch import train as launch
     from repro_torch.tree import leaves
 
-    register_arch(train_arch, lambda: replace(base.full(), num_layers=FAMILY_LAYERS), base.smoke)
+    if base is not None:
+        register_arch(train_arch, lambda: replace(base.full(), num_layers=FAMILY_LAYERS),
+                      base.smoke)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2186,6 +2258,7 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
         "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
         "attention": dataclasses.asdict(cfg.attention),
         "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+        "ssm": dataclasses.asdict(cfg.ssm) if cfg.ssm else None,
         "params": sum(p.numel() for p in leaves(params)),
         "steps": report.result.steps, "epochs": report.result.epochs,
         "wall_s": report.result.wall_s, "tokens_per_s": report.items_per_s * LM_SEQ,
@@ -2408,6 +2481,271 @@ def phase_main_moe(torch, counted, smi: str) -> dict:
             "launches": add_launches(train, granite, qwen)}
 
 
+def mamba_carry(torch, cfg, params) -> dict:
+    """(c) The Mamba state carried from prefill into decode at full width,
+    on the served weights of one Mamba layer (``sub0``): HYBRID_CARRY_S
+    hidden states drawn from a seed through ``apply_mamba`` without a cache,
+    against a prefill of the first HYBRID_CARRY_S - HYBRID_CARRY_DECODE
+    into ``init_mamba_cache`` and single-token decode steps for the rest;
+    each decoded row within HYBRID_CARRY_TOL of its norm, and the fp32
+    state and conv window after them against a single pass's (prefill of
+    all HYBRID_CARRY_S) within HYBRID_CARRY_TOL of each one's largest
+    entry.  Gated."""
+    from repro_torch.models import ssm
+
+    p = params["blocks"]["sub0"]["mamba"]
+    S, n = HYBRID_CARRY_S, HYBRID_CARRY_DECODE
+    gen = torch.Generator("cuda").manual_seed(4)
+    h = torch.randn((1, S, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        full, _ = ssm.apply_mamba(p, h, cfg)
+        _, one_pass = ssm.apply_mamba(p, h, cfg, cache=ssm.init_mamba_cache(cfg, 1, "cuda"))
+        _, cache = ssm.apply_mamba(p, h[:, :S - n], cfg,
+                                   cache=ssm.init_mamba_cache(cfg, 1, "cuda"))
+        rows = []
+        for i in range(S - n, S):
+            y, cache = ssm.apply_mamba(p, h[:, i:i + 1], cfg, cache=cache)
+            rows.append(y[0, 0].float())
+    want, got = full[0, S - n:].float(), torch.stack(rows)
+    row_rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+    scale = {k: one_pass[k].abs().max().item() for k in ("ssm", "conv")}
+    state_diff = (cache["ssm"] - one_pass["ssm"]).abs().max().item()
+    conv_diff = (cache["conv"] - one_pass["conv"]).abs().max().item()
+    out = {"phase": "main_hybrid", "check": "c_mamba_carry", "arch": cfg.name,
+           "layer": "blocks/sub0/mamba", "tokens": S, "decoded": n, "dtype": cfg.dtype,
+           "scan_chunk": ssm.SCAN_CHUNK, "row_rel_err": row_rel,
+           "state_max_abs_diff": state_diff, "state_max_abs": scale["ssm"],
+           "conv_max_abs_diff": conv_diff, "conv_max_abs": scale["conv"],
+           "tolerance": HYBRID_CARRY_TOL,
+           "finite": bool(torch.isfinite(full).all() and torch.isfinite(cache["ssm"]).all())}
+    emit(out)
+    if not (out["finite"] and max(row_rel) <= HYBRID_CARRY_TOL
+            and state_diff <= HYBRID_CARRY_TOL * scale["ssm"]
+            and conv_diff <= HYBRID_CARRY_TOL * scale["conv"]):
+        fail(f"{cfg.name}: Mamba state carried from prefill to decode: {out}")
+    return out
+
+
+def scan_chunk_sweep(torch, cfg, params) -> dict:
+    """The Mamba scan's chunk on one served layer (``sub0``): ``apply_mamba``
+    over 1 x SERVE_LONG hidden states drawn from a seed at each of
+    HYBRID_SCAN_CHUNKS tokens a chunk, CUDA-event ms (median of 3 after a
+    warm-up) and the peak above what was allocated before.  Printed, not
+    gated: it says why ``ssm.SCAN_CHUNK`` is what it is."""
+    from repro_torch.models import ssm
+    from repro_torch.tools.profile_lm_step import event_ms
+
+    p = params["blocks"]["sub0"]["mamba"]
+    gen = torch.Generator("cuda").manual_seed(6)
+    h = torch.randn((1, SERVE_LONG, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    chosen, times, peaks = ssm.SCAN_CHUNK, {}, {}
+    try:
+        with torch.inference_mode():
+            for chunk in HYBRID_SCAN_CHUNKS:
+                ssm.SCAN_CHUNK = chunk
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                times[chunk] = event_ms(torch, lambda: ssm.apply_mamba(p, h, cfg))
+                peaks[chunk] = torch.cuda.max_memory_allocated() - base
+    finally:
+        ssm.SCAN_CHUNK = chosen
+    del h
+    torch.cuda.empty_cache()
+    out = {"phase": "main_hybrid", "check": "c_scan_chunk", "arch": cfg.name,
+           "layer": "blocks/sub0/mamba", "tokens": SERVE_LONG, "scan_chunk": chosen,
+           "apply_mamba_ms": times, "peak_above_bytes": peaks}
+    emit(out)
+    return out
+
+
+def hybrid_long_prefill(torch, cfg, params) -> dict:
+    """(e) One SERVE_LONG-token prompt prefilled in one pass (a hybrid is
+    never chunked): its time (the Mamba scan's share behind synchronizes),
+    peak memory, finite logits (gated).  Then, printed and not gated (MoE
+    groups differ), the whole model's last logits after a single pass of
+    its first HYBRID_CARRY_S tokens against a prefill of all but the last
+    SERVE_LONG_NEW of them and single-token decode steps over those: at
+    SERVE_LONG the shorter prefill (16380, off the 1024 grid) takes the
+    dense attention branch, as the reference's does, whose fp32 scores
+    alone are 34 GB beside the 53 GB of weights."""
+    import numpy as np
+
+    from repro_torch.models import ssm, transformer
+
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (1, SERVE_LONG)).astype(np.int32)).to("cuda")
+    cache = transformer.init_cache(cfg, 1, SERVE_LONG, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = SyncTimer(torch, ssm, ("_scan_chunked",))
+    t0 = time.perf_counter()
+    try:
+        logits, cache = transformer.prefill(params, {"tokens": prompt}, cfg, cache)
+        torch.cuda.synchronize()
+    finally:
+        timer.restore()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    last = logits[0].float()
+    finite = bool(torch.isfinite(last).all())
+    del cache, logits
+    torch.cuda.empty_cache()
+    S, head = HYBRID_CARRY_S, HYBRID_CARRY_S - SERVE_LONG_NEW
+    one, _ = transformer.prefill(params, {"tokens": prompt[:, :S]}, cfg,
+                                 transformer.init_cache(cfg, 1, S, "cuda"))
+    cache = transformer.init_cache(cfg, 1, S, "cuda")
+    logits, cache = transformer.prefill(params, {"tokens": prompt[:, :head]}, cfg, cache)
+    for i in range(head, S):
+        logits, cache = transformer.decode_step(params, cache, prompt[:, i:i + 1], i, cfg)
+    diff = (logits[0].float() - one[0].float()).abs().max().item()
+    same = int(logits[0].argmax()) == int(one[0].argmax())
+    del cache, logits, one
+    torch.cuda.empty_cache()
+    out = {"phase": "main_hybrid", "check": "e_single_pass_prefill", "arch": cfg.name,
+           "prompt_len": SERVE_LONG, "chunked": False, "prefill_ms": ms,
+           "mamba_scan_ms": 1e3 * sum(timer.times["_scan_chunked"]),
+           "mamba_scan_calls": len(timer.times["_scan_chunked"]),
+           "max_memory_allocated_bytes": peak,
+           "device_total_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "finite_logits": finite, "tail_prompt_len": S, "decoded_tail": SERVE_LONG_NEW,
+           "tail_max_abs_diff_not_gated": diff, "tail_same_argmax": same}
+    emit(out)
+    if not finite:
+        fail(f"{cfg.name}: non-finite logits after a {SERVE_LONG}-token single-pass prefill")
+    return out
+
+
+def hybrid_flash_eval(torch, counted, cfg, params) -> dict:
+    """(k) The kernel on the hybrid's path: ``make_eval_step`` on the served
+    model with ``attention_impl="pallas"`` against ``"ref"``, over
+    LM_EVAL_BATCHES batches of HYBRID_EVAL_BS x LM_SEQ tokens drawn from a
+    seed; every counted kernel's launches set to 0 just before the flash
+    pass and read just after.  Gated on the losses within HYBRID_EVAL_TOL,
+    flash launched once a batch per attention layer, no other kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.train.steps import make_eval_step
+
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (HYBRID_EVAL_BS, LM_SEQ))
+                                    .astype(np.int32)).to("cuda") for k in ("tokens", "targets")}
+               for _ in range(LM_EVAL_BATCHES)]
+    attn_layers = sum(m == "attn" for m, _ in transformer.layer_kinds(cfg))
+    eval_flash = make_eval_step(dataclasses.replace(cfg, attention_impl="pallas"))
+    eval_ref = make_eval_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_flash = [eval_flash(params, b)["loss"].item() for b in batches]
+    flash_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    t0 = time.perf_counter()
+    loss_ref = [eval_ref(params, b)["loss"].item() for b in batches]
+    ref_s = time.perf_counter() - t0
+    diffs = [abs(a - b) for a, b in zip(loss_flash, loss_ref)]
+    want = attn_layers * len(batches)
+    out = {"phase": "main_hybrid", "check": "k_flash_eval", "arch": cfg.name,
+           "batch": [HYBRID_EVAL_BS, LM_SEQ], "eval_batches": len(batches),
+           "attention_layers": attn_layers, "eval_loss_flash": loss_flash,
+           "eval_loss_ref": loss_ref, "eval_max_diff": max(diffs), "eval_limit": HYBRID_EVAL_TOL,
+           "flash_wall_s": flash_s, "ref_wall_s": ref_s, "launches": launches,
+           "flash_attention_launches_expected": want,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    if not all(math.isfinite(x) for x in loss_flash) or max(diffs) > HYBRID_EVAL_TOL:
+        fail(f"{cfg.name}: flash eval loss {loss_flash} vs plain attention {loss_ref}")
+    if launches["flash_attention"] != want or \
+            any(v for name, v in launches.items() if name != "flash_attention"):
+        fail(f"{cfg.name}: launches on the flash eval {launches}, want flash_attention {want}")
+    return out
+
+
+def phase_main_hybrid(torch, counted, smi: str) -> dict:
+    """The hybrid family, jamba-v0.1-52b: (t) trained through the launcher
+    at its smoke widths; (a) one full-width period (8 layers, 13.30 B
+    parameters) served through ``launch/serve.py`` at the reference
+    launcher's defaults; (b) pooled against batch-1 decode, printed and
+    not gated (its decode capacity, max(int(8 * 2 / 16 * 1.25), 2) = 2,
+    drops assignments a batch-1 decode keeps, as the reference's does),
+    beside the ticks where a live slot lost an assignment; (c) the Mamba
+    state's carry from prefill to decode, and one Mamba layer timed at
+    each of HYBRID_SCAN_CHUNKS; (e) a SERVE_LONG-token prompt in
+    one pass; (k) the flash kernel on its attention layer, ``make_eval_step``
+    with ``attention_impl="pallas"`` against ``"ref"``; (f) the smoke model
+    and its stacked variant on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, register_arch, replace
+    from repro_torch.configs import jamba_v0_1_52b
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    # (t) the launcher's training run at smoke widths
+    report, train = train_family(torch, counted, None, HYBRID_ARCH, HYBRID_TRAIN_ARGS,
+                                 HYBRID_TRAIN_REDUCED, "main_hybrid")
+    del report
+    if not all(a > 0 for a in train["aux_losses"]):
+        fail(f"{HYBRID_ARCH}: aux loss not positive: {train['aux_losses']}")
+    torch.cuda.empty_cache()
+
+    # (a) one full-width period served
+    register_arch(HYBRID_SERVE_ARCH,
+                  lambda: replace(jamba_v0_1_52b.full(), num_layers=HYBRID_SERVE_LAYERS),
+                  jamba_v0_1_52b.smoke)
+    slots = serve.parse_args(HYBRID_SERVE_ARGS).slots
+    watch = DropWatch(torch, moe, transformer, ServeEngine, slots)
+    try:
+        report, args, path = serve_path(torch, counted, HYBRID_SERVE_ARGS, smi, "main_hybrid",
+                                        reduced=HYBRID_SERVE_REDUCED)
+    finally:
+        watch.restore()
+    drops = watch.summary()
+    del watch
+    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
+    params = eng.params
+    serve_profile(torch, report, args.max_len, "main_hybrid")
+
+    # (b) pooled against batch-1 decode, not gated
+    pooled, _ = pooled_and_cacheless(torch, cfg, params, done, args.max_len, "main_hybrid",
+                                     gate=False, cacheless=False)
+    emit({"phase": "main_hybrid", "check": "b_drops", "arch": cfg.name, "slots": slots,
+          "decode_capacity": max(int(slots * cfg.moe.top_k / cfg.moe.num_experts
+                                     * moe.CAPACITY_FACTOR), cfg.moe.top_k),
+          **drops, "pooled_not_gated": "capacity is set per group, so a pooled tick can drop "
+                                       "an assignment that batch-1 decode keeps, as in the "
+                                       "reference"})
+    del report, eng
+    carry = mamba_carry(torch, cfg, params)  # (c)
+    chunks = scan_chunk_sweep(torch, cfg, params)
+    long = hybrid_long_prefill(torch, cfg, params)  # (e)
+    flash = hybrid_flash_eval(torch, counted, cfg, params)  # (k)
+    del params, done
+    torch.cuda.empty_cache()
+
+    # (f) the smoke model, one block and stacked, on the card against the CPU
+    smoke = dataclasses.replace(get_arch(HYBRID_ARCH, smoke=True), dtype="float32")
+    card_vs_cpu(torch, [smoke, dataclasses.replace(smoke, num_layers=HYBRID_STACKED_LAYERS)],
+                "main_hybrid")
+    return {"train": train, "serve": path, "pooled": pooled, "drops": drops, "carry": carry,
+            "scan_chunks": chunks, "long": long, "flash": flash,
+            "launches": add_launches(train, path, flash)}
+
+
+def timed(torch, name: str, fn, *args):
+    """A main phase's result, its wall time printed on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(torch, *args)
+    emit({"phase": name, "check": "phase_wall", "wall_s": time.perf_counter() - t0})
+    return out
+
+
 def build_all(builders) -> dict:
     """Build every kernel library at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2470,18 +2808,22 @@ def main() -> int:
     phase_model_lm(torch)
     phase_model_rwkv(torch)
     phase_model_families(torch)
-    main_out = phase_main(torch, ops)
-    pipe_out = phase_main_pipeline(torch, ops, main_out, smi)
-    auto_out = phase_main_autotune(torch, ops, main_out, pipe_out["figures"]["pipeline"], smi)
-    lm_out = phase_main_lm(torch, flash_ops, ops)
-    rwkv_out = phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ops, flash_ops)
+    main_out = timed(torch, "main", phase_main, ops)
+    pipe_out = timed(torch, "main_pipeline", phase_main_pipeline, ops, main_out, smi)
+    auto_out = timed(torch, "main_autotune", phase_main_autotune, ops, main_out,
+                     pipe_out["figures"]["pipeline"], smi)
+    lm_out = timed(torch, "main_lm", phase_main_lm, flash_ops, ops)
+    rwkv_out = timed(torch, "main_rwkv", phase_main_rwkv, wkv_ops, wkv_ref, rms_ops, ops,
+                     flash_ops)
     counted = {"ingest_norm": ops.ingest_norm, "flash_attention": flash_ops.flash_attention,
                "rwkv6_wkv": wkv_ops.wkv, "rmsnorm": rms_ops.rmsnorm}
-    serve_out = phase_main_serve(torch, counted, smi)
-    mla_out = phase_main_mla(torch, counted, smi)
-    moe_out = phase_main_moe(torch, counted, smi)
+    serve_out = timed(torch, "main_serve", phase_main_serve, counted, smi)
+    mla_out = timed(torch, "main_mla", phase_main_mla, counted, smi)
+    moe_out = timed(torch, "main_moe", phase_main_moe, counted, smi)
+    hybrid_out = timed(torch, "main_hybrid", phase_main_hybrid, counted, smi)
     family = {name: {"launches_mla": mla_out["launches"][name],
-                     "launches_moe": moe_out["launches"][name]} for name in counted}
+                     "launches_moe": moe_out["launches"][name],
+                     "launches_hybrid": hybrid_out["launches"][name]} for name in counted}
 
     emit({"kernels": [{
         "name": "ingest_norm",

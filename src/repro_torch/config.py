@@ -1,21 +1,22 @@
 """Frozen-dataclass configuration for the port's slices, and the arch registry.
 
 A trimmed copy of ``repro/config.py``: only the fields the ResNet, dense
-decoder (LM, with gqa/mha or mla attention, and MoE FFNs) and RWKV-6 slices
-read, with the reference's names and defaults (``LoaderConfig`` drops
-``pin_device`` and ``device_prefetch``, which the reference declares but
-never reads; the ring's depth is ``Trainer(device_prefetch=...)``;
-``RWKVConfig`` drops ``token_shift`` and ``MoEConfig`` drops
-``router_jitter``, for the same reason).  ``LoaderConfig`` keeps the
+decoder (LM, with gqa/mha or mla attention, and MoE FFNs), RWKV-6 and
+hybrid (Mamba-1 with attention, jamba) slices read, with the reference's
+names and defaults (``LoaderConfig`` drops ``pin_device`` and
+``device_prefetch``, which the reference declares but never reads; the
+ring's depth is ``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops
+``token_shift`` and ``MoEConfig`` drops ``router_jitter``, for the same
+reason).  ``LoaderConfig`` keeps the
 reference's warn-once flat-kwarg shim (``pipeline=True, reorder=...``
 folded into :class:`PipelineConfig`).  ``PipelineConfig`` has no
 ``transport`` or slab fields until the shared-memory transport is ported,
 and :class:`AutotuneConfig` no field of a feature the port lacks (the
 multi-host lease and shedding, cache knobs, slab knob, lane-skew gate,
 serving bounds).  :class:`ServeSpec` sizes the serving engine only; the
-reference's read-path fields come with its read path.  SSM and hybrid
-fields (``moe_every_k`` with them), enc-dec and VLM fields come with their
-slices.  ``replace()`` (from dataclasses) derives variants.
+reference's read-path fields come with its read path.  Enc-dec and VLM
+fields come with their slices.  ``replace()`` (from dataclasses) derives
+variants.
 """
 from __future__ import annotations
 
@@ -70,6 +71,16 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective scan (for jamba) — d_inner = expand * d_model."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+
+@dataclass(frozen=True)
 class RWKVConfig:
     """RWKV-6 'Finch' data-dependent decay."""
 
@@ -80,16 +91,22 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "decoder"  # decoder | resnet | rwkv
+    family: str = "decoder"  # decoder | resnet | rwkv | hybrid
     num_layers: int = 4
     d_model: int = 256
     d_ff: int = 1024
     vocab_size: int = 32_000
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     mlp: str = "swiglu"  # swiglu | relu2 | gelu
     norm: str = "rmsnorm"  # rmsnorm | layernorm
+    # hybrid (jamba): per-layer mixer pattern, period repeats over num_layers.
+    # entries: "attn" | "mamba"; moe_every_k: every k-th layer uses MoE MLP.
+    hybrid_attn_period: int = 0  # 0 = not hybrid; jamba: 8 with attn at index 3
+    hybrid_attn_index: int = 3
+    moe_every_k: int = 0  # 0 = never; jamba: 2
     # resnet
     resnet_blocks: Tuple[int, ...] = ()
     resnet_width: int = 64

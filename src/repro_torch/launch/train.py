@@ -22,8 +22,9 @@ stats) and, with ``--pipeline``, the per-stage stats at the end.
 ``--arch resnet18-imagenet`` (default) trains the paper's own model on
 synthetic ImageNet; ``--arch granite-8b`` the dense decoder (or another
 registered LM: ``minicpm3-4b`` with MLA, ``granite-moe-3b-a800m`` and
-``qwen2-moe-a2.7b`` with MoE, ``rwkv6-7b``) on packed token sequences of
-``--seq-len`` tokens streamed through the same loader.
+``qwen2-moe-a2.7b`` with MoE, ``rwkv6-7b``, the hybrid ``jamba-v0.1-52b``)
+on packed token sequences of ``--seq-len`` tokens streamed through the same
+loader.
 ``--smoke`` (default) uses the reduced config; ``--full`` the real widths.
 ``--device`` defaults to ``cuda`` and raises when no card is present.
 """

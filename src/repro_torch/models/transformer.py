@@ -1,10 +1,15 @@
-"""Decoder-only LM assembly: the dense, MLA, MoE and RWKV families (the
-reference's ``repro/models/transformer.py``).
+"""Decoder-only LM assembly: the dense, MLA, MoE, RWKV and hybrid (jamba:
+Mamba-1 and attention mixers, dense and MoE FFNs) families (the reference's
+``repro/models/transformer.py``).
 
-Block parameters are stacked over layers as in the reference (each leaf of
-``params["blocks"]`` has a leading ``num_layers`` axis whenever there is more
-than one block; ``cfg.scan_layers`` changes nothing here), so the same tree
-crosses between the packages.  The reference's ``lax.scan`` over blocks
+Layers run in *period blocks*, as the reference's: a homogeneous model has
+period 1, jamba period 8 (7 Mamba mixers and 1 attention mixer at
+``hybrid_attn_index``, dense and MoE FFNs alternating), one block holding
+``sub0`` .. ``sub{period-1}``.  Block parameters are stacked over blocks as
+in the reference (each leaf of ``params["blocks"]`` has a leading
+``num_layers // period`` axis whenever there is more than one block;
+``cfg.scan_layers`` changes nothing here), so the same tree crosses between
+the packages.  The reference's ``lax.scan`` over blocks
 becomes a Python loop over ``torch.unbind`` of the stacked leaves, done
 once per forward (its backward stacks the layers' gradients in one pass,
 where indexing ``w[i]`` per layer would allocate a zero tensor the size of
@@ -24,13 +29,15 @@ The cache (``init_cache``) has the reference's tree and layout, so it
 crosses with :func:`repro_torch.convert.from_jax`.  Where the reference
 returns a new cache, the port writes the pooled tensors in place and
 returns them.  Prefill and decode run under ``torch.inference_mode``.
-An MLA layer caches its latent and rope key (``c_kv``, ``k_rope``); an MoE
-FFN returns its load-balancing loss, summed over layers into ``aux``.
-Mamba (hybrid), encoder-decoder and VLM come with their slices.  The RWKV
-time-mix runs
-the plain chunked scan on sequences longer than one token and the plain
-loop on one, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is
-reached by calling ``rwkv6.apply_rwkv_timemix`` directly.
+An MLA layer caches its latent and rope key (``c_kv``, ``k_rope``); a Mamba
+layer its conv window and SSM state (``conv``, ``ssm``, fp32); an MoE FFN
+returns its load-balancing loss, summed over layers into ``aux``.
+Encoder-decoder and VLM come with their slices.  The RWKV time-mix runs the
+plain chunked scan on sequences longer than one token and the plain loop on
+one, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is reached
+by calling ``rwkv6.apply_rwkv_timemix`` directly.  The Mamba scan is plain
+PyTorch, chunked over time (:mod:`repro_torch.models.ssm`), as the
+reference's is outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, ssm
 from repro_torch.models.layers import (
     Offset,
     Params,
@@ -69,20 +76,37 @@ from repro_torch.tree import flatten, tree_map
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """Per layer: (mixer, ffn), the same on every layer: the decoder's mixer
-    is "attn" (mha/gqa) or "mla" and its FFN "mlp" or "moe"; RWKV-6 has
-    ("rwkv", "rwkv_cm").  Other families (hybrid, encoder-decoder, VLM)
-    raise until their slice."""
+    """Per layer: (mixer, ffn) with mixer in {attn, mla, mamba, rwkv} and
+    ffn in {mlp, moe, rwkv_cm}, the reference's schedule: RWKV-6 has
+    ("rwkv", "rwkv_cm"); with ``hybrid_attn_period`` the mixer is "attn"
+    where ``l % period == hybrid_attn_index`` and "mamba" elsewhere, else
+    "mla" or "attn" (mha/gqa); the FFN is "moe" (where ``l % moe_every_k
+    == 1`` when that is set) or "mlp".  Encoder-decoder and VLM raise until
+    their slice."""
+    if cfg.family not in ("decoder", "rwkv", "hybrid"):
+        raise ValueError(f"the port's LM is the decoder, RWKV-6 or the hybrid; "
+                         f"{cfg.name} is {cfg.family!r}")
     if cfg.family == "rwkv":
         return [("rwkv", "rwkv_cm")] * cfg.num_layers
-    if cfg.family != "decoder":
-        raise ValueError(f"the port's LM is the decoder or RWKV-6; "
-                         f"{cfg.name} is {cfg.family!r}")
-    if cfg.attention is None or cfg.attention.kind not in ("mha", "gqa", "mla"):
+    kinds = ("mha", "gqa") if cfg.hybrid_attn_period else ("mha", "gqa", "mla")
+    if cfg.attention is None or cfg.attention.kind not in kinds:
         kind = cfg.attention.kind if cfg.attention is not None else None
-        raise ValueError(f"the port's LM has mha/gqa/mla attention; {cfg.name} has {kind!r}")
-    mixer = "mla" if cfg.attention.kind == "mla" else "attn"
-    return [(mixer, "mlp" if cfg.moe is None else "moe")] * cfg.num_layers
+        raise ValueError(f"the port's {cfg.family} has {'/'.join(kinds)} attention; "
+                         f"{cfg.name} has {kind!r}")
+    out = []
+    for l in range(cfg.num_layers):  # noqa: E741
+        if cfg.hybrid_attn_period:
+            mixer = "attn" if l % cfg.hybrid_attn_period == cfg.hybrid_attn_index else "mamba"
+        else:
+            mixer = "mla" if cfg.attention.kind == "mla" else "attn"
+        if cfg.moe is None:
+            ffn = "mlp"
+        elif cfg.moe_every_k:
+            ffn = "moe" if l % cfg.moe_every_k == 1 else "mlp"
+        else:
+            ffn = "moe"
+        out.append((mixer, ffn))
+    return out
 
 
 def period(cfg: ModelConfig) -> int:
@@ -111,6 +135,8 @@ def _init_sublayer(generator: torch.Generator, cfg: ModelConfig,
     p: Params = {"ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev)}
     if mixer in ("attn", "mla"):
         p["attn"] = init_attention(generator, cfg)
+    elif mixer == "mamba":
+        p["mamba"] = ssm.init_mamba(generator, cfg)
     elif mixer == "rwkv":
         p["tm"] = rwkv6.init_rwkv_timemix(generator, cfg)
     if ffn == "mlp":
@@ -175,6 +201,8 @@ def _sublayer_cache(cfg: ModelConfig, kind: Tuple[str, str], batch: int, max_len
                                     device=device),
                 "k_rope": torch.zeros((batch, max_len, a.qk_rope_head_dim), dtype=cdtype(cfg),
                                       device=device)}
+    if mixer == "mamba":
+        return ssm.init_mamba_cache(cfg, batch, device)
     if mixer == "rwkv":
         return rwkv6.init_rwkv_cache(cfg, batch, device)
     raise ValueError(kind)
@@ -185,8 +213,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeros in the reference's tree: ``{"sub0": {"k", "v"}}`` of (B,
     max_len, Hkv, D) in the compute dtype for attention, ``{"c_kv",
     "k_rope"}`` of (B, max_len, kv_lora_rank) and (B, max_len,
-    qk_rope_head_dim) for MLA, RWKV's state and token shifts in fp32; each
-    leaf with a leading layer axis when blocks are stacked."""
+    qk_rope_head_dim) for MLA, Mamba's ``{"conv", "ssm"}`` of (B, d_conv - 1,
+    d_inner) and (B, d_inner, d_state) and RWKV's state and token shifts in
+    fp32; each leaf with a leading block axis when blocks are stacked."""
     dev = resolve_device(device)
     kinds = layer_kinds(cfg)
     P_ = period(cfg)
@@ -231,6 +260,8 @@ def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[st
     elif mixer == "mla":
         out, new_cache = apply_mla_attention(p["attn"], h, cfg, positions=positions,
                                              causal=True, cache=cache, cache_pos=cache_pos)
+    elif mixer == "mamba":
+        out, new_cache = ssm.apply_mamba(p["mamba"], h, cfg, cache=cache)
     elif mixer == "rwkv":
         out, tm_cache = rwkv6.apply_rwkv_timemix(p["tm"], h, cfg, cache=cache,
                                                  scan_mode="chunk" if h.shape[1] > 1 else "seq")
@@ -339,11 +370,13 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     (and a multiple of it) runs chunked, as the reference's (vLLM-style):
     each chunk of tokens attends over the cache written so far, so
     activation memory is O(chunk), not O(S); an MoE layer routes each chunk
-    in its own groups, as there.  RWKV keeps the single pass (its state is
-    O(1) a token)."""
+    in its own groups, as there.  RWKV and the hybrid keep the single pass
+    (their state is O(1) a token; the Mamba scan is chunked inside the
+    layer instead)."""
     tokens = batch["tokens"]
     S, C = tokens.shape[1], PREFILL_CHUNK
-    chunked = cfg.family == "decoder" and S > C and S % C == 0
+    chunked = (cfg.family == "decoder" and not cfg.hybrid_attn_period
+               and S > C and S % C == 0)
     for s0 in range(0, S, C if chunked else S):
         s1 = s0 + C if chunked else S
         x = apply_embedding(params["embed"], tokens[:, s0:s1], cfg)

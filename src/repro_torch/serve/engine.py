@@ -85,7 +85,8 @@ class ServeEngine:
     def _scatter_cache(self, slot: int, cache1: Any) -> None:
         """Write a batch-1 cache into row ``slot`` of the pooled cache: every
         leaf, the whole row (stale k/v past the prompt in a reused slot are
-        masked by ``kv_len``; RWKV's state is replaced outright)."""
+        masked by ``kv_len``; RWKV's state and Mamba's conv window and SSM
+        state are replaced outright)."""
         for pool, one in zip(leaves(self.cache), leaves(cache1)):
             # the batch axis: the first where the pool has num_slots rows and
             # the batch-1 cache one (axis 1 when layers are stacked, else 0)

@@ -14,10 +14,10 @@ from repro_torch.models import transformer
 def make_serve_fns(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"
                    ) -> Dict[str, Callable]:
     """Returns dict(init_cache, prefill, decode) for the decoder (dense,
-    MLA, MoE) and RWKV families; caches are made on ``device``."""
-    if cfg.family not in ("decoder", "rwkv"):
-        raise ValueError(f"the port serves the decoder and RWKV-6; {cfg.name} is "
-                         f"{cfg.family!r}")
+    MLA, MoE), RWKV and hybrid families; caches are made on ``device``."""
+    if cfg.family not in ("decoder", "rwkv", "hybrid"):
+        raise ValueError(f"the port serves the decoder, RWKV-6 and the hybrid; {cfg.name} "
+                         f"is {cfg.family!r}")
     dev = resolve_device(device)
     return {
         "init_cache": lambda batch, max_len: transformer.init_cache(cfg, batch, max_len, dev),

@@ -1,10 +1,12 @@
 """The port's KV cache, prefill (single pass and chunked) and decode_step
 against the JAX reference, for the granite-8b, granite-3-8b,
 nemotron-4-340b, minicpm3-4b (MLA), granite-moe-3b-a800m and
-qwen2-moe-a2.7b (MoE) and rwkv6-7b smoke configs, from the reference's own
-initial weights carried across with ``lm_params_from_jax``; every config
-but granite-8b and rwkv6-7b (``tests/test_torch_lm.py``,
-``tests/test_torch_rwkv6.py``) also trains against the reference here.
+qwen2-moe-a2.7b (MoE), rwkv6-7b and jamba-v0.1-52b (hybrid: one block of 8
+layers, and two stacked blocks as ``jamba-v0.1-52b-16l``) smoke configs,
+from the reference's own initial weights carried across with
+``lm_params_from_jax``; every config but granite-8b, rwkv6-7b and the
+hybrid (``tests/test_torch_lm.py``, ``tests/test_torch_rwkv6.py``,
+``tests/test_torch_ssm.py``) also trains against the reference here.
 
 Tolerances: fp32 logits and cache leaves within 1e-4 of the reference's
 (summation order only; measured about 3e-6 on the logits); chunked against
@@ -34,6 +36,8 @@ from repro_torch.tree import flatten  # noqa: E402
 
 DENSE = ["granite-8b", "granite-3-8b", "nemotron-4-340b"]
 MLA_MOE = ["minicpm3-4b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"]
+# the hybrid's smoke config: its one block of 8 (unstacked) and two (stacked)
+HYBRID = {"jamba-v0.1-52b": {}, "jamba-v0.1-52b-16l": dict(num_layers=16)}
 F32 = dict(dtype="float32")
 TOL_F32 = 1e-4
 TOL_CHUNKED = 0.05
@@ -41,6 +45,8 @@ TOL_CHUNKED = 0.05
 
 def _models(arch, **kw):
     """(port cfg, port params, reference cfg, reference params as numpy)."""
+    if arch in HYBRID:
+        arch, kw = "jamba-v0.1-52b", {**HYBRID[arch], **kw}
     jcfg = dataclasses.replace(jax_get_arch(arch, smoke=True), **kw)
     cfg = dataclasses.replace(get_arch(arch, smoke=True), **kw)
     np_params = jax.device_get(jT.init_lm(jax.random.PRNGKey(0), jcfg))
@@ -130,8 +136,10 @@ def test_forward_loss_and_a_train_step_match_the_reference(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,chunk", [(a, None) for a in DENSE + MLA_MOE + ["rwkv6-7b"]]
-                         + [(a, 8) for a in DENSE + MLA_MOE])  # RWKV has no chunked branch
+@pytest.mark.parametrize("arch,chunk",  # RWKV has no chunked branch; the hybrid never chunks
+                         [(a, None) for a in DENSE + MLA_MOE + ["rwkv6-7b"]]
+                         + [(a, 8) for a in DENSE + MLA_MOE]
+                         + [(a, c) for a in HYBRID for c in (None, 8)])
 def test_prefill_and_per_slot_decode_match_the_reference(arch, chunk, monkeypatch):
     """fp32: prefill's logits and every cache leaf (single pass, and chunked
     by 8, each against the reference's own run: an MoE layer routes each

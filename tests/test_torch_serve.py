@@ -1,8 +1,8 @@
 """The port's serving engine and launcher against the JAX reference: twins
 of ``tests/test_serve.py`` (the same greedy tokens as the reference's
 ``ServeEngine`` and its sequential batch-1 decode, from the reference's
-own weights, in fp32; for the MLA and MoE configs, the same tokens as the
-reference's engine), the bf16 engine held to the reference's logits
+own weights, in fp32; for the MLA, MoE and hybrid configs, the same tokens
+as the reference's engine), the bf16 engine held to the reference's logits
 within a stated tolerance, and ``init_lm``'s fill-in-place.
 
 Tolerance at the smoke config's bf16: the port's and the reference's
@@ -153,7 +153,20 @@ def test_mla_and_moe_engines_match_the_reference_engine(arch, monkeypatch):
     so pooled decode drops assignments, idle slots' stale tokens included,
     as the reference's does: the drop case, seen here by the port's
     routing."""
-    model = Model(arch, dtype="float32")
+    _engines_match(Model(arch, dtype="float32"), monkeypatch)
+
+
+@pytest.mark.parametrize("layers_", [8, 16], ids=["one_block", "stacked"])
+def test_hybrid_engine_matches_the_reference_engine(layers_, monkeypatch):
+    """jamba-v0.1-52b's smoke config (one block of 8 layers, and two
+    stacked blocks: the engine writes each admitted slot's Mamba state at
+    axis 1 of the stacked leaves), as the MLA and MoE engines: the same
+    tokens as the reference's engine in fp32, 8 requests over 4 slots; its
+    router (4 experts, top 2) has a decode capacity of 2 and drops."""
+    _engines_match(Model("jamba-v0.1-52b", dtype="float32", num_layers=layers_), monkeypatch)
+
+
+def _engines_match(model, monkeypatch):
     drops = []
     real = moe._router_assignments
 
