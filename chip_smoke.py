@@ -83,9 +83,10 @@ Phases, each printing one JSON line:
    width, 4 layers, 8 requests over 4 slots, held as in (b).  No kernel
    runs on this path (the reference takes no Pallas route with a cache).
 9b. model_families — two AdamW steps of the minicpm3-4b (MLA),
-   granite-moe-3b-a800m (MoE) and jamba-v0.1-52b (hybrid, 8 layers and 16
-   in stacked blocks) smoke models on the card against the CPU (fp32, TF32
-   off), loss and aux loss.
+   granite-moe-3b-a800m (MoE), jamba-v0.1-52b (hybrid, 8 layers and 16
+   in stacked blocks), whisper-large-v3 (encoder-decoder, batches with
+   frames) and internvl2-26b (VLM, batches with patch embeddings) smoke
+   models on the card against the CPU (fp32, TF32 off), loss and aux loss.
 12. main_mla — minicpm3-4b at full width (depth 62 cut to 4) trained from
    simulated S3 through the launcher as main_lm, then served whole (62
    layers) through ``launch/serve.py`` at the reference launcher's
@@ -118,13 +119,33 @@ Phases, each printing one JSON line:
    ``attention_impl="pallas"`` against ``"ref"`` over 4 batches of 2 x
    4096 tokens, flash launched 4 times and no other kernel; (f) the smoke
    model and its stacked variant served on the card against the CPU.
+15. main_encdec — whisper-large-v3 whole (32 + 32 layers, full width,
+   1.60 B parameters): (t) 8 AdamW steps through ``make_train_step`` at
+   batch 8 (frames (8, 1500, 1280), 448 text tokens a row, drawn on the
+   card from a seed), the last under torch.profiler, gated on finite
+   losses, the last below the first and a held-out batch's loss falling;
+   (k) ``make_eval_step`` with the flash kernel on the decoder's cacheless
+   self-attention against the plain attention over 2 of those batches,
+   flash launched 32 x 2 times and no other kernel, the losses within
+   5e-3, and the kernel alone at that shape, (8, 20, 448, 64) bf16 (the
+   D = 64 tensor-core route), beside its plain version and SDPA; (a)
+   served through ``launch/serve.py`` at the reference launcher's defaults
+   (8 slots: the reference's engine serves one), main_serve's figures and
+   the cross-KV cache's size; (b) pooled against batch-1 decode; (c)
+   teacher-forced decode against a cacheless forward over the same
+   frames; (f) the smoke model served on the card against the CPU; (v)
+   internvl2-26b at full width, depth 48 cut to 4 (2.72 B parameters), its
+   flash eval over 2 batches of 2 x 2048 tokens with 1024 patch
+   embeddings, flash launched 4 x 2 times.
 
 Launch counts are set to 0 just before each main path and read just after
 (for main_pipeline and main_autotune, around each launcher run; for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
 again around (d); for main_mla, main_moe and main_hybrid, around each
-launcher run, and for main_hybrid around its flash eval (k); rmsnorm,
-which no model calls, counts its own phase's checked calls).  Each main
+launcher run, and for main_hybrid around its flash eval (k); for
+main_encdec around its training steps, its launcher run and each flash
+eval, (k) and (v); rmsnorm, which no model calls, counts its own phase's
+checked calls).  Each main
 phase prints its wall time (``phase_wall``).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
@@ -304,6 +325,32 @@ HYBRID_SCAN_CHUNKS = (64, 128, 256, 512)  # the Mamba scan's chunk, timed at ful
 # LM_EVAL_BATCHES batches of HYBRID_EVAL_BS x LM_SEQ tokens, within
 # main_lm's 5e-3 of the plain attention's loss
 HYBRID_EVAL_BS, HYBRID_EVAL_TOL = 2, 5e-3
+
+# The encoder-decoder, whisper-large-v3 whole (32 + 32 layers, d_model 1280,
+# 20 heads of 64, 1.60 B parameters; nothing cut).  (t) ENCDEC_STEPS AdamW
+# steps through make_train_step at batch ENCDEC_BS: frames (8, 1500, 1280)
+# and ENCDEC_TEXT text tokens a row (whisper's n_text_ctx), drawn on the
+# card from a seed, tokens and targets from a Zipf (1/rank) unigram over the
+# vocabulary, as text's are (uniform targets leave nothing to learn but the
+# logits' scale); whisper-large's peak learning rate, 1.75e-4
+# (arXiv:2212.04356, Appendix F), warmed up linearly over the 8 steps (at
+# 3e-4 from the first step the loss jumped from 11.2 to 16.7 and 17.6);
+# the last step under torch.profiler.  (k) make_eval_step
+# with the flash kernel against the plain attention over ENCDEC_EVAL_BATCHES
+# of those batches, within main_lm's 5e-3; the flash call at the model's
+# shape timed beside the plain attention and SDPA.  (a) served through
+# launch/serve.py at the reference launcher's defaults, main_serve's (b),
+# (c) against a cacheless forward over the same (zero) frames, and (f).
+# (v) internvl2-26b at full width, depth 48 -> 4, make_eval_step with the
+# flash kernel against the plain attention over 2 batches of VLM_EVAL_BS x
+# VLM_EVAL_SEQ tokens with its 1024 patch embeddings.
+ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "internvl2-26b"
+ENCDEC_BS, ENCDEC_TEXT, ENCDEC_STEPS, ENCDEC_EVAL_BATCHES = 8, 448, 8, 2
+ENCDEC_LR, ENCDEC_EVAL_TOL = 1.75e-4, 5e-3
+ENCDEC_SERVE_ARGS = ["--arch", ENCDEC_ARCH, "--full", "--device", "cuda"]
+VLM_EVAL_ARCH, VLM_LAYERS, VLM_EVAL_BS, VLM_EVAL_SEQ = "internvl2-26b-4l", 4, 2, 2048
+VLM_REDUCED = {"num_layers": "48 -> 4 (48 layers are 19.88 B parameters, 79.5 GB of fp32 "
+                             "weights)"}
 
 
 def fail(msg: str) -> None:
@@ -1664,8 +1711,8 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
     from repro_torch.launch import train as launch
     from repro_torch.models.layers import apply_embedding, apply_norm
     from repro_torch.models.rwkv6 import apply_rwkv_timemix
-    from repro_torch.models.transformer import _apply_sublayer, _unbind, layer_kinds
-    from repro_torch.tree import leaves
+    from repro_torch.models.transformer import _apply_sublayer, layer_kinds
+    from repro_torch.tree import leaves, unbind
 
     register_arch(RWKV_ARCH, lambda: replace(rwkv6_7b.full(), num_layers=RWKV_LAYERS),
                   rwkv6_7b.smoke)
@@ -1702,7 +1749,7 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
         return wkv_ops.wkv(r, k, v, w, u, s0)
 
     kinds = layer_kinds(cfg)
-    blocks = _unbind(params["blocks"])
+    blocks = unbind(params["blocks"])
     residual = None
     with torch.no_grad():
         for b in batches:
@@ -1824,22 +1871,36 @@ def order_stat(xs, q: float) -> float:
     return xs[min(int(q * len(xs)), len(xs) - 1)]
 
 
-def forced_logits(torch, transformer, cfg, params, prompt, tokens, max_len, device="cuda"):
+def serve_batch(torch, cfg, tokens):
+    """A prompt batch as the engine builds one: the tokens and, for the
+    encoder-decoder, zero frames (the frontend stub)."""
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros(
+            (tokens.shape[0], cfg.encoder_seq_len or 1500, cfg.frontend_dim or cfg.d_model),
+            dtype=torch.float32, device=tokens.device)
+    return batch
+
+
+def forced_logits(torch, cfg, params, prompt, tokens, max_len, device="cuda"):
     """Sequential batch-1 decode fed ``tokens`` (teacher forcing; the twin
-    of ``tests/test_serve.py``'s reference_greedy): each step's logits in
-    fp32, (len(tokens), V)."""
-    logits, cache = transformer.prefill(
-        params, {"tokens": torch.tensor([list(prompt)], device=device)}, cfg,
-        transformer.init_cache(cfg, 1, max_len, device))
+    of ``tests/test_serve.py``'s reference_greedy) through the family's
+    serving programs: each step's logits in fp32, (len(tokens), V)."""
+    from repro_torch.serve.steps import make_serve_fns
+
+    fns = make_serve_fns(cfg, device)
+    logits, cache = fns["prefill"](
+        params, serve_batch(torch, cfg, torch.tensor([list(prompt)], device=device)),
+        fns["init_cache"](1, max_len))
     steps = [logits[0].float()]
     for i, tok in enumerate(tokens[:-1]):
-        logits, cache = transformer.decode_step(
-            params, cache, torch.tensor([[tok]], device=device), len(prompt) + i, cfg)
+        logits, cache = fns["decode"](params, cache, torch.tensor([[tok]], device=device),
+                                      len(prompt) + i)
         steps.append(logits[0].float())
     return torch.stack(steps)
 
 
-def held_to_batch1(torch, transformer, cfg, params, requests, max_len, tol) -> dict:
+def held_to_batch1(torch, cfg, params, requests, max_len, tol) -> dict:
     """Pooled against sequential: each request's engine tokens fed to the
     batch-1 decode; at every step the engine's token must have a logit
     within ``tol`` of the batch-1 maximum.  Counts exact matches and ties
@@ -1847,8 +1908,7 @@ def held_to_batch1(torch, transformer, cfg, params, requests, max_len, tol) -> d
     out = {"requests": len(requests), "steps": 0, "exact": 0, "ties": 0, "max_gap": 0.0,
            "tolerance": tol, "last_steps": []}
     for req in requests:
-        steps = forced_logits(torch, transformer, cfg, params, req.prompt.tolist(),
-                              req.output, max_len)
+        steps = forced_logits(torch, cfg, params, req.prompt.tolist(), req.output, max_len)
         toks = torch.tensor(req.output, device=steps.device)
         gaps = steps.max(-1).values - steps.gather(1, toks[:, None])[:, 0]
         exact = int((steps.argmax(-1) == toks).sum().item())
@@ -1870,7 +1930,7 @@ def pooled_and_cacheless(torch, cfg, params, done, max_len: int, phase: str,
     from repro_torch.models import transformer
 
     checked = done[:: len(done) // SERVE_CHECKED][:SERVE_CHECKED]
-    pooled = held_to_batch1(torch, transformer, cfg, params, checked, max_len, SERVE_TIE_TOL)
+    pooled = held_to_batch1(torch, cfg, params, checked, max_len, SERVE_TIE_TOL)
     lasts, diffs = pooled.pop("last_steps"), []
     for req, last in zip(checked[:SERVE_CACHELESS] if cacheless else [], lasts):
         seq = req.prompt.tolist() + req.output[:-1]
@@ -1896,27 +1956,33 @@ def serve_path(torch, counted, serve_args: list, smi: str, phase: str, reduced=N
     synchronizes, every counted kernel's launches set to 0 just before the
     run and read just after; gated on the reference's token accounting and
     tick bound and on no kernel launch.  ``reduced`` names the cuts of a
-    registered arch.  Returns (report, args, figures)."""
+    registered arch.  The family's module (``models.encdec`` for the
+    encoder-decoder, else ``models.transformer``) has its init, prefill
+    and decode wrapped.  Returns (report, args, figures)."""
+    from repro_torch.config import get_arch
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     from repro_torch.tree import leaves
 
+    args = serve.parse_args(serve_args)
+    model, init_name = (encdec, "init_encdec") \
+        if get_arch(args.arch, smoke=args.smoke).family == "encdec" else (transformer, "init_lm")
     init = {}
-    real_init = transformer.init_lm
+    real_init = getattr(model, init_name)
 
-    def init_lm(*args, **kwargs):
+    def timed_init(*a, **kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        params = real_init(*args, **kwargs)
+        params = real_init(*a, **kw)
         torch.cuda.synchronize()
         init.update(s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
                     param_bytes=sum(t.numel() * t.element_size() for t in leaves(params)))
         torch.cuda.reset_peak_memory_stats()
         return params
 
-    transformer.init_lm = init_lm
-    timer = SyncTimer(torch, transformer, ("prefill", "decode_step"))
+    setattr(model, init_name, timed_init)
+    timer = SyncTimer(torch, model, ("prefill", "decode_step"))
     allocated_before = torch.cuda.memory_allocated()  # what earlier phases left
     for fn in counted.values():
         fn.launches = 0
@@ -1924,10 +1990,9 @@ def serve_path(torch, counted, serve_args: list, smi: str, phase: str, reduced=N
         report = serve.run(serve_args)
     finally:
         timer.restore()
-        transformer.init_lm = real_init
+        setattr(model, init_name, real_init)
     launches = {name: fn.launches for name, fn in counted.items()}
     serve_peak = torch.cuda.max_memory_allocated()
-    args = serve.parse_args(serve_args)
     cfg, eng, done = report.cfg, report.engine, report.done
     ttfts = [r.t_first_token - r.t_submit for r in done]
     totals = [r.t_done - r.t_submit for r in done]
@@ -1973,19 +2038,18 @@ def serve_profile(torch, report, max_len: int, phase: str) -> dict:
     """Where a tick's time goes: torch.profiler over pooled decode ticks and
     batch-1 prefills after the run, each call's device busy time (the
     union of its kernels) against its wall time."""
-    from repro_torch.models import transformer
+    from repro_torch.serve.steps import make_serve_fns
     from repro_torch.tools.profile_lm_step import busy_ms, profiled
 
     cfg, eng = report.cfg, report.engine
+    fns = make_serve_fns(cfg, "cuda")
     first = min(report.done, key=lambda r: r.uid)
     toks = torch.tensor(eng.last_token[:, None], device="cuda")
-    one = {"tokens": torch.tensor(first.prompt[None], device="cuda")}
+    one = serve_batch(torch, cfg, torch.tensor(first.prompt[None], device="cuda"))
     where = {}
     for name, fn in (
-            ("decode", lambda: transformer.decode_step(eng.params, eng.cache, toks,
-                                                       eng.positions, cfg)),
-            ("prefill", lambda: transformer.prefill(
-                eng.params, one, cfg, transformer.init_cache(cfg, 1, max_len, "cuda")))):
+            ("decode", lambda: fns["decode"](eng.params, eng.cache, toks, eng.positions)),
+            ("prefill", lambda: fns["prefill"](eng.params, one, fns["init_cache"](1, max_len)))):
         prof = profiled(torch, fn, SERVE_PROFILED)
         busy = busy_ms(prof["intervals"]) / SERVE_PROFILED
         where[name] = {"calls": SERVE_PROFILED, "wall_ms": prof["wall_ms"],
@@ -2053,25 +2117,28 @@ def card_vs_cpu(torch, cfgs, phase: str) -> list:
 
     from repro_torch.config import ServeSpec
     from repro_torch.convert import lm_params_from_jax, to_jax
-    from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.steps import make_serve_fns
+    from repro_torch.train.steps import init_params_for
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = []
     for scfg in cfgs:
-        np_params = to_jax(transformer.init_lm(scfg, torch.Generator().manual_seed(2), "cpu"))
+        np_params = to_jax(init_params_for(scfg, torch.Generator().manual_seed(2), "cpu"))
         prompts = np.random.default_rng(3).integers(1, scfg.vocab_size, (2, 12)).astype(np.int32)
         logits, tokens, fed = {}, {}, []
         for dev in ("cpu", "cuda"):  # the card is fed the CPU's greedy tokens
             sp = lm_params_from_jax(np_params, dev, requires_grad=False)
-            out, cache = transformer.prefill(sp, {"tokens": torch.from_numpy(prompts).to(dev)},
-                                             scfg, transformer.init_cache(scfg, 2, 20, dev))
+            fns = make_serve_fns(scfg, dev)
+            out, cache = fns["prefill"](sp, serve_batch(torch, scfg,
+                                                        torch.from_numpy(prompts).to(dev)),
+                                        fns["init_cache"](2, 20))
             steps = [out.cpu()]
             for i in range(4):
                 if dev == "cpu":
                     fed.append(steps[-1].argmax(-1))
-                out, cache = transformer.decode_step(sp, cache, fed[i][:, None].to(dev),
-                                                     np.array([12 + i, 12 + i]), scfg)
+                out, cache = fns["decode"](sp, cache, fed[i][:, None].to(dev),
+                                           np.array([12 + i, 12 + i]))
                 steps.append(out.cpu())
             logits[dev] = torch.stack(steps)
             eng_d = ServeEngine(scfg, sp, spec=ServeSpec(num_slots=2, max_len=32), device=dev)
@@ -2156,8 +2223,7 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
     t0 = time.perf_counter()
     rdone = sorted(reng.run_until_drained(), key=lambda r: r.uid)
     rwall = time.perf_counter() - t0
-    rpooled = held_to_batch1(torch, transformer, rcfg, rparams, rdone, args.max_len,
-                             SERVE_TIE_TOL)
+    rpooled = held_to_batch1(torch, rcfg, rparams, rdone, args.max_len, SERVE_TIE_TOL)
     rpooled.pop("last_steps")
     rwant = RWKV_SERVE_REQUESTS * (args.max_new - 1)
     emit({"phase": "main_serve", "check": "g_rwkv", "arch": rcfg.name,
@@ -2175,31 +2241,39 @@ def phase_main_serve(torch, counted, smi: str) -> dict:
 
 
 def phase_model_families(torch) -> dict:
-    """The minicpm3-4b (MLA), granite-moe-3b-a800m (MoE) and jamba-v0.1-52b
+    """The minicpm3-4b (MLA), granite-moe-3b-a800m (MoE), jamba-v0.1-52b
     (hybrid: one block of 8 layers, and HYBRID_STACKED_LAYERS in stacked
-    blocks) smoke models: two AdamW steps on the card against the CPU from
-    the same weights, in fp32 with TF32 off (the devices differ only in
-    summation order): loss and aux loss within 1e-4."""
+    blocks), whisper-large-v3 (encoder-decoder, its batches with frames)
+    and internvl2-26b (VLM, with patch embeddings) smoke models: two AdamW
+    steps on the card against the CPU from the same weights, in fp32 with
+    TF32 off (the devices differ only in summation order): loss and aux
+    loss within 1e-4."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.config import TrainConfig, get_arch
     from repro_torch.convert import lm_params_from_jax, to_jax
-    from repro_torch.models.transformer import init_lm
-    from repro_torch.train.steps import lm_train_state, make_train_step
+    from repro_torch.train.steps import init_params_for, lm_train_state, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-3, warmup_steps=1)
     cases = []
     f32 = [dataclasses.replace(get_arch(arch, smoke=True), dtype="float32")
-           for arch in (MLA_ARCH, MOE_ARCH, HYBRID_ARCH)]
-    for cfg in f32 + [dataclasses.replace(f32[-1], num_layers=HYBRID_STACKED_LAYERS)]:
-        np_params = to_jax(init_lm(cfg, torch.Generator().manual_seed(1), "cpu"))
+           for arch in (MLA_ARCH, MOE_ARCH, HYBRID_ARCH, ENCDEC_ARCH, VLM_ARCH)]
+    for cfg in f32 + [dataclasses.replace(f32[2], num_layers=HYBRID_STACKED_LAYERS)]:
+        np_params = to_jax(init_params_for(cfg, torch.Generator().manual_seed(1), "cpu"))
         rng = np.random.default_rng(2)
         batches = [{k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
                     for k in ("tokens", "targets")} for _ in range(2)]
+        for b in batches:
+            if cfg.family == "encdec":
+                b["frames"] = rng.standard_normal(
+                    (4, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+            if cfg.num_patch_tokens:
+                b["patch_embeds"] = rng.standard_normal(
+                    (4, cfg.num_patch_tokens, cfg.frontend_dim)).astype(np.float32)
         got = {}
         for dev in ("cpu", "cuda"):
             state = lm_train_state(lm_params_from_jax(np_params, dev), tcfg)
@@ -2216,7 +2290,8 @@ def phase_model_families(torch) -> dict:
            "cases": cases, "limit": 1e-4, "cudnn_allow_tf32": False, "matmul_allow_tf32": False}
     emit(out)
     if not all(c["finite"] and c["max_diff"] <= 1e-4 for c in cases):
-        fail(f"MLA / MoE / hybrid train steps on the card differ from the CPU: {cases}")
+        fail(f"MLA / MoE / hybrid / encdec / VLM train steps on the card differ from the CPU: "
+             f"{cases}")
     return out
 
 
@@ -2617,53 +2692,21 @@ def hybrid_long_prefill(torch, cfg, params) -> dict:
 
 
 def hybrid_flash_eval(torch, counted, cfg, params) -> dict:
-    """(k) The kernel on the hybrid's path: ``make_eval_step`` on the served
-    model with ``attention_impl="pallas"`` against ``"ref"``, over
-    LM_EVAL_BATCHES batches of HYBRID_EVAL_BS x LM_SEQ tokens drawn from a
-    seed; every counted kernel's launches set to 0 just before the flash
-    pass and read just after.  Gated on the losses within HYBRID_EVAL_TOL,
-    flash launched once a batch per attention layer, no other kernel."""
-    import dataclasses
-
+    """(k) The kernel on the hybrid's path: ``flash_eval`` on the served
+    model over LM_EVAL_BATCHES batches of HYBRID_EVAL_BS x LM_SEQ tokens
+    drawn from a seed, flash launched once a batch per attention layer."""
     import numpy as np
 
     from repro_torch.models import transformer
-    from repro_torch.train.steps import make_eval_step
 
     rng = np.random.default_rng(5)
     batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (HYBRID_EVAL_BS, LM_SEQ))
                                     .astype(np.int32)).to("cuda") for k in ("tokens", "targets")}
                for _ in range(LM_EVAL_BATCHES)]
     attn_layers = sum(m == "attn" for m, _ in transformer.layer_kinds(cfg))
-    eval_flash = make_eval_step(dataclasses.replace(cfg, attention_impl="pallas"))
-    eval_ref = make_eval_step(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counted.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss_flash = [eval_flash(params, b)["loss"].item() for b in batches]
-    flash_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
-    t0 = time.perf_counter()
-    loss_ref = [eval_ref(params, b)["loss"].item() for b in batches]
-    ref_s = time.perf_counter() - t0
-    diffs = [abs(a - b) for a, b in zip(loss_flash, loss_ref)]
-    want = attn_layers * len(batches)
-    out = {"phase": "main_hybrid", "check": "k_flash_eval", "arch": cfg.name,
-           "batch": [HYBRID_EVAL_BS, LM_SEQ], "eval_batches": len(batches),
-           "attention_layers": attn_layers, "eval_loss_flash": loss_flash,
-           "eval_loss_ref": loss_ref, "eval_max_diff": max(diffs), "eval_limit": HYBRID_EVAL_TOL,
-           "flash_wall_s": flash_s, "ref_wall_s": ref_s, "launches": launches,
-           "flash_attention_launches_expected": want,
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-    emit(out)
-    if not all(math.isfinite(x) for x in loss_flash) or max(diffs) > HYBRID_EVAL_TOL:
-        fail(f"{cfg.name}: flash eval loss {loss_flash} vs plain attention {loss_ref}")
-    if launches["flash_attention"] != want or \
-            any(v for name, v in launches.items() if name != "flash_attention"):
-        fail(f"{cfg.name}: launches on the flash eval {launches}, want flash_attention {want}")
-    return out
+    return flash_eval(torch, counted, cfg, params, batches, "main_hybrid", attn_layers,
+                      HYBRID_EVAL_TOL, batch=[HYBRID_EVAL_BS, LM_SEQ],
+                      attention_layers=attn_layers)
 
 
 def phase_main_hybrid(torch, counted, smi: str) -> dict:
@@ -2736,6 +2779,299 @@ def phase_main_hybrid(torch, counted, smi: str) -> dict:
     return {"train": train, "serve": path, "pooled": pooled, "drops": drops, "carry": carry,
             "scan_chunks": chunks, "long": long, "flash": flash,
             "launches": add_launches(train, path, flash)}
+
+
+def encdec_batches(torch, cfg, n: int, seed: int) -> list:
+    """``n`` training batches of ENCDEC_BS rows drawn on the card: frames
+    N(0, 1), tokens and targets from a 1/rank unigram over the vocabulary."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    zipf = 1.0 / torch.arange(1, cfg.vocab_size + 1, dtype=torch.float32, device="cuda")
+    fd = cfg.frontend_dim or cfg.d_model
+
+    def text():
+        return torch.multinomial(zipf, ENCDEC_BS * ENCDEC_TEXT, replacement=True,
+                                 generator=gen).view(ENCDEC_BS, ENCDEC_TEXT).to(torch.int32)
+
+    return [{"frames": torch.randn((ENCDEC_BS, cfg.encoder_seq_len, fd), generator=gen,
+                                   device="cuda"),
+             "tokens": text(), "targets": text()} for _ in range(n)]
+
+
+def encdec_train(torch, counted, cfg, smi: str):
+    """(t) whisper-large-v3 whole trained ENCDEC_STEPS AdamW steps through
+    ``make_train_step``, the weights drawn on the card with
+    ``init_train_state``; every counted kernel's launches set to 0 just
+    before the steps and read just after.  Gated on finite losses, the last
+    step's below the first's and a held-out batch's loss (``make_eval_step``)
+    lower after the steps than before them (Adam's first update, every
+    weight moved by the learning rate, raises the next step's loss at full
+    width), parameters on the card and no kernel launch (training takes
+    the plain attention).  Returns (state, batches, figures)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.tools.profile_lm_step import busy_ms, profiled
+    from repro_torch.train.steps import init_train_state, make_eval_step, make_train_step
+    from repro_torch.tree import leaves
+
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=ENCDEC_LR, warmup_steps=ENCDEC_STEPS,
+                       total_steps=ENCDEC_STEPS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    batches = encdec_batches(torch, cfg, ENCDEC_STEPS, seed=1)
+    held_out = encdec_batches(torch, cfg, 1, seed=2)[0]
+    step, evaluate = make_train_step(cfg, tcfg), make_eval_step(cfg)
+    held_before = evaluate(state["params"], held_out)["loss"].item()
+    torch.cuda.reset_peak_memory_stats()
+    losses, grad_norms, step_s, prof = [], [], [], None
+    for fn in counted.values():
+        fn.launches = 0
+    for i, batch in enumerate(batches):
+        def run(batch=batch):
+            nonlocal state
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            grad_norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == len(batches) - 1:  # the last step under the profiler
+            prof = profiled(torch, run, 1)
+        else:
+            run()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    held_after = evaluate(state["params"], held_out)["loss"].item()
+    steady = step_s[1:-1]  # after the first, before the profiled one
+    busy = busy_ms(prof["intervals"])
+    devices = sorted({p.device.type for p in leaves(state["params"])})
+    out = {"phase": "main_encdec", "check": "t_train", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "num_encoder_layers": cfg.num_encoder_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+           "heads": cfg.attention.num_heads, "head_dim": cfg.attention.head_dim,
+           "params": sum(p.numel() for p in leaves(state["params"])),
+           "batch": ENCDEC_BS, "encoder_frames": cfg.encoder_seq_len, "text_tokens": ENCDEC_TEXT,
+           "optimizer": "adamw", "learning_rate": ENCDEC_LR, "warmup_steps": ENCDEC_STEPS,
+           "steps": len(losses),
+           "losses": losses, "grad_norms": grad_norms,
+           "held_out_loss_before": held_before, "held_out_loss_after": held_after,
+           "step_s": step_s,
+           "step_s_median_after_first": statistics.median(steady),
+           "tokens_per_s_after_first_step": len(steady) * ENCDEC_BS * ENCDEC_TEXT / sum(steady),
+           "frames_per_s_after_first_step":
+               len(steady) * ENCDEC_BS * cfg.encoder_seq_len / sum(steady),
+           "profiled_step": {"wall_ms": prof["wall_ms"], "device_busy_ms": busy,
+                             "busy_share": busy / prof["wall_ms"],
+                             "kernels": len(prof["intervals"]),
+                             "device_ms_by_category": dict(sorted(
+                                 prof["by_cat"].items(), key=lambda kv: -kv[1]))},
+           "init_s": init_s, "init_peak_bytes": init_peak,
+           "step_peak_bytes": torch.cuda.max_memory_allocated(),
+           "device_total_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "param_devices": devices, "launches": launches,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "nvidia_smi": smi}
+    emit(out)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] \
+            or not held_after < held_before:
+        fail(f"{cfg.name} training losses not finite and falling: {losses}, held-out "
+             f"{held_before} -> {held_after}")
+    if devices != ["cuda"]:
+        fail(f"{cfg.name} params live on {devices}, not on cuda")
+    if any(launches.values()):
+        fail(f"a kernel launched on the {cfg.name} training path: {launches}")
+    return state, batches, out
+
+
+def flash_eval(torch, counted, cfg, weights, batches, phase: str, layers: int, bound: float,
+               **fields) -> dict:
+    """``make_eval_step`` with ``attention_impl="pallas"`` against ``"ref"``
+    on ``weights`` over ``batches``; every counted kernel's launches set to 0 just before
+    the flash pass and read just after.  Gated on finite losses within
+    ``bound``, flash launched ``layers`` times a batch and no other kernel."""
+    import dataclasses
+
+    from repro_torch.train.steps import make_eval_step
+
+    eval_flash = make_eval_step(dataclasses.replace(cfg, attention_impl="pallas"))
+    eval_ref = make_eval_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_flash = [eval_flash(weights, b)["loss"].item() for b in batches]
+    flash_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    t0 = time.perf_counter()
+    loss_ref = [eval_ref(weights, b)["loss"].item() for b in batches]
+    ref_s = time.perf_counter() - t0
+    diffs = [abs(a - b) for a, b in zip(loss_flash, loss_ref)]
+    want = layers * len(batches)
+    out = {"phase": phase, "check": "k_flash_eval", "arch": cfg.name, **fields,
+           "eval_batches": len(batches), "eval_loss_flash": loss_flash, "eval_loss_ref": loss_ref,
+           "eval_max_diff": max(diffs), "eval_limit": bound, "flash_wall_s": flash_s,
+           "ref_wall_s": ref_s, "launches": launches,
+           "flash_attention_launches_expected": want,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    if not all(math.isfinite(x) for x in loss_flash) or max(diffs) > bound:
+        fail(f"{cfg.name}: flash eval loss {loss_flash} vs plain attention {loss_ref}")
+    if launches["flash_attention"] != want or \
+            any(v for name, v in launches.items() if name != "flash_attention"):
+        fail(f"{cfg.name}: launches on the flash eval {launches}, want flash_attention {want}")
+    return out
+
+
+def flash_at_model_shape(torch, cfg, flash_ops, flash_ref, bw, peak) -> dict:
+    """The flash kernel alone at the encoder-decoder's decoder shape, q, k, v
+    (ENCDEC_BS, H, ENCDEC_TEXT, 64) bf16, causal (the D = 64 tensor-core
+    route): against its plain version, timed beside it and SDPA."""
+    import torch.nn.functional as F
+
+    a = cfg.attention
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v = (torch.randn((ENCDEC_BS, a.num_heads, ENCDEC_TEXT, a.head_dim), generator=gen,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    want = flash_ref.attention_ref(q, k, v, causal=True).float()
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    close = bool(torch.all(diff <= 2e-2 + 2e-2 * want.abs()).item())  # phase_flash's bf16 limit
+    S, D = ENCDEC_TEXT, a.head_dim
+    flops = 2.0 * ENCDEC_BS * a.num_heads * S * S * D  # q k^T and p v over the causal triangle
+    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
+    bound, bound_by = bound_ms(nbytes, flops, bw, peak)
+    out = {"phase": "main_encdec", "check": "k_flash_shape", "shape": list(q.shape),
+           "dtype": "bfloat16", "route": flash_ops.route(q.dtype, D), "max_abs_err": err,
+           "tolerance": "2e-2 + 2e-2 * |plain|", "close": close,
+           "kernel_ms": device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True)),
+           "plain_ms": device_ms(lambda: flash_ref.attention_ref(q, k, v, causal=True)),
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True)),
+           "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bound_bytes": nbytes}
+    emit(out)
+    if not close:
+        fail(f"flash at the encoder-decoder's shape: max abs err {err}")
+    return out
+
+
+def encdec_cacheless(torch, cfg, params, done, max_len: int) -> list:
+    """(c) SERVE_CACHELESS requests' teacher-forced decode logits (every
+    step) against a cacheless forward of the same tokens over the same zero
+    frames (the twin of ``tests/test_archs_smoke.py``'s
+    ``test_decode_matches_forward_gqa``), within SERVE_LOGIT_TOL (gated)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import apply_lm_head, apply_norm
+
+    diffs = []
+    for req in done[:SERVE_CACHELESS]:
+        P = len(req.prompt)
+        forced = forced_logits(torch, cfg, params, req.prompt.tolist(), req.output, max_len)
+        seq = torch.tensor([req.prompt.tolist() + req.output[:-1]], device="cuda")
+        with torch.inference_mode():
+            batch = serve_batch(torch, cfg, seq)
+            enc = encdec.encode(params, batch["frames"], cfg)
+            x = encdec._with_positions(params, seq, cfg)
+            x = encdec._decoder(params, x, cfg, torch.arange(seq.shape[1], device="cuda"),
+                                enc=enc)
+            full = apply_lm_head(params["lm_head"], apply_norm(params["final_norm"], x, cfg),
+                                 cfg)[0, P - 1:].float()
+        diffs.append((full - forced).abs().max().item())
+    emit({"phase": "main_encdec", "check": "c_decode_vs_cacheless", "arch": cfg.name,
+          "uids": [r.uid for r in done[:SERVE_CACHELESS]], "steps_each": len(done[0].output),
+          "max_abs_diff": diffs, "tolerance": SERVE_LOGIT_TOL})
+    if not max(diffs) <= SERVE_LOGIT_TOL:
+        fail(f"{cfg.name}: teacher-forced decode against a cacheless forward: {diffs}")
+    return diffs
+
+
+def phase_main_encdec(torch, counted, smi: str, flash_ops, flash_ref, bw, peak) -> dict:
+    """The encoder-decoder, whisper-large-v3 whole: (t) trained through
+    ``make_train_step``; (k) the flash kernel on its decoder's cacheless
+    self-attention through ``make_eval_step``, and alone at that shape; (a)
+    served through ``launch/serve.py`` at the reference launcher's defaults,
+    the cross-KV cache's size beside; (b) pooled against batch-1 decode; (c)
+    teacher-forced decode against a cacheless forward; (f) the smoke model
+    served on the card against the CPU; then (v) the VLM stub, internvl2-26b
+    at full width (4 layers), its flash eval."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import get_arch, register_arch, replace
+    from repro_torch.configs import internvl2_26b
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(ENCDEC_ARCH)
+    # (t) and (k) on the trained weights
+    state, batches, train = encdec_train(torch, counted, cfg, smi)
+    params = state["params"]
+    del state["opt"]
+    torch.cuda.empty_cache()
+    flash = flash_eval(torch, counted, cfg, params, batches[:ENCDEC_EVAL_BATCHES], "main_encdec",
+                       cfg.num_layers, ENCDEC_EVAL_TOL,
+                       batch=[ENCDEC_BS, ENCDEC_TEXT], encoder_frames=cfg.encoder_seq_len,
+                       decoder_layers=cfg.num_layers)
+    shape = flash_at_model_shape(torch, cfg, flash_ops, flash_ref, bw, peak)
+    del state, params, batches
+    torch.cuda.empty_cache()
+
+    # (a) served whole
+    report, args, path = serve_path(torch, counted, ENCDEC_SERVE_ARGS, smi, "main_encdec")
+    cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
+    params = eng.params
+    cross = {k: eng.cache[k].numel() * eng.cache[k].element_size() for k in eng.cache}
+    emit({"phase": "main_encdec", "check": "a_cache", "arch": cfg.name,
+          "leaves": {k: list(t.shape) for k, t in eng.cache.items()}, "bytes": cross,
+          "cross_kv_bytes": cross["cross_k"] + cross["cross_v"],
+          "self_kv_bytes": cross["k"] + cross["v"]})
+    profile = serve_profile(torch, report, args.max_len, "main_encdec")
+    # (b) pooled against batch-1 decode, gated; (c) against a cacheless forward
+    pooled, _ = pooled_and_cacheless(torch, cfg, params, done, args.max_len, "main_encdec",
+                                     cacheless=False)
+    cacheless = encdec_cacheless(torch, cfg, params, done, args.max_len)
+    del params, report, eng, done
+    torch.cuda.empty_cache()
+    # (f) the smoke model served on the card against the CPU
+    card_vs_cpu(torch, [dataclasses.replace(get_arch(ENCDEC_ARCH, smoke=True), dtype="float32")],
+                "main_encdec")
+
+    # (v) the VLM stub at full width, depth cut
+    register_arch(VLM_EVAL_ARCH, lambda: replace(internvl2_26b.full(), num_layers=VLM_LAYERS),
+                  internvl2_26b.smoke)
+    vcfg = get_arch(VLM_EVAL_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vparams = transformer.init_lm(vcfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    vbatches = [{"tokens": torch.from_numpy(rng.integers(
+                     0, vcfg.vocab_size, (VLM_EVAL_BS, VLM_EVAL_SEQ)).astype(np.int32)).cuda(),
+                 "targets": torch.from_numpy(rng.integers(
+                     0, vcfg.vocab_size, (VLM_EVAL_BS, VLM_EVAL_SEQ)).astype(np.int32)).cuda(),
+                 "patch_embeds": torch.from_numpy(rng.standard_normal(
+                     (VLM_EVAL_BS, vcfg.num_patch_tokens, vcfg.frontend_dim)).astype(
+                         np.float32)).cuda()}
+                for _ in range(ENCDEC_EVAL_BATCHES)]
+    vlm = flash_eval(torch, counted, vcfg, vparams, vbatches, "main_encdec", vcfg.num_layers,
+                     ENCDEC_EVAL_TOL, reduced=VLM_REDUCED, num_layers=vcfg.num_layers,
+                     d_model=vcfg.d_model, heads=[vcfg.attention.num_heads,
+                                                  vcfg.attention.num_kv_heads],
+                     params=sum(t.numel() for t in leaves(vparams)), init_s=init_s,
+                     batch=[VLM_EVAL_BS, VLM_EVAL_SEQ],
+                     patch_embeds=[VLM_EVAL_BS, vcfg.num_patch_tokens, vcfg.frontend_dim],
+                     nvidia_smi=smi)
+    del vparams, vbatches
+    torch.cuda.empty_cache()
+    return {"train": train, "flash": flash, "flash_shape": shape, "serve": path,
+            "profile": profile, "pooled": pooled, "cacheless": cacheless, "vlm": vlm,
+            "launches": add_launches(train, flash, path),
+            "launches_vlm": vlm["launches"]}
 
 
 def timed(torch, name: str, fn, *args):
@@ -2821,9 +3157,13 @@ def main() -> int:
     mla_out = timed(torch, "main_mla", phase_main_mla, counted, smi)
     moe_out = timed(torch, "main_moe", phase_main_moe, counted, smi)
     hybrid_out = timed(torch, "main_hybrid", phase_main_hybrid, counted, smi)
+    encdec_out = timed(torch, "main_encdec", phase_main_encdec, counted, smi, flash_ops,
+                       flash_ref, bw, peak)
     family = {name: {"launches_mla": mla_out["launches"][name],
                      "launches_moe": moe_out["launches"][name],
-                     "launches_hybrid": hybrid_out["launches"][name]} for name in counted}
+                     "launches_hybrid": hybrid_out["launches"][name],
+                     "launches_encdec": encdec_out["launches"][name],
+                     "launches_vlm": encdec_out["launches_vlm"][name]} for name in counted}
 
     emit({"kernels": [{
         "name": "ingest_norm",
@@ -2861,6 +3201,9 @@ def main() -> int:
         "library_ms": flash["library_ms"],
         "fp32_kernel_ms": flash["fp32_kernel_ms"],
         "fp32_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "encdec_shape": {k: encdec_out["flash_shape"][k] for k in (
+            "shape", "route", "max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")},
     }, {
         "name": "rwkv6_wkv",
         "route": "cuda",

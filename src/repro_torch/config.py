@@ -1,8 +1,9 @@
 """Frozen-dataclass configuration for the port's slices, and the arch registry.
 
 A trimmed copy of ``repro/config.py``: only the fields the ResNet, dense
-decoder (LM, with gqa/mha or mla attention, and MoE FFNs), RWKV-6 and
-hybrid (Mamba-1 with attention, jamba) slices read, with the reference's
+decoder (LM, with gqa/mha or mla attention, and MoE FFNs, and the VLM
+stub's patch prefix), RWKV-6, hybrid (Mamba-1 with attention, jamba) and
+encoder-decoder (whisper) slices read, with the reference's
 names and defaults (``LoaderConfig`` drops ``pin_device`` and
 ``device_prefetch``, which the reference declares but never reads; the
 ring's depth is ``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops
@@ -14,16 +15,15 @@ folded into :class:`PipelineConfig`).  ``PipelineConfig`` has no
 and :class:`AutotuneConfig` no field of a feature the port lacks (the
 multi-host lease and shedding, cache knobs, slab knob, lane-skew gate,
 serving bounds).  :class:`ServeSpec` sizes the serving engine only; the
-reference's read-path fields come with its read path.  Enc-dec and VLM
-fields come with their slices.  ``replace()`` (from dataclasses) derives
-variants.
+reference's read-path fields come with its read path.  ``replace()``
+(from dataclasses) derives variants.
 """
 from __future__ import annotations
 
 import functools
 import warnings
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -91,7 +91,7 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "decoder"  # decoder | resnet | rwkv | hybrid
+    family: str = "decoder"  # decoder | encdec | resnet | rwkv | hybrid
     num_layers: int = 4
     d_model: int = 256
     d_ff: int = 1024
@@ -107,6 +107,12 @@ class ModelConfig:
     hybrid_attn_period: int = 0  # 0 = not hybrid; jamba: 8 with attn at index 3
     hybrid_attn_index: int = 3
     moe_every_k: int = 0  # 0 = never; jamba: 2
+    # enc-dec
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 0  # whisper: 1500 frames
+    # vlm stub
+    num_patch_tokens: int = 0  # internvl: 1024 patch embeddings
+    frontend_dim: int = 0  # dim of precomputed frontend embeddings (0 = d_model)
     # resnet
     resnet_blocks: Tuple[int, ...] = ()
     resnet_width: int = 64
@@ -383,3 +389,9 @@ def get_arch(name: str, smoke: bool = False) -> ModelConfig:
     if name not in reg:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(reg)}")
     return reg[name]()
+
+
+def list_archs() -> List[str]:
+    import repro_torch.configs  # noqa: F401  triggers registration
+
+    return sorted(ARCH_REGISTRY)

@@ -9,9 +9,9 @@ here.  Structure and leaf order are kept, so every leaf keeps its
 change is the ResNet's: its 4-D leaves are conv weights, HWIO in JAX and
 OIHW here, and only :func:`resnet_state_from_jax` / :func:`resnet_to_jax`
 flip them.  The LM keeps the reference's layout everywhere
-(:func:`lm_params_from_jax`, and :func:`to_jax` back): with stacked blocks
-its attention weights are 4-D too (``wq`` (L,d,H,hd), ``wo`` (L,H,hd,d)) and
-must not be flipped.
+(:func:`lm_params_from_jax`, and :func:`to_jax` back), and so does the
+encoder-decoder: with stacked blocks or layers their attention weights are
+4-D too (``wq`` (L,d,H,hd), ``wo`` (L,H,hd,d)) and must not be flipped.
 """
 from __future__ import annotations
 
@@ -76,6 +76,9 @@ def resnet_to_jax(tree: Any) -> Any:
 
 def lm_params_from_jax(params: Any, device: Union[str, torch.device] = "cuda",
                        requires_grad: bool = True) -> Any:
-    """Parameters of ``repro.models.transformer.init_lm`` as port tensors,
-    every leaf with its shape and path (stacked blocks stay stacked)."""
+    """Parameters of ``repro.models.transformer.init_lm`` (the VLM's
+    ``patch_proj`` too) or ``repro.models.encdec.init_encdec`` (with or
+    without ``frontend_proj``) as port tensors, every leaf with its shape
+    and path (stacked blocks and stacked encoder and decoder layers stay
+    stacked)."""
     return from_jax(params, device, requires_grad=requires_grad)

@@ -22,9 +22,13 @@ stats) and, with ``--pipeline``, the per-stage stats at the end.
 ``--arch resnet18-imagenet`` (default) trains the paper's own model on
 synthetic ImageNet; ``--arch granite-8b`` the dense decoder (or another
 registered LM: ``minicpm3-4b`` with MLA, ``granite-moe-3b-a800m`` and
-``qwen2-moe-a2.7b`` with MoE, ``rwkv6-7b``, the hybrid ``jamba-v0.1-52b``)
-on packed token sequences of ``--seq-len`` tokens streamed through the same
-loader.
+``qwen2-moe-a2.7b`` with MoE, ``rwkv6-7b``, the hybrid ``jamba-v0.1-52b``,
+the VLM stub ``internvl2-26b`` with no patch embeddings in its batches) on
+packed token sequences of ``--seq-len`` tokens streamed through the same
+loader.  The encoder-decoder (``whisper-large-v3``) is refused with a
+``SystemExit``: its batches need frames, which the token dataset does not
+carry (the reference's launcher fails there with a ``KeyError``); it trains
+through ``train.steps.make_train_step``.
 ``--smoke`` (default) uses the reduced config; ``--full`` the real widths.
 ``--device`` defaults to ``cuda`` and raises when no card is present.
 """
@@ -183,6 +187,12 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
     cfg = get_arch(args.arch, smoke=args.smoke)
     if args.device_ingest and cfg.family != "resnet":
         raise SystemExit("--device-ingest requires an image (resnet) arch")
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"{cfg.name} is an encoder-decoder: the token dataset carries no frames, so this "
+            "launcher cannot train it; train it through train.steps.make_train_step on "
+            "batches that hold 'frames' (B, encoder_seq_len, frontend_dim or d_model) "
+            "beside 'tokens' and 'targets'")
     tcfg = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
                        microbatches=args.microbatches,
                        grad_compression=args.grad_compression, total_steps=args.steps)

@@ -1,5 +1,5 @@
-"""Building blocks of the decoder: norms, RoPE, MHA/GQA and MLA attention,
-MLPs, embedding, LM head and the loss.
+"""Building blocks of the models: norms, RoPE, sinusoidal positions, MHA/GQA
+and MLA attention, MLPs, embedding, LM head and the loss.
 
 Plain functions over parameter trees (nested dicts of tensors) laid out as
 the JAX reference's (``repro/models/layers.py``), so both packages start from
@@ -14,8 +14,11 @@ Attention dispatch (``_sdpa``) follows ``layers.py:167-191``:
 no cache and ``S == T``; otherwise q lengths of 4096 and more (multiples of
 1024) take the q-chunked ``_sdpa_chunked``, and shorter ones ``_sdpa_dense``.
 ``apply_attention`` has the reference's self-attention KV-cache branch
-(prefill and decode, with per-slot positions); cross-attention comes with
-the encoder-decoder family.  ``apply_mla_attention`` (multi-head latent
+(prefill and decode, with per-slot positions) and its ``kv_source``
+(cross-attention) branch, which no model calls: the encoder-decoder's
+cross-attention is ``encdec._cross_attn`` over precomputed K/V, as in the
+reference.  ``sinusoidal_embedding`` is the encoder-decoder's position
+table.  ``apply_mla_attention`` (multi-head latent
 attention) caches the latent and the shared rope key; with a cache and at
 most ``MLA_ABSORB_MAX_S`` query positions it attends in the latent space
 (the absorbed branch), otherwise it expands the latent over the whole
@@ -100,6 +103,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_embedding_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sinusoidal row of each position in ``pos``, shape ``pos.shape +
+    (dim,)``, fp32: sin at the even columns, cos at the odd ones, of
+    position * 10000^(-2i/dim)."""
+    half = torch.arange(0, dim, 2, dtype=torch.float32, device=pos.device)
+    ang = pos.to(torch.float32)[..., None] * torch.exp(half * (-math.log(10000.0) / dim))
+    emb = torch.zeros((*pos.shape, dim), dtype=torch.float32, device=pos.device)
+    emb[..., 0::2] = torch.sin(ang)
+    emb[..., 1::2] = torch.cos(ang)
+    return emb
+
+
+def sinusoidal_embedding(length: int, dim: int,
+                         device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """(length, dim) fp32: the rows of positions [0, length)."""
+    return sinusoidal_embedding_at(torch.arange(length, device=device), dim)
 
 
 # ---------------------------------------------------------------------------
@@ -236,28 +257,39 @@ def _cache_update(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
 def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
                     q_offset: int = 0, causal: bool = True, cache: Optional[Params] = None,
-                    cache_pos: Optional[Offset] = None) -> Tuple[torch.Tensor, Optional[Params]]:
-    """GQA/MHA self-attention; returns (y, cache).  Without a cache it runs
-    over the whole sequence, and ``q_offset`` is ``positions[0]`` as a host
-    int (the reference reads it from the array; here that would wait for
-    the device).  With one, k and v are written at ``cache_pos`` (an int,
-    or a (B,) tensor per slot) and q attends over the cache up to
-    ``cache_pos + S``; q's positions start at ``cache_pos`` in every caller
-    (prefill, its chunks, decode), so that is its offset.  Cross-attention
-    (the reference's ``kv_source``) comes with the encoder-decoder family."""
+                    cache_pos: Optional[Offset] = None,
+                    kv_source: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """GQA/MHA attention; returns (y, cache).  Without a cache it runs over
+    the whole sequence, and ``q_offset`` is ``positions[0]`` as a host int
+    (the reference reads it from the array; here that would wait for the
+    device).  With one, k and v are written at ``cache_pos`` (an int, or a
+    (B,) tensor per slot) and q attends over the cache up to ``cache_pos +
+    S``; q's positions start at ``cache_pos`` in every caller (prefill, its
+    chunks, decode), so that is its offset.
+
+    ``kv_source`` (B, T, d), cross-attention as the reference's
+    (``layers.py:233-271``): k and v come from it, with no RoPE on the
+    pair; with a cache, k and v are the cache's precomputed ``k`` and
+    ``v``, nothing is written, no length is masked and ``q_offset`` stays
+    the caller's."""
     a = cfg.attention
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    if a.rope:
-        q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
     kv_len = None
-    if cache is not None:
-        k, v = _cache_update(cache, k, v, cache_pos)
-        cache = {"k": k, "v": v}
-        q_offset, kv_len = cache_pos, cache_pos + S
+    if kv_source is not None and cache is not None:
+        k, v = cache["k"], cache["v"]
+    else:
+        src = x if kv_source is None else kv_source
+        k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
+        if a.rope and kv_source is None:
+            q = apply_rope(q, positions, a.rope_theta)
+            k = apply_rope(k, positions, a.rope_theta)
+        if cache is not None:
+            k, v = _cache_update(cache, k, v, cache_pos)
+            cache = {"k": k, "v": v}
+            q_offset, kv_len = cache_pos, cache_pos + S
     qg = q.reshape(B, S, a.num_kv_heads, a.q_heads_per_kv, a.head_dim)
     out = _sdpa(qg, k.to(x.dtype), v.to(x.dtype), causal=causal, q_offset=q_offset,
                 kv_len=kv_len, impl=cfg.attention_impl)

@@ -32,7 +32,10 @@ returns them.  Prefill and decode run under ``torch.inference_mode``.
 An MLA layer caches its latent and rope key (``c_kv``, ``k_rope``); a Mamba
 layer its conv window and SSM state (``conv``, ``ssm``, fp32); an MoE FFN
 returns its load-balancing loss, summed over layers into ``aux``.
-Encoder-decoder and VLM come with their slices.  The RWKV time-mix runs the
+The VLM stub (internvl2-26b) is a decoder whose first ``num_patch_tokens``
+positions take projected precomputed patch embeddings (``patch_proj``,
+``_embed_inputs``), masked out of the loss; its prompt is never chunked.
+The encoder-decoder is :mod:`repro_torch.models.encdec`.  The RWKV time-mix runs the
 plain chunked scan on sequences longer than one token and the plain loop on
 one, as the reference's; its ``wkv_impl`` hook (the WKV kernel) is reached
 by calling ``rwkv6.apply_rwkv_timemix`` directly.  The Mamba scan is plain
@@ -61,14 +64,16 @@ from repro_torch.models.layers import (
     apply_norm,
     cdtype,
     cross_entropy_loss,
+    dense_init,
     init_attention,
     init_embedding,
     init_lm_head,
     init_mlp,
     init_norm,
+    pdtype,
 )
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.tree import flatten, tree_map
+from repro_torch.tree import flatten, stack_init, tree_map, unbind
 
 # ---------------------------------------------------------------------------
 # layer-kind schedule
@@ -81,8 +86,8 @@ def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     ("rwkv", "rwkv_cm"); with ``hybrid_attn_period`` the mixer is "attn"
     where ``l % period == hybrid_attn_index`` and "mamba" elsewhere, else
     "mla" or "attn" (mha/gqa); the FFN is "moe" (where ``l % moe_every_k
-    == 1`` when that is set) or "mlp".  Encoder-decoder and VLM raise until
-    their slice."""
+    == 1`` when that is set) or "mlp".  The VLM stub is a decoder; the
+    encoder-decoder (:mod:`repro_torch.models.encdec`) raises here."""
     if cfg.family not in ("decoder", "rwkv", "hybrid"):
         raise ValueError(f"the port's LM is the decoder, RWKV-6 or the hybrid; "
                          f"{cfg.name} is {cfg.family!r}")
@@ -164,22 +169,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     def init_block() -> Params:
         return {f"sub{j}": _init_sublayer(generator, cfg, kinds[j]) for j in range(P_)}
 
-    first = init_block()
-    if _stacked(cfg):
-        # each stacked leaf is allocated once and filled block by block, in
-        # the same draw order: one block is live beside the model, where
-        # stacking a list of blocks would hold the model twice
-        blocks = tree_map(lambda t: t.new_empty((n_blocks, *t.shape)), first)
-        tree_map(lambda dst, src: dst[0].copy_(src), blocks, first)
-        del first
-        for i in range(1, n_blocks):
-            tree_map(lambda dst, src: dst[i].copy_(src), blocks, init_block())
-        params["blocks"] = blocks
-    else:
-        params["blocks"] = first
+    params["blocks"] = stack_init(n_blocks, init_block) if _stacked(cfg) else init_block()
     params["final_norm"] = init_norm(cfg, generator.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_lm_head(generator, cfg)
+    if cfg.num_patch_tokens and cfg.frontend_dim:
+        params["patch_proj"] = {
+            "w": dense_init(generator, cfg.frontend_dim, (cfg.d_model,), pdtype(cfg))}
     return tree_map(lambda t: t.to(dev), params)
 
 
@@ -284,15 +280,6 @@ def _apply_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Tuple[st
     return x + out, new_cache, aux
 
 
-def _unbind(tree: Any) -> List[Any]:
-    """Stacked tree -> one tree per layer (views; one unbind per leaf)."""
-    if isinstance(tree, dict):
-        per_key = {k: _unbind(v) for k, v in tree.items()}
-        n = len(next(iter(per_key.values())))
-        return [{k: per_key[k][i] for k in per_key} for i in range(n)]
-    return list(torch.unbind(tree, 0))
-
-
 def _write_back(pooled: torch.Tensor, new: torch.Tensor) -> None:
     if new is not pooled:  # attention leaves were written in place already
         pooled.copy_(new)
@@ -323,11 +310,11 @@ def _apply_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         return xc, new_bc, aux_b
 
     stacked = _stacked(cfg)
-    blocks = _unbind(params["blocks"]) if stacked else [params["blocks"]]
+    blocks = unbind(params["blocks"]) if stacked else [params["blocks"]]
     if cache is None:
         caches = [None] * len(blocks)
     else:
-        caches = _unbind(cache) if stacked else [cache]
+        caches = unbind(cache) if stacked else [cache]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, bc in zip(blocks, caches):
         if cfg.remat and torch.is_grad_enabled():
@@ -341,15 +328,35 @@ def _apply_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, cache, aux
 
 
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings; a VLM batch's ``patch_embeds`` (B, P, frontend_dim),
+    projected by ``patch_proj``, replace the first ``num_patch_tokens``."""
+    x = apply_embedding(params["embed"], batch["tokens"], cfg)
+    if cfg.num_patch_tokens and "patch_embeds" in batch:
+        patches = torch.einsum("bpe,ed->bpd", batch["patch_embeds"].to(x.dtype),
+                               params["patch_proj"]["w"].to(x.dtype))
+        x = torch.cat([patches, x[:, cfg.num_patch_tokens:]], dim=1)
+    return x
+
+
 def forward_train(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (loss, aux_loss)."""
-    x = apply_embedding(params["embed"], batch["tokens"], cfg)
+    """Returns (loss, aux_loss); a VLM's patch positions are masked out of
+    the loss, as the reference's."""
+    x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = _apply_blocks(params, x, cfg, positions=positions)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = apply_lm_head(params.get("lm_head"), x, cfg, embed=params["embed"])
-    return cross_entropy_loss(logits, batch["targets"]), aux
+    targets = batch["targets"]
+    if not cfg.num_patch_tokens:
+        return cross_entropy_loss(logits, targets), aux
+    B, T = targets.shape
+    mask = torch.arange(T, device=x.device) >= cfg.num_patch_tokens
+    lf = torch.log_softmax(logits.float(), dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return -(gold * mask[None]).sum() / max(max(T - cfg.num_patch_tokens, 0) * B, 1), aux
 
 
 PREFILL_CHUNK = 8_192  # sequence-chunked prefill above this length
@@ -372,15 +379,19 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     activation memory is O(chunk), not O(S); an MoE layer routes each chunk
     in its own groups, as there.  RWKV and the hybrid keep the single pass
     (their state is O(1) a token; the Mamba scan is chunked inside the
-    layer instead)."""
+    layer instead), and so does a VLM (its patch prefix spans the
+    chunks)."""
     tokens = batch["tokens"]
     S, C = tokens.shape[1], PREFILL_CHUNK
-    chunked = (cfg.family == "decoder" and not cfg.hybrid_attn_period
-               and S > C and S % C == 0)
-    for s0 in range(0, S, C if chunked else S):
-        s1 = s0 + C if chunked else S
-        x = apply_embedding(params["embed"], tokens[:, s0:s1], cfg)
-        positions = torch.arange(s0, s1, device=x.device)
+    if not (cfg.family == "decoder" and not cfg.hybrid_attn_period
+            and not cfg.num_patch_tokens and S > C and S % C == 0):
+        x = _embed_inputs(params, batch, cfg)
+        x, cache, _ = _apply_blocks(params, x, cfg, positions=torch.arange(S, device=x.device),
+                                    cache=cache, cache_pos=0)
+        return _last_logits(params, x, cfg), cache
+    for s0 in range(0, S, C):
+        x = apply_embedding(params["embed"], tokens[:, s0:s0 + C], cfg)
+        positions = torch.arange(s0, s0 + C, device=x.device)
         x, cache, _ = _apply_blocks(params, x, cfg, positions=positions, cache=cache,
                                     cache_pos=s0)
     return _last_logits(params, x, cfg), cache

@@ -85,11 +85,13 @@ class ServeEngine:
     def _scatter_cache(self, slot: int, cache1: Any) -> None:
         """Write a batch-1 cache into row ``slot`` of the pooled cache: every
         leaf, the whole row (stale k/v past the prompt in a reused slot are
-        masked by ``kv_len``; RWKV's state and Mamba's conv window and SSM
-        state are replaced outright)."""
+        masked by ``kv_len``; RWKV's state, Mamba's conv window and SSM
+        state and the encoder-decoder's cross K/V are replaced outright)."""
         for pool, one in zip(leaves(self.cache), leaves(cache1)):
             # the batch axis: the first where the pool has num_slots rows and
-            # the batch-1 cache one (axis 1 when layers are stacked, else 0)
+            # the batch-1 cache one (axis 1 when layers are stacked, as in
+            # every encoder-decoder leaf, else 0); axis 0, the layers, has
+            # as many in both, also when there are num_slots layers
             for ax in range(pool.ndim):
                 if pool.shape[ax] == self.num_slots and one.shape[ax] == 1:
                     pool.narrow(ax, slot, 1).copy_(one)
@@ -107,6 +109,11 @@ class ServeEngine:
             if P >= self.max_len:
                 raise ValueError(f"prompt length {P} >= max_len {self.max_len}")
             batch = {"tokens": torch.tensor(req.prompt[None], device=self.device)}
+            if self.cfg.family == "encdec":  # the frontend stub: zero frames
+                t_enc = self.cfg.encoder_seq_len or 1500
+                fd = self.cfg.frontend_dim or self.cfg.d_model
+                batch["frames"] = torch.zeros((1, t_enc, fd), dtype=torch.float32,
+                                              device=self.device)
             cache1 = self._init_cache(1, self.max_len)
             logits, cache1 = self._prefill1(self.params, batch, cache1)
             tok = int(greedy_sample(logits)[0])

@@ -8,17 +8,22 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def make_serve_fns(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"
                    ) -> Dict[str, Callable]:
-    """Returns dict(init_cache, prefill, decode) for the decoder (dense,
-    MLA, MoE), RWKV and hybrid families; caches are made on ``device``."""
-    if cfg.family not in ("decoder", "rwkv", "hybrid"):
-        raise ValueError(f"the port serves the decoder, RWKV-6 and the hybrid; {cfg.name} "
-                         f"is {cfg.family!r}")
+    """Returns dict(init_cache, prefill, decode) for the family: the
+    encoder-decoder, or the LM (dense, MLA, MoE, VLM, RWKV and hybrid);
+    caches are made on ``device``."""
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return {
+            "init_cache": lambda batch, max_len: encdec.init_dec_cache(cfg, batch, max_len, dev),
+            "prefill": lambda params, batch, cache: encdec.prefill(params, batch, cfg, cache),
+            "decode": lambda params, cache, tok, pos: encdec.decode_step(
+                params, cache, tok, pos, cfg),
+        }
     return {
         "init_cache": lambda batch, max_len: transformer.init_cache(cfg, batch, max_len, dev),
         "prefill": lambda params, batch, cache: transformer.prefill(params, batch, cfg, cache),

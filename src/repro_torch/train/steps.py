@@ -1,5 +1,6 @@
-"""Train and eval steps: the LM with microbatch accumulation and gradient
-compression, and the ResNet (BatchNorm state threads through the step).
+"""Train and eval steps: the LM and the encoder-decoder with microbatch
+accumulation and gradient compression, and the ResNet (BatchNorm state
+threads through the step).
 
 ``make_train_step(cfg, tcfg)`` and ``make_resnet_train_step(cfg, tcfg)`` build::
 
@@ -29,13 +30,15 @@ from typing import Any, Callable, Dict, List, Union
 import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
-from repro_torch.models import resnet, transformer
+from repro_torch.models import encdec, resnet, transformer
 from repro_torch.train import compression
 from repro_torch.train.optim import global_norm, make_optimizer
 from repro_torch.tree import leaves
 
 
 def loss_fn_for(cfg: ModelConfig) -> Callable:
+    if cfg.family == "encdec":
+        return lambda p, b: encdec.forward_train(p, b, cfg)
     if cfg.family == "resnet":
         raise ValueError("use make_resnet_train_step for the resnet family")
     return lambda p, b: transformer.forward_train(p, b, cfg)
@@ -43,6 +46,8 @@ def loss_fn_for(cfg: ModelConfig) -> Callable:
 
 def init_params_for(cfg: ModelConfig, generator: torch.Generator,
                     device: Union[str, torch.device] = "cuda") -> Any:
+    if cfg.family == "encdec":
+        return encdec.init_encdec(cfg, generator, device)
     if cfg.family == "resnet":
         return resnet.init_resnet(cfg, generator, device)[0]
     return transformer.init_lm(cfg, generator, device)
@@ -58,7 +63,8 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, generator: torch.Gener
 
 def lm_train_state(params: Any, tcfg: TrainConfig) -> Dict[str, Any]:
     """Train state around existing parameters (for example ones converted
-    from the reference with :func:`repro_torch.convert.lm_params_from_jax`)."""
+    from the reference with :func:`repro_torch.convert.lm_params_from_jax`,
+    an LM's or an encoder-decoder's)."""
     state = {"params": params, "opt": make_optimizer(tcfg).init(params), "step": 0}
     if tcfg.grad_compression == "int8_ef":
         state["ef"] = compression.init_error_feedback(params)

@@ -36,3 +36,25 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
 
+
+def unbind(tree: Any) -> List[Any]:
+    """A tree of tensors stacked on a leading axis -> one tree per index
+    (views; one unbind per leaf)."""
+    if isinstance(tree, dict):
+        per_key = {k: unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def stack_init(n: int, make: Callable[[], Any]) -> Any:
+    """``n`` trees from ``make()``, stacked on a new leading axis: each leaf
+    is allocated once and filled index by index, in call order, so one
+    tree is live beside the stack (stacking a list would hold it twice)."""
+    first = make()
+    stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    tree_map(lambda dst, src: dst[0].copy_(src), stacked, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, make())
+    return stacked

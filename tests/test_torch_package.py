@@ -75,6 +75,10 @@ print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
                                     "repro_torch.configs.qwen2_moe_a2_7b",
                                     "repro_torch.models.ssm",
                                     "repro_torch.configs.jamba_v0_1_52b",
+                                    "repro_torch.models.encdec",
+                                    "repro_torch.models.counting",
+                                    "repro_torch.configs.whisper_large_v3",
+                                    "repro_torch.configs.internvl2_26b",
                                     "repro_torch.tools.budget_split_probe"])
 def test_slice_module_imports_alone_without_jax_or_repro(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -2,8 +2,10 @@
 of ``tests/test_serve.py`` (the same greedy tokens as the reference's
 ``ServeEngine`` and its sequential batch-1 decode, from the reference's
 own weights, in fp32; for the MLA, MoE and hybrid configs, the same tokens
-as the reference's engine), the bf16 engine held to the reference's logits
-within a stated tolerance, and ``init_lm``'s fill-in-place.
+as the reference's engine; for the encoder-decoder at 4 slots, the tokens
+of the reference's one-slot engine, the only size it serves), the bf16
+engine held to the reference's logits within a stated tolerance, and
+``init_lm``'s fill-in-place.
 
 Tolerance at the smoke config's bf16: the port's and the reference's
 teacher-forced logits within 0.1 of each other (about 3 % of their 3.5
@@ -20,6 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.launch.serve as jax_launch  # noqa: E402
+import repro.models.encdec as jE  # noqa: E402
 import repro.models.transformer as jT  # noqa: E402
 from repro.config import ServeSpec as JaxServeSpec  # noqa: E402
 from repro.config import get_arch as jax_get_arch  # noqa: E402
@@ -27,7 +30,7 @@ from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro_torch.config import ServeSpec, get_arch  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
-from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.models import encdec, moe, transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.steps import greedy_sample, temperature_sample  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
@@ -186,6 +189,72 @@ def _engines_match(model, monkeypatch):
     assert (sum(drops) > 0) == (model.cfg.moe is not None)
 
 
+class Whisper:
+    """The whisper-large-v3 smoke model (fp32) in both packages from the
+    reference's weights."""
+
+    def __init__(self, **kw):
+        self.jcfg = dataclasses.replace(jax_get_arch("whisper-large-v3", smoke=True),
+                                        dtype="float32", **kw)
+        self.cfg = dataclasses.replace(get_arch("whisper-large-v3", smoke=True),
+                                       dtype="float32", **kw)
+        self.jparams = jE.init_encdec(jax.random.PRNGKey(0), self.jcfg)
+        self.params = lm_params_from_jax(jax.device_get(self.jparams), "cpu",
+                                         requires_grad=False)
+
+
+@pytest.mark.parametrize("layers_", [None, 4], ids=["smoke", "slots_equal_layers"])
+def test_encdec_engine_matches_the_reference_one_slot_engine(layers_):
+    """8 requests over 4 slots (and, at 4 decoder layers, as many slots as
+    layers: the engine finds the batch axis of every (L, B, ...) leaf
+    there too) against the reference's engine at one slot, the only size
+    it serves (its ``decode_step`` fails at a (B,) position of more than
+    one row): each request's tokens equal, from zero frames (the
+    frontend stub)."""
+    w = Whisper(**({} if layers_ is None else dict(num_layers=layers_)))
+    rng = np.random.default_rng(6)
+    subs = [(rng.integers(1, w.cfg.vocab_size, size=int(rng.integers(2, 9))).tolist(),
+             int(rng.integers(3, 9))) for _ in range(8)]
+    eng = ServeEngine(w.cfg, w.params, spec=ServeSpec(num_slots=4, max_len=32), device="cpu")
+    jeng = JaxServeEngine(w.jcfg, w.jparams, spec=JaxServeSpec(num_slots=1, max_len=32))
+    for prompt, n in subs:
+        eng.submit(prompt, max_new_tokens=n)
+        jeng.submit(prompt, max_new_tokens=n)
+    got = {r.uid: r.output for r in eng.run_until_drained()}
+    want = {r.uid: r.output for r in jeng.run_until_drained()}
+    assert len(got) == 8 and got == want
+    assert eng.tokens_generated == sum(n - 1 for _, n in subs)
+    assert eng.ticks < jeng.ticks
+    assert tuple(eng.cache["cross_k"].shape) == (w.cfg.num_layers, 4, w.cfg.encoder_seq_len,
+                                                 4, 16)
+
+
+def test_reference_encdec_decode_fails_per_slot_where_the_port_serves():
+    """The reference's fault, not copied: its ``encdec.decode_step`` at a
+    (2,) position (the engine's per-slot positions at 2 slots) fails to
+    broadcast the position against the frequencies in
+    ``sinusoidal_embedding_at``; the port's decodes each row at its own
+    position, as its batch-1 decode does."""
+    w = Whisper()
+    B, P = 2, 5
+    toks = np.random.default_rng(2).integers(1, w.cfg.vocab_size, (B, P)).astype(np.int32)
+    frames = np.zeros((B, w.cfg.encoder_seq_len, w.cfg.d_model), np.float32)
+    _, jcache = jE.prefill(w.jparams, {"tokens": jnp.asarray(toks), "frames": jnp.asarray(frames)},
+                           w.jcfg, jE.init_dec_cache(w.jcfg, B, 16))
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jE.decode_step(w.jparams, jcache, jnp.asarray(toks[:, -1:]), jnp.asarray([P, P - 2]),
+                       w.jcfg)
+    tb = {"tokens": torch.from_numpy(toks), "frames": torch.from_numpy(frames)}
+    _, cache = encdec.prefill(w.params, tb, w.cfg, encdec.init_dec_cache(w.cfg, B, 16, "cpu"))
+    logits, _ = encdec.decode_step(w.params, cache, tb["tokens"][:, -1:], np.array([P, P - 2]),
+                                   w.cfg)
+    for r, pos in enumerate((P, P - 2)):
+        one = {k: v[r:r + 1, :pos] if k == "tokens" else v[r:r + 1] for k, v in tb.items()}
+        _, c1 = encdec.prefill(w.params, one, w.cfg, encdec.init_dec_cache(w.cfg, 1, 16, "cpu"))
+        want, _ = encdec.decode_step(w.params, c1, tb["tokens"][r:r + 1, -1:], pos, w.cfg)
+        np.testing.assert_allclose(logits[r].numpy(), want[0].numpy(), rtol=0, atol=1e-5)
+
+
 def test_engine_takes_no_flat_sizing_kwargs(granite):
     """Not a twin of ``test_flat_sizing_kwargs_warn_once_and_match_spec``: the
     port leaves the reference's warn-once ``num_slots=``/``max_len=`` shim out
@@ -294,3 +363,15 @@ def test_launcher_serves_on_the_cpu_and_raises_without_a_card(capsys, monkeypatc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         launch.main(["--requests", "2"])
+
+
+def test_launcher_serves_whisper_with_no_new_flag(capsys):
+    """``--arch whisper-large-v3`` through the same launcher and engine:
+    zero frames a request (the frontend stub), every request served at the
+    launcher's slots."""
+    rep = launch.run(["--device", "cpu", "--arch", "whisper-large-v3", "--requests", "6",
+                      "--slots", "4", "--max-new", "4", "--prompt-len", "6"])
+    assert capsys.readouterr().out.startswith("arch=whisper-large-v3-smoke slots=4 requests=6")
+    assert rep.cfg.family == "encdec" and rep.engine.num_slots == 4
+    assert len(rep.done) == 6 and all(len(r.output) == 4 for r in rep.done)
+    assert rep.engine.tokens_generated == 6 * (4 - 1)
