@@ -53,6 +53,29 @@ Phases, each printing one JSON line:
    the events by action, each epoch's tuned knobs, what the utilization
    signal read at every window the controller judged, and
    ``available_cpu_count()``.
+6d. main_cache — the ResNet path behind the cache tiers: (a) the launcher
+   at main's cell with ``--cache-mb 256`` (a memory tier that holds the
+   whole 118 MB set) and with ``--store memory`` (the local-drive
+   yardstick): items/s of each epoch beside main's, the Table-3 columns,
+   the memory tier's hits, misses and hit rate and the s3sim GETs of each
+   epoch; gated on zero GETs and a memory hit rate of 1.0 in epochs 2-3,
+   finite losses and launches equal to batches moved.  (b) a 32 MiB memory
+   tier over a 256 MiB journal-coordinated disk tier under ``build/``,
+   through ``make_loader`` and the staged pipeline, training 3 epochs of
+   512 items at batch 32 with the cache knobs on the epoch-cadence
+   controller: its device stream (main_autotune's digest) equals the
+   uncached fixed-knob loader's, every tuning event lies inside its knob's
+   bounds, at each epoch's end both tiers lie within their capacities and
+   the journal's bytes equal the entry files', epochs 2-3 reach a combined
+   hit rate of 0.99; a restart over the same directory serves its epoch
+   from the disk tier (hit rate >= 0.99, at most 1 % of items from s3sim)
+   with the first epoch's stream; the run's trace is dumped to
+   ``build/chip_smoke_cache_trace.json`` and its span count printed by
+   lane.  (c) an elastic fleet: the card trains from an elastic legacy
+   loader while a spawned CPU member (no torch) joins after its 4th batch;
+   gated on the members' claims covering the epoch exactly once, every
+   card batch matching the u8 bytes of the items it claimed, and an empty
+   membership board once both left.
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
@@ -139,7 +162,8 @@ Phases, each printing one JSON line:
    embeddings, flash launched 4 x 2 times.
 
 Launch counts are set to 0 just before each main path and read just after
-(for main_pipeline and main_autotune, around each launcher run; for main_rwkv, before and
+(for main_pipeline and main_autotune, around each launcher run; for main_cache, around
+each launcher run and each training run of (b) and (c); for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
 again around (d); for main_mla, main_moe and main_hybrid, around each
 launcher run, and for main_hybrid around its flash eval (k); for
@@ -177,7 +201,7 @@ PEAK_FP32 = [("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12), ("H100"
 MAIN_BS = 64
 MAIN_BATCH = (MAIN_BS, 224, 224, 3)
 MAIN_ARGS = [
-    "--full", "--device", "cuda", "--device-ingest",
+    "--arch", "resnet18-imagenet", "--full", "--device", "cuda", "--device-ingest",
     "--items", "1024", "--avg-kb", "115", "--batch-size", str(MAIN_BS),
     "--latency", "0.02", "--loader", "threaded", "--workers", "4", "--fetchers", "16",
     "--steps", "48", "--optimizer", "sgd", "--log-every", "8",
@@ -766,6 +790,7 @@ def phase_main(torch, ops) -> dict:
         "steps": report.result.steps, "epochs": report.result.epochs,
         "wall_s": report.result.wall_s, "items_per_s": report.items_per_s,
         "items_per_s_after_first_step": steady,
+        "items_per_s_per_epoch": epoch_rates(report.tracer, 1024 // MAIN_BS),
         "first_step_ms": 1e3 * report.tracer.spans("run_training_batch")[0].duration,
         "batches_transferred": report.batches_transferred,
         "batch_to_device_total_s": report.batch_to_device_s,
@@ -1411,6 +1436,509 @@ def phase_main_autotune(torch, ops, legacy: dict, pipe: dict, smi: str) -> dict:
         fail(f"thread budget: io_cpu_split probed {sorted(split)}, not both ways: "
              f"{budget['probes']}")
     out["swap"] = executor_swap_check(torch)
+    return out
+
+
+# main_cache: the ResNet path behind the cache tiers (paper §2.4: S3 with a
+# cache "as if the data were on local drives").  (a) the launcher at main's
+# cell with --cache-mb CACHE_MB (a memory tier that holds the whole 118 MB
+# set), then with --store memory, the local-drive yardstick.
+CACHE_MB = 256
+CACHE_ARGS = MAIN_ARGS + ["--cache-mb", str(CACHE_MB)]
+LOCAL_ARGS = MAIN_ARGS + ["--store", "memory"]
+MAIN_PER_EPOCH = 1024 // MAIN_BS
+# (b) the two-tier stack (32 MiB memory over a 256 MiB journal-coordinated
+# disk tier under build/) through make_loader and the staged pipeline, with
+# the cache knobs on the epoch-cadence controller, then a restart over the
+# same directory; (c) an elastic fleet of the card member and one spawned
+# CPU member.  Both at 512 items of 115 KB, 224x224 crops, batch 32.
+TIER_ITEMS, TIER_BS, TIER_EPOCHS = 512, 32, 3
+TIER_MEM, TIER_DISK = 32 << 20, 256 << 20
+TIER_MAX_MEM, TIER_MAX_DISK = 128 << 20, 512 << 20
+ELASTIC_JOIN_AFTER = 4  # the CPU member is started after this many card batches
+ELASTIC_PEER_WAIT_S = 20.0  # how long the card member waits for the peer to join
+ELASTIC_PEER_LIMIT_S = 180.0  # the CPU member's own time limit
+CACHE_TRACE = ROOT / "build" / "chip_smoke_cache_trace.json"
+TIER_SPANS = ("get_batch", "batch_to_device", "run_training_batch", "stage_fetch",
+              "stage_decode", "stage_augment", "stage_collate")
+
+
+class EpochCacheWatch:
+    """For the launcher runs inside it, records at every epoch's end the
+    memory tier's and the simulated S3 store's counters of the run's store
+    stack (read from the loader the launcher's ``EpochStages`` callback
+    holds), so per-epoch deltas can be taken after the run."""
+
+    def __enter__(self) -> "EpochCacheWatch":
+        from repro_torch.launch import train as launch
+
+        self.cls, self.end = launch.EpochStages, launch.EpochStages.on_epoch_end
+        self.rows: list = []
+        watch = self
+
+        def on_epoch_end(cb, trainer, epoch):
+            watch.rows.append(store_counters(cb.loader.dataset.store))
+            return watch.end(cb, trainer, epoch)
+
+        launch.EpochStages.on_epoch_end = on_epoch_end
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.on_epoch_end = self.end
+
+
+def store_counters(store) -> dict:
+    """Cumulative counters of a store stack: each cache tier's hits,
+    misses, bytes used and capacity, and the simulated S3 store's GETs."""
+    out = {}
+    walk = store
+    while walk is not None:
+        if hasattr(walk, "cache_stats"):
+            for tier, st in walk.cache_stats().items():
+                cap = getattr(walk, tier).capacity
+                out[tier] = {"hits": st.hits, "misses": st.misses,
+                             "bytes_used": st.bytes_used, "capacity": cap,
+                             "admitted": st.admitted, "evictions": st.evictions}
+        if hasattr(walk, "stats"):
+            out["s3_gets"] = walk.stats.gets
+        walk = getattr(walk, "base", None)
+    return out
+
+
+def per_epoch(rows: list) -> list:
+    """Per-epoch deltas of :func:`store_counters` rows (cumulative), with
+    each tier's hit rate and the combined hit rate (lookups not sent to the
+    origin, over lookups at the outer tier)."""
+    out, prev = [], {}
+    for row in rows:
+        e = {"s3_gets": row.get("s3_gets", 0) - prev.get("s3_gets", 0)}
+        for tier in ("memory", "disk"):
+            if tier in row:
+                d = {k: row[tier][k] - prev.get(tier, {}).get(k, 0)
+                     for k in ("hits", "misses", "admitted", "evictions")}
+                n = d["hits"] + d["misses"]
+                e[tier] = {**d, "hit_rate": d["hits"] / n if n else None,
+                           "bytes_used": row[tier]["bytes_used"],
+                           "capacity": row[tier]["capacity"]}
+        outer = e.get("memory") or e.get("disk")
+        inner = e.get("disk") or e.get("memory")
+        n = outer["hits"] + outer["misses"] if outer else 0
+        e["combined_hit_rate"] = (n - inner["misses"]) / n if n else None
+        out.append(e)
+        prev = row
+    return out
+
+
+def cache_launcher_run(torch, ops, args: list, label: str) -> dict:
+    """One launcher run of the ResNet path, its launches counted from 0
+    and its store counted at each epoch's end; gated on finite losses and
+    launches equal to batches transferred."""
+    from repro_torch.launch import train as launch
+
+    ops.ingest_norm.launches = 0
+    with EpochCacheWatch() as watch:
+        report = launch.run(args)
+    launches = ops.ingest_norm.launches
+    losses = [h["loss"] for h in report.result.history]
+    out = {"label": label, "args": args, "steps": report.result.steps,
+           "epochs": report.result.epochs, "wall_s": report.result.wall_s,
+           "items_per_s": report.items_per_s,
+           "items_per_s_per_epoch": epoch_rates(report.tracer, MAIN_PER_EPOCH),
+           "util_zero_pct": report.util.util_zero_pct,
+           "util_pos_avg": report.util.util_pos_avg,
+           "busy_fraction": report.util.busy_fraction,
+           "batches_transferred": report.batches_transferred,
+           "ingest_norm_launches": launches, "spans": span_stats(report.tracer),
+           "store_per_epoch": per_epoch(watch.rows),
+           "first_loss": losses[0] if losses else None,
+           "last_loss": losses[-1] if losses else None}
+    emit({"phase": "main_cache_run", **out})
+    if report.result.steps < 48 or report.result.epochs < 3:
+        fail(f"{label}: ran {report.result.steps} steps over {report.result.epochs} epochs")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss: {losses}")
+    if launches == 0 or launches != report.batches_transferred:
+        fail(f"{label}: ingest_norm launched {launches} times for "
+             f"{report.batches_transferred} batches transferred")
+    return out
+
+
+def entry_file_bytes(d: str) -> int:
+    """Bytes of a disk tier's finished entry files (no coordination files,
+    no writer's tmp file)."""
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+               if not f.startswith(".") and ".tmp" not in f)
+
+
+def tier_dataset(store):
+    from repro_torch.data.dataset import ImageDataset
+
+    return ImageDataset(store, TIER_ITEMS, out_size=224, sim_decode_s_per_mb=0.052,
+                        epilogue="device")
+
+
+def tier_loader(store, tracer, autotune: bool):
+    """make_loader over ``store``: the staged pipeline with 2 staging
+    buffers at the reference's widths; with ``autotune``, the loader's knobs
+    and the cache knobs (32 -> at most 128 MiB of memory; the journal-shared
+    disk tier's capacity is the fleet's, not a knob) on a controller fed
+    once per epoch."""
+    from repro_torch.config import AutotuneConfig, LoaderConfig, PipelineConfig
+    from repro_torch.core import make_loader
+
+    at = AutotuneConfig(enabled=True, tune_cache=True, cache_cadence="epoch",
+                        cache_epoch_windows=1, max_memory_cache_bytes=TIER_MAX_MEM,
+                        max_disk_cache_bytes=TIER_MAX_DISK) if autotune else AutotuneConfig()
+    return make_loader(LoaderConfig(
+        impl="threaded", batch_size=TIER_BS, num_workers=4, num_fetch_workers=16, seed=0,
+        pipeline=PipelineConfig(enabled=True, staging_buffers=2), autotune=at),
+        tier_dataset(store), tracer=tracer)
+
+
+def tier_train(torch, loader, tracer, epochs: int, callbacks=(), device="cuda"):
+    """Trains full-width ResNet-18 (SGD) over ``loader`` for ``epochs``
+    through the Trainer, ``ingest_norm`` after each copy to the card;
+    returns the Trainer's result."""
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.kernels.ingest_norm.ops import make_ingest_fn
+    from repro_torch.train.steps import init_resnet_train_state, make_resnet_train_step
+    from repro_torch.train.trainer import Trainer
+
+    cfg, tcfg = get_arch("resnet18-imagenet"), TrainConfig(optimizer="sgd")
+    state = init_resnet_train_state(cfg, tcfg, torch.Generator().manual_seed(0), device)
+    trainer = Trainer(make_resnet_train_step(cfg, tcfg), state, callbacks=list(callbacks),
+                      tracer=tracer, ingest_fn=make_ingest_fn(), device=device)
+    return trainer.fit(loader, epochs=epochs)
+
+
+def two_tier_check(torch, ops, smi: str) -> dict:
+    """(b) The two-tier stack through make_loader: its device stream held to
+    the uncached fixed-knob loader's, the cache tuning events to their
+    knobs' bounds, the tiers to their capacities and the journal to the
+    disk at each epoch's end, and epochs 2-3 to a combined hit rate of at
+    least 0.99; then a restart over the same directory for one epoch."""
+    import shutil
+
+    from repro_torch.config import CacheConfig, StoreConfig
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.data.store import build_store
+    from repro_torch.train.trainer import Callback
+
+    base = build_synthetic_imagenet(num_items=TIER_ITEMS, avg_kb=115.0)
+    cache_dir = ROOT / "build" / "chip_smoke_cache_tier"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    scfg = StoreConfig(kind="s3sim", latency_mean_s=0.02, cache=CacheConfig(
+        memory_bytes=TIER_MEM, dir=str(cache_dir), disk_bytes=TIER_DISK, coord="journal"))
+
+    class EpochEnd(Callback):
+        """At each epoch's end: the store's counters and the tiers against
+        their capacities and the journal against the files."""
+
+        def __init__(self, store) -> None:
+            self.store, self.rows, self.checks = store, [], []
+
+        def on_epoch_end(self, trainer, epoch) -> None:
+            mem, disk = self.store.memory, self.store.disk
+            self.rows.append(store_counters(self.store))
+            self.checks.append({
+                "epoch": epoch, "memory_used": mem.used_bytes, "memory_capacity": mem.capacity,
+                "disk_used": disk.used_bytes, "disk_capacity": disk.capacity,
+                "journal_bytes": disk.journal.used_bytes(),
+                "entry_file_bytes": entry_file_bytes(str(cache_dir)),
+                "journal_entries": disk.journal.entry_count()})
+
+    # the uncached, fixed-knob loader: the stream to hold the others to
+    ops.ingest_norm.launches = 0
+    with DeviceDigest() as digest:
+        fixed = tier_train(torch, tier_loader(build_store(StoreConfig(
+            kind="s3sim", latency_mean_s=0.02), base=base), Tracer(), False), Tracer(),
+            TIER_EPOCHS)
+    want = digest.digests(torch)
+    fixed_launches = ops.ingest_norm.launches
+
+    tracer = Tracer()
+    store = build_store(scfg, base=base, tracer=tracer)
+    loader = tier_loader(store, tracer, True)
+    watch = EpochEnd(store)
+    ops.ingest_norm.launches = 0
+    with DeviceDigest() as digest:
+        result = tier_train(torch, loader, tracer, TIER_EPOCHS, [watch])
+    got = digest.digests(torch)
+    launches = ops.ingest_norm.launches
+    tracer.dump(str(CACHE_TRACE))
+    epochs = per_epoch(watch.rows)
+    cache_ctrl = loader.cache_autotuner
+    cache_events = [[e.batch, e.action, e.knob, e.value, e.tput] for e in cache_ctrl.events]
+    cache_bounds = {k.name: (k.lo, k.hi) for k in cache_ctrl.knobs}
+    main_events = [[e.batch, e.action, e.knob, e.value] for e in loader.autotuner.events]
+    main_bounds = {k.name: (k.lo, k.hi) for k in loader.autotuner.knobs}
+    tiers = [str(s.args.get("tier")) for s in tracer.spans("cache_get")]
+    lanes = {name: len(tracer.spans(name)) for name in TIER_SPANS}
+    lanes["cache_get"] = {t: tiers.count(t) for t in sorted(set(tiers))}
+
+    # restart: a fresh store over the same directory, a fresh loader
+    restart_store = build_store(scfg, base=base)
+    restart_rows = [store_counters(restart_store)]
+    ops.ingest_norm.launches = 0
+    with DeviceDigest() as digest:
+        tier_train(torch, tier_loader(restart_store, Tracer(), False), Tracer(), 1)
+    restart = digest.digests(torch)
+    restart_launches = ops.ingest_norm.launches
+    restart_rows.append(store_counters(restart_store))
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    restart_epoch = per_epoch(restart_rows)[1]
+    per = TIER_ITEMS // TIER_BS
+    out = {"phase": "main_cache_tiers", "nvidia_smi": smi, "items": TIER_ITEMS,
+           "batch": TIER_BS, "epochs": TIER_EPOCHS, "steps": result.steps,
+           "store": {"memory_bytes": TIER_MEM, "disk_bytes": TIER_DISK, "coord": "journal",
+                     "max_memory_cache_bytes": TIER_MAX_MEM,
+                     "max_disk_cache_bytes": TIER_MAX_DISK},
+           "per_epoch": epochs, "epoch_end_checks": watch.checks,
+           "cache_knob_bounds": cache_bounds, "cache_events": cache_events,
+           "loader_events_by_action": {a: sum(e[1] == a for e in main_events)
+                                       for a in sorted({e[1] for e in main_events})},
+           "batches_digested": len(got),
+           "batches_differing_from_uncached": sum(a != b for a, b in zip(got, want))
+           + abs(len(got) - len(want)),
+           "ingest_norm_launches": {"uncached": fixed_launches, "tiered": launches,
+                                    "restart": restart_launches},
+           "batches_transferred": {"uncached": len(want), "tiered": len(got),
+                                   "restart": len(restart)},
+           "restart": {**restart_epoch,
+                       "batches_differing_from_epoch_1": sum(
+                           a != b for a, b in zip(restart, got[:per]))
+                       + abs(len(restart) - per)},
+           "trace": str(CACHE_TRACE.relative_to(ROOT)), "span_counts": lanes}
+    emit(out)
+    if len(want) != TIER_EPOCHS * per or out["batches_differing_from_uncached"]:
+        fail(f"two-tier stream: {out['batches_differing_from_uncached']} of {len(got)} "
+             f"batches differ from the uncached loader's ({len(want)})")
+    for label, n, m in (("uncached", fixed_launches, len(want)), ("tiered", launches, len(got)),
+                        ("restart", restart_launches, len(restart))):
+        if n == 0 or n != m:
+            fail(f"two-tier {label}: ingest_norm launched {n} times for {m} batches moved")
+    outside = [e for e in cache_events if e[2] != "-" and not (
+        e[2] in cache_bounds and cache_bounds[e[2]][0] <= e[3] <= cache_bounds[e[2]][1])]
+    outside += [e for e in main_events if e[2] != "-" and not (
+        e[2] in main_bounds and main_bounds[e[2]][0] <= e[3] <= main_bounds[e[2]][1])]
+    if outside:
+        fail(f"two-tier: tuning events outside their knob's bounds: {outside}")
+    if "cache_mem_bytes" not in cache_bounds or "cache_disk_bytes" in cache_bounds:
+        fail(f"two-tier: cache knobs {cache_bounds}")
+    for c in watch.checks:
+        if (c["memory_used"] > c["memory_capacity"] or c["disk_used"] > c["disk_capacity"]
+                or c["journal_bytes"] != c["entry_file_bytes"]
+                or c["journal_bytes"] != c["disk_used"]):
+            fail(f"two-tier: tiers over capacity or journal off the disk: {c}")
+    if len(epochs) != TIER_EPOCHS or any(
+            e["combined_hit_rate"] is None or e["combined_hit_rate"] < 0.99
+            for e in epochs[1:]):
+        fail(f"two-tier: epochs 2-3 combined hit rates "
+             f"{[e['combined_hit_rate'] for e in epochs]}")
+    rs = restart_epoch
+    if (rs["disk"]["hit_rate"] is None or rs["disk"]["hit_rate"] < 0.99
+            or rs["s3_gets"] > TIER_ITEMS // 100
+            or out["restart"]["batches_differing_from_epoch_1"]):
+        fail(f"restart over the disk tier: {out['restart']}")
+    return out
+
+
+def elastic_peer(src: str, coord_dir: str, flag: str, out_path: str, items: int) -> None:
+    """The fleet's CPU member (a spawned process): waits for ``flag``, joins
+    the elastic fleet under ``coord_dir`` with the card member's loader
+    settings, drains its claims of the epoch without training, leaves, and
+    writes what it delivered and whether ``torch`` was ever imported."""
+    import os
+
+    sys.path.insert(0, src)
+    deadline = time.monotonic() + ELASTIC_PEER_LIMIT_S
+    while not os.path.exists(flag) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    loader = elastic_loader(coord_dir, items, host=1)
+    batches = sum(1 for _ in loader)
+    loader.release_coordination()
+    with open(out_path, "w") as f:
+        json.dump({"delivered": loader.sampler.delivered_log, "batches": batches,
+                   "member": loader._elastic.member,
+                   "torch_loaded": "torch" in sys.modules}, f)
+
+
+def elastic_loader(coord_dir: str, items: int, host: int):
+    """A legacy elastic loader over 115 KB images behind simulated S3, 2
+    workers a batch outstanding each, so claims advance a shard (2 batches)
+    at a time and a member joining mid-epoch finds shards left."""
+    from repro_torch.config import ElasticConfig, LoaderConfig, StoreConfig
+    from repro_torch.core.loader import ConcurrentDataLoader
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.data.store import build_store
+
+    store = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02),
+                        base=build_synthetic_imagenet(num_items=items, avg_kb=115.0))
+    data = ImageDataset(store, items, out_size=224, sim_decode_s_per_mb=0.052,
+                        epilogue="device")
+    cfg = LoaderConfig(impl="threaded", batch_size=TIER_BS, num_workers=2, prefetch_factor=1,
+                       num_fetch_workers=16, seed=0, elastic=ElasticConfig(
+                           enabled=True, coord_dir=coord_dir, lease_ttl_s=30.0,
+                           heartbeat_interval_s=0.2, shard_batches=2, claim_poll_s=0.01))
+    return ConcurrentDataLoader(data, cfg, host_id=host, num_hosts=1)
+
+
+def host_digest(items: list) -> tuple:
+    """DeviceDigest's row for a batch, computed on the host from the items
+    (u8 HWC images and labels) the batch was claimed for."""
+    import numpy as np
+
+    labels = [int(it["label"]) for it in items]
+    flat = [np.ascontiguousarray(it["image"]).reshape(-1).astype(np.int64) for it in items]
+    w = np.arange(flat[0].size, dtype=np.int64) % 251 + 1
+    return tuple(labels + [int(f.sum()) for f in flat] + [int((f * w).sum()) for f in flat])
+
+
+def elastic_check(torch, ops, smi: str) -> dict:
+    """(c) The card member trains from an elastic legacy loader; a spawned
+    CPU member (no torch) joins after the card's 4th batch.  Gated on the
+    two members' claims covering the epoch exactly once, every batch moved
+    to the card matching the u8 bytes of the items it claimed, and the
+    membership board empty once both left."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.core.coord import MembershipBoard
+    from repro_torch.core.sampler import epoch_permutation
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.train.trainer import Callback
+
+    coord_dir = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(coord_dir, ignore_errors=True)
+    coord_dir.mkdir(parents=True)
+    flag, peer_out = coord_dir / "peer.go", coord_dir.parent / "chip_smoke_elastic_peer.json"
+    peer_out.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    peer = ctx.Process(target=elastic_peer, args=(str(SRC), str(coord_dir), str(flag),
+                                                  str(peer_out), TIER_ITEMS))
+    peer.start()
+    board = MembershipBoard(str(coord_dir), member="chip_smoke-observer")
+
+    class JoinAfter(Callback):
+        """After the card's ELASTIC_JOIN_AFTER-th batch, lets the peer in
+        and waits (a bounded time) until it is a live member; later batches
+        take a little longer, as a busier trainer's would."""
+
+        def __init__(self) -> None:
+            self.joined_at = None
+
+        def on_train_batch_end(self, trainer, metrics, idx) -> None:
+            if idx + 1 == ELASTIC_JOIN_AFTER:
+                flag.touch()
+                t0, deadline = time.monotonic(), time.monotonic() + ELASTIC_PEER_WAIT_S
+                while len(board.live()) < 2 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                self.joined_at = time.monotonic() - t0
+            elif idx + 1 > ELASTIC_JOIN_AFTER:
+                time.sleep(0.1)
+
+    loader = elastic_loader(str(coord_dir), TIER_ITEMS, host=0)
+    join = JoinAfter()
+    ops.ingest_norm.launches = 0
+    try:
+        with DeviceDigest() as digest:
+            result = tier_train(torch, loader, Tracer(), 1, [join])
+        rows = digest.digests(torch)
+    finally:
+        flag.touch()  # a peer still waiting goes ahead (and finds the epoch done)
+        peer.join(timeout=ELASTIC_PEER_LIMIT_S)
+        if peer.is_alive():
+            peer.kill()
+            peer.join(timeout=10)
+    launches = ops.ingest_norm.launches
+    card = [tuple(x) for x in loader.sampler.delivered_log]
+    peer_rep = json.loads(peer_out.read_text()) if peer_out.exists() else {}
+    peer_batches = [tuple(x) for x in peer_rep.get("delivered", [])]
+    # what the card should have received: each claimed batch's items, read
+    # past simulated S3 from the same synthetic set
+    nb = TIER_ITEMS // TIER_BS
+    perm = epoch_permutation(TIER_ITEMS, 0, 0, True)
+    data = ImageDataset(build_synthetic_imagenet(num_items=TIER_ITEMS, avg_kb=115.0),
+                        TIER_ITEMS, out_size=224, epilogue="device")
+    data.set_epoch(0)
+    expected = [host_digest([data[int(i)] for i in perm[gb * TIER_BS:(gb + 1) * TIER_BS]])
+                for _, gb in card]
+    mismatched = sum(a != b for a, b in zip(rows, expected)) + abs(len(rows) - len(expected))
+    claimed = sorted(gb for _, gb in card + peer_batches)
+    live_after = board.live()
+    out = {"phase": "main_cache_elastic", "nvidia_smi": smi, "items": TIER_ITEMS,
+           "batch": TIER_BS, "batches_in_epoch": nb, "card_steps": result.steps,
+           "card_batches": [gb for _, gb in card], "peer_batches": [gb for _, gb in peer_batches],
+           "peer_member": peer_rep.get("member"), "peer_exitcode": peer.exitcode,
+           "peer_torch_loaded": peer_rep.get("torch_loaded"),
+           "peer_join_wait_s": join.joined_at, "ingest_norm_launches": launches,
+           "batches_moved_to_card": len(rows), "card_batches_mismatched": mismatched,
+           "live_members_after": sorted(live_after)}
+    emit(out)
+    if peer.exitcode != 0 or peer_rep.get("torch_loaded") is not False:
+        fail(f"elastic: the CPU member exited {peer.exitcode}, torch loaded: "
+             f"{peer_rep.get('torch_loaded')}")
+    if claimed != list(range(nb)) or {e for e, _ in card + peer_batches} != {0}:
+        fail(f"elastic: the members' claims {claimed} do not cover the epoch's {nb} "
+             "batches exactly once")
+    if not card or mismatched:
+        fail(f"elastic: {mismatched} of {len(rows)} card batches differ from their claimed "
+             "items")
+    if launches == 0 or launches != len(rows):
+        fail(f"elastic: ingest_norm launched {launches} times for {len(rows)} batches moved")
+    if live_after:
+        fail(f"elastic: members still live after both left: {live_after}")
+    return out
+
+
+def phase_main_cache(torch, ops, legacy: dict, smi: str) -> dict:
+    """(a) the launcher with --cache-mb beside --store memory and main's
+    uncached run; (b) the two-tier stack and its restart; (c) an elastic
+    member on the card with a spawned CPU member."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cached = cache_launcher_run(torch, ops, CACHE_ARGS, "cache_mb")
+    local = cache_launcher_run(torch, ops, LOCAL_ARGS, "store_memory")
+    epochs = cached["store_per_epoch"]
+    out = {"phase": "main_cache_launcher", "nvidia_smi": smi, "cache_mb": CACHE_MB,
+           "items_per_s_per_epoch": {"uncached_main": legacy.get("items_per_s_per_epoch"),
+                                     "cache_mb": cached["items_per_s_per_epoch"],
+                                     "store_memory": local["items_per_s_per_epoch"]},
+           "table3": {label: {k: r[k] for k in ("util_zero_pct", "util_pos_avg",
+                                                 "busy_fraction", "items_per_s")}
+                      for label, r in (("uncached_main", legacy), ("cache_mb", cached),
+                                       ("store_memory", local))},
+           "memory_tier_per_epoch": [e.get("memory") for e in epochs],
+           "s3_gets_per_epoch": [e["s3_gets"] for e in epochs],
+           "launches": {"cache_mb": cached["ingest_norm_launches"],
+                        "store_memory": local["ingest_norm_launches"]},
+           "batches_transferred": {"cache_mb": cached["batches_transferred"],
+                                   "store_memory": local["batches_transferred"]}}
+    emit(out)
+    emit({"phase": "main_cache", "check": "phase_wall", "part": "a",
+          "wall_s": time.perf_counter() - t0})
+    if len(epochs) < 3 or any(e["s3_gets"] or not e.get("memory")
+                              or e["memory"]["hit_rate"] != 1.0 for e in epochs[1:3]):
+        fail(f"--cache-mb {CACHE_MB}: epochs 2-3 made s3sim GETs or missed the memory tier: "
+             f"{epochs}")
+    t0 = time.perf_counter()
+    out["tiers"] = two_tier_check(torch, ops, smi)
+    emit({"phase": "main_cache", "check": "phase_wall", "part": "b",
+          "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    out["elastic"] = elastic_check(torch, ops, smi)
+    emit({"phase": "main_cache", "check": "phase_wall", "part": "c",
+          "wall_s": time.perf_counter() - t0})
+    out["launches_total"] = (out["launches"]["cache_mb"] + out["launches"]["store_memory"]
+                             + sum(out["tiers"]["ingest_norm_launches"].values())
+                             + out["elastic"]["ingest_norm_launches"])
     return out
 
 
@@ -3148,6 +3676,7 @@ def main() -> int:
     pipe_out = timed(torch, "main_pipeline", phase_main_pipeline, ops, main_out, smi)
     auto_out = timed(torch, "main_autotune", phase_main_autotune, ops, main_out,
                      pipe_out["figures"]["pipeline"], smi)
+    cache_out = timed(torch, "main_cache", phase_main_cache, ops, main_out, smi)
     lm_out = timed(torch, "main_lm", phase_main_lm, flash_ops, ops)
     rwkv_out = timed(torch, "main_rwkv", phase_main_rwkv, wkv_ops, wkv_ref, rms_ops, ops,
                      flash_ops)
@@ -3174,6 +3703,10 @@ def main() -> int:
         "launches_pipeline": pipe_out["ingest_norm_launches"],
         "launches_autotune": auto_out["launches"]["autotune"],
         "launches_thread_budget": auto_out["launches"]["thread_budget"],
+        "launches_cache_mb": cache_out["launches"]["cache_mb"],
+        "launches_store_memory": cache_out["launches"]["store_memory"],
+        "launches_two_tier": cache_out["tiers"]["ingest_norm_launches"],
+        "launches_elastic": cache_out["elastic"]["ingest_norm_launches"],
         "launches_serve": serve_out["launches"]["ingest_norm"],
         **family["ingest_norm"],
         "max_abs_err": kern["max_abs_err"],

@@ -3,20 +3,25 @@
 A trimmed copy of ``repro/config.py``: only the fields the ResNet, dense
 decoder (LM, with gqa/mha or mla attention, and MoE FFNs, and the VLM
 stub's patch prefix), RWKV-6, hybrid (Mamba-1 with attention, jamba) and
-encoder-decoder (whisper) slices read, with the reference's
-names and defaults (``LoaderConfig`` drops ``pin_device`` and
+encoder-decoder (whisper) slices and the loader layer read, with the
+reference's names and defaults (``LoaderConfig`` drops ``pin_device`` and
 ``device_prefetch``, which the reference declares but never reads; the
 ring's depth is ``Trainer(device_prefetch=...)``; ``RWKVConfig`` drops
 ``token_shift`` and ``MoEConfig`` drops ``router_jitter``, for the same
-reason).  ``LoaderConfig`` keeps the
-reference's warn-once flat-kwarg shim (``pipeline=True, reorder=...``
-folded into :class:`PipelineConfig`).  ``PipelineConfig`` has no
-``transport`` or slab fields until the shared-memory transport is ported,
-and :class:`AutotuneConfig` no field of a feature the port lacks (the
-multi-host lease and shedding, cache knobs, slab knob, lane-skew gate,
-serving bounds).  :class:`ServeSpec` sizes the serving engine only; the
-reference's read-path fields come with its read path.  ``replace()``
-(from dataclasses) derives variants.
+reason).  ``LoaderConfig`` and ``StoreConfig`` keep the reference's
+warn-once flat-kwarg shims (``pipeline=True, reorder=...`` folded into
+:class:`PipelineConfig`; ``cache_bytes=..., cache_dir=...`` into
+:class:`CacheConfig`).  Ported with the loader layer: the cache tiers
+(:class:`CacheConfig`, ``StoreConfig.root``/``cache``), elastic membership
+(:class:`ElasticConfig`, ``LoaderConfig.elastic``), and
+:class:`AutotuneConfig`'s cache knobs, up-probe lease (``coord_dir``) and
+fleet shedding (``shed_*``).  Not yet ported, so without a field:
+``PipelineConfig``'s ``transport`` and slab fields (shared-memory
+transport), ``LoaderConfig.sampler`` (predicate pushdown),
+``LoaderConfig.delivery`` (sharded delivery) and :class:`AutotuneConfig`'s
+slab knob, lane-skew gate and serving bounds.  :class:`ServeSpec` sizes the
+serving engine only; the reference's read-path fields come with its read
+path.  ``replace()`` (from dataclasses) derives variants.
 """
 from __future__ import annotations
 
@@ -129,8 +134,42 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class CacheConfig:
+    """Cache-tier block of a :class:`StoreConfig` (paper §2.4; Varnish
+    analogue).  When both ``memory_bytes`` and ``dir`` are set, build_store
+    assembles one two-tier TieredCacheStore (memory LRU over bounded disk)
+    instead of nesting single-tier caches."""
+
+    memory_bytes: int = 0  # memory tier capacity; 0 = no memory tier
+    dir: str = ""  # disk tier directory; "" = no disk tier
+    disk_bytes: int = 0  # disk tier capacity; 0 = unbounded (legacy)
+    # memory-tier lock striping.  Default 1 = exact global LRU with items
+    # cacheable up to the full capacity (the legacy CachedStore semantics).
+    # Raising it trades strict LRU for less lock contention AND caps the
+    # largest cacheable item at memory_bytes // shards — opt in only
+    # when single objects are far smaller than the memory budget.
+    shards: int = 1
+    # disk-tier admission: admit-all | size-threshold | second-hit | tinylfu
+    admission: str = "admit-all"
+    admission_max_item_bytes: int = 1 << 20  # size-threshold policy cutoff
+    # multi-host disk-tier coordination (repro_torch.core.coord) when several
+    # processes/hosts point ``dir`` at one shared directory:
+    #   ""        — off: in-process accounting only (single-host, the default)
+    #   "journal" — shared accounting: one fcntl-locked byte journal under
+    #               dir/.coord bounds the tier across all writers
+    #   "shard"   — partitioned keyspace: this host only caches keys where
+    #               host_shard(key, n_hosts) == host_id (capacity is per-host)
+    #               but opportunistically reads peers' entries off the shared
+    #               disk
+    coord: str = ""
+    coord_host_id: int = 0
+    coord_num_hosts: int = 1
+
+
+@dataclass(frozen=True)
 class StoreConfig:
-    kind: str = "s3sim"  # memory | s3sim
+    kind: str = "s3sim"  # memory | localfs | s3sim
+    root: str = ""  # for localfs
     # SimulatedS3 latency model (lognormal)
     latency_mean_s: float = 0.08
     latency_sigma: float = 0.5
@@ -138,8 +177,94 @@ class StoreConfig:
     nic_bandwidth: float = 1.2e9  # bytes/s aggregate
     max_connections: int = 256
     failure_rate: float = 0.0
-    # congestion-collapse exponent when the NIC is oversubscribed (0 = off)
+    # congestion collapse model: when the NIC is oversubscribed (more active
+    # transfers than nic_bandwidth / bandwidth_per_conn supports), each GET's
+    # service time is additionally scaled by (oversubscription)**overload_penalty
+    # — the queueing/bufferbloat tail real links exhibit.  0 = off (the
+    # legacy monotone model, where extra concurrency never hurts).
     overload_penalty: float = 0.0
+    # cache tiers (see CacheConfig).  The historical flat ``cache_*`` kwargs
+    # still construct the nested form through a deprecation shim; reads of
+    # the old flat names delegate below.
+    cache: CacheConfig = CacheConfig()
+
+    # -- legacy flat reads (the write path is shimmed in __init__) ----------
+    @property
+    def cache_bytes(self) -> int:
+        return self.cache.memory_bytes
+
+    @property
+    def cache_dir(self) -> str:
+        return self.cache.dir
+
+    @property
+    def disk_cache_bytes(self) -> int:
+        return self.cache.disk_bytes
+
+    @property
+    def cache_shards(self) -> int:
+        return self.cache.shards
+
+    @property
+    def cache_admission(self) -> str:
+        return self.cache.admission
+
+    @property
+    def admission_max_item_bytes(self) -> int:
+        return self.cache.admission_max_item_bytes
+
+    @property
+    def cache_coord(self) -> str:
+        return self.cache.coord
+
+    @property
+    def cache_coord_host_id(self) -> int:
+        return self.cache.coord_host_id
+
+    @property
+    def cache_coord_num_hosts(self) -> int:
+        return self.cache.coord_num_hosts
+
+
+# Deprecation shim, as the reference's: each flat cache kwarg warns and is
+# folded into the nested CacheConfig; ``dataclasses.replace`` passes the
+# nested field straight through, so the shim never re-fires on derived
+# configs.
+_LEGACY_CACHE_KWARGS = {
+    "cache_bytes": "memory_bytes",
+    "cache_dir": "dir",
+    "disk_cache_bytes": "disk_bytes",
+    "cache_shards": "shards",
+    "cache_admission": "admission",
+    "admission_max_item_bytes": "admission_max_item_bytes",
+    "cache_coord": "coord",
+    "cache_coord_host_id": "coord_host_id",
+    "cache_coord_num_hosts": "coord_num_hosts",
+}
+
+_store_config_init = StoreConfig.__init__
+
+
+@functools.wraps(_store_config_init)
+def _store_config_shim_init(self, *args: Any, **kwargs: Any) -> None:
+    legacy = {}
+    for flat, nested in _LEGACY_CACHE_KWARGS.items():
+        if flat in kwargs:
+            warnings.warn(
+                f"StoreConfig({flat}=...) is deprecated and will be removed;"
+                f" pass cache=CacheConfig({nested}=...) instead",
+                DeprecationWarning, stacklevel=2,
+            )
+            legacy[nested] = kwargs.pop(flat)
+    if legacy:
+        cache = kwargs.get("cache")
+        kwargs["cache"] = replace(
+            cache if cache is not None else CacheConfig(), **legacy
+        )
+    _store_config_init(self, *args, **kwargs)
+
+
+StoreConfig.__init__ = _store_config_shim_init  # type: ignore[method-assign]
 
 
 @dataclass(frozen=True)
@@ -192,6 +317,38 @@ class AutotuneConfig:
     # wires repro_torch.core.utilization.recent_busy_fraction) at or above
     # this fraction, upward probes are skipped.  0 disables the gate.
     util_gate: float = 0.9
+    # cache-tier knobs (attached when the dataset's store stack contains a
+    # TieredCacheStore).  Capacity knobs exist only when the matching
+    # max_*_cache_bytes names an explicit ceiling ABOVE the configured
+    # capacity (default 0 = no capacity knob): growth is almost always
+    # throughput-positive, so a default ceiling would let the hill climber
+    # silently walk a cache the user sized for their RAM/disk up to it.
+    # The admission-policy knob is attached whenever a disk tier exists.
+    tune_cache: bool = True
+    min_memory_cache_bytes: int = 1 << 20
+    max_memory_cache_bytes: int = 0
+    min_disk_cache_bytes: int = 1 << 22
+    max_disk_cache_bytes: int = 0
+    tune_admission: bool = True
+    # cache-knob cadence.  Capacity knobs pay off on *epoch* timescales in
+    # full-pass regimes (a shuffled pass has no intra-epoch repeats, so a
+    # bigger cache only shows up one epoch later):
+    #   "batch" — cache knobs ride the per-batch controller (legacy; right
+    #             for within-epoch-repeat workloads)
+    #   "epoch" — the loader runs a second controller for the cache knobs,
+    #             fed once per completed epoch, judging on
+    #             cache_epoch_windows-epoch throughput windows
+    cache_cadence: str = "batch"
+    cache_epoch_windows: int = 2
+    # multi-host cooperative tuning (repro_torch.core.coord.UpProbeLease): when
+    # coord_dir names a directory shared by co-located hosts, upward
+    # concurrency/hedging probes require holding the fleet-wide up-probe
+    # lease — one tenant probes a saturated NIC while the others hold or
+    # refine downward.  "" = off (single-host, the default; behaviour is
+    # bit-identical to a lease-free controller).  A crashed holder's lease
+    # expires after coord_ttl_s.
+    coord_dir: str = ""
+    coord_ttl_s: float = 30.0
     # staged-pipeline stage knobs: CPU executor width and the fetch->decode
     # queue depth (the IO executor reuses min/max_fetch_workers)
     min_cpu_workers: int = 1
@@ -213,6 +370,24 @@ class AutotuneConfig:
     # reorder_window knob bounds (window-mode pipelines only)
     min_reorder_window: int = 1
     max_reorder_window: int = 64
+    # -- cooperative down-shedding (repro_torch.core.coord.CongestionBoard) -
+    # AIMD across the fleet: a host whose window collapses below
+    # shed_collapse_fraction of its best settled throughput posts a shed
+    # event to coord_dir's CongestionBoard, and EVERY host (poster included)
+    # multiplicatively cuts its concurrency knobs by shed_md_factor, holds
+    # shed_hold_windows windows, then recovers additively toward the
+    # pre-shed values over shed_recover_windows windows.  Per-host hill
+    # climbing only gives back its own last probe step under collapse; the
+    # board is what makes the whole fleet back off together.  0.0 = off
+    # (the default: existing coord_dir fleets keep lease-gating only).
+    # Requires coord_dir.
+    shed_collapse_fraction: float = 0.0
+    shed_md_factor: float = 0.5  # multiplicative-decrease factor per shed
+    shed_hold_windows: int = 2  # windows to sit at the cut point
+    shed_recover_windows: int = 8  # windows to climb back additively
+    # fleet-wide shed rate limit: a collapse seen by N hosts injects ONE
+    # shed event, not N stacked halvings (enforced under the board lock)
+    shed_min_interval_s: float = 5.0
 
 
 @dataclass(frozen=True)
@@ -255,6 +430,32 @@ class PipelineConfig:
 
 
 @dataclass(frozen=True)
+class ElasticConfig:
+    """Elastic fleet membership + work claiming (repro_torch.core.elastic).
+
+    When enabled, the loader joins a lease-based ``MembershipBoard`` under
+    ``coord_dir`` and replaces static batch sharding with claim-based
+    scheduling over an ``EpochShardBoard``: the epoch's batches are split
+    into shards of ``shard_batches`` that live hosts claim under TTL
+    leases, so hosts may join, leave, or crash mid-epoch and the *union*
+    of delivered batches still covers the epoch exactly (a dead host's
+    in-flight shard is resumed by a survivor at its last confirmed batch —
+    at-least-once for the unconfirmed tail, never lost).  The sub-config
+    is truthy iff enabled, so ``if cfg.elastic:`` reads naturally."""
+
+    enabled: bool = False
+    coord_dir: str = ""  # shared directory (required when enabled)
+    lease_ttl_s: float = 10.0  # membership + shard-claim lease TTL
+    heartbeat_interval_s: float = 2.0  # max staleness of our own lease
+    shard_batches: int = 8  # claim granularity (batches per shard)
+    claim_poll_s: float = 0.05  # wait between claim attempts when starved
+
+    def __bool__(self) -> bool:
+        return bool(self.enabled)
+
+
+
+@dataclass(frozen=True)
 class LoaderConfig:
     impl: str = "threaded"  # vanilla | threaded | asyncio
     batch_size: int = 256
@@ -278,6 +479,9 @@ class LoaderConfig:
     # online knob control (off by default: behaviour is bit-identical to a
     # statically configured loader when disabled)
     autotune: AutotuneConfig = AutotuneConfig()
+    # elastic fleet membership + claim-based batch scheduling (see
+    # ElasticConfig).  Off by default: static host_id/num_hosts sharding.
+    elastic: ElasticConfig = ElasticConfig()
 
     # -- legacy flat reads (the write path is shimmed in __init__) ----------
     @property

@@ -30,16 +30,26 @@ cycles without an accepted move it restores the best state and goes
 quiescent; a collapse below half of the best-seen throughput re-arms it,
 and a heartbeat re-probes every ``reprobe_windows`` quiescent windows.
 
-A trimmed copy of the reference's controller: its multi-host up-probe
-lease, fleet-wide shedding and lane-skew gate are not ported (ROADMAP §1
-items 5.2 and 7), nor are the serving read path's latency objective
-(``on_request``), ``build_serve_knobs`` and ``build_cache_knobs`` (items
-5.7 and 5.1).  With those features off the reference gives the same events
-as this controller, except where an additive knob (the thread budget's
-split) sits at its upper wall: the reference never probes it down from
-there (ROADMAP §3).  The module imports no ``torch``: the staged
-pipeline imports it, and ``spawn`` re-imports the pipeline in every CPU
-worker process.
+Multi-host cooperation, as the reference's: with a ``probe_lease``
+(:class:`~repro_torch.core.coord.UpProbeLease`, wired from
+``AutotuneConfig.coord_dir``) every upward probe first takes the fleet-wide
+up-probe token, renews it across the probe's windows (a lost renewal aborts
+the probe) and hands it back on revert, hold, quiesce, a downward move, a
+rebind and :meth:`AutotuneController.release_coordination`.  With a
+``congestion`` board (:class:`~repro_torch.core.coord.CongestionBoard`,
+``shed_collapse_fraction > 0``) a collapse posts a fleet-wide shed, and
+every controller cuts its multiplicative knobs and climbs back additively.
+:func:`build_cache_knobs` turns a tiered cache's capacities and admission
+policy into knobs.
+
+A trimmed copy of the reference's controller: its lane-skew gate (ROADMAP
+§1 item 7), the serving read path's latency objective (``on_request``) and
+``build_serve_knobs`` (item 5.7) are not ported.  With those features off
+the reference gives the same events as this controller, except where an
+additive knob (the thread budget's split, the cache admission index) sits
+at its upper wall: the reference never probes it down from there (ROADMAP
+§3).  The module imports no ``torch``: the staged pipeline imports it, and
+``spawn`` re-imports the pipeline in every CPU worker process.
 """
 from __future__ import annotations
 
@@ -95,7 +105,11 @@ class TuneEvent:
     batch: int
     action: str  # probe | accept | revert | hold | restore | quiesce | rearm
     #             | reprobe | gate (up-move skipped: accelerator saturated)
+    #             | lease (up-move skipped: a peer holds the up-probe token)
     #             | entropy (reorder-window up-move skipped: shuffle floor)
+    #             | shed (local collapse: posted + multiplicative cut)
+    #             | shed_peer (a peer's shed event honored: multiplicative cut)
+    #             | recover (one additive step back toward pre-shed values)
     knob: str
     value: int
     tput: float
@@ -120,12 +134,18 @@ class AutotuneController:
         tracer: Optional[Tracer] = None,
         store_stats_fn: Optional[Callable[[], Any]] = None,
         util_fn: Optional[Callable[[], Optional[float]]] = None,
+        probe_lease: Optional[Any] = None,
         entropy_fn: Optional[Callable[[], Optional[float]]] = None,
+        congestion: Optional[Any] = None,
     ) -> None:
         self.cfg = cfg
         self.knobs = list(knobs)
         self.tracer = tracer
         self.store_stats_fn = store_stats_fn
+        # fleet-wide up-probe token (UpProbeLease-shaped); None = single
+        # host, no coordination anywhere
+        self.probe_lease = probe_lease
+        self._lease_held = False
         # accelerator busy-fraction signal (None = no signal yet); wired by
         # the trainer so the controller stops buying loader throughput the
         # training step can't eat (see cfg.util_gate)
@@ -158,6 +178,23 @@ class AutotuneController:
         # best *settled* operating point seen: (knob values, its throughput)
         self._best_state: Dict[str, int] = {}
         self._best_state_tput = 0.0
+        # cooperative AIMD down-shedding (CongestionBoard-shaped; None =
+        # off).  On a shed, ours or a peer's, every multiplicative knob is
+        # cut and then climbs back additively toward its pre-shed value:
+        # _shed_target holds the goals, _shed_step_sz each knob's increment,
+        # _shed_hold the windows left to sit at the cut point.
+        self.congestion = congestion
+        self._shed_seq = 0
+        if congestion is not None:
+            try:
+                # start from the board's tip: older shed events predate
+                # this controller and must not trigger a cut now
+                self._shed_seq = congestion.last_seq()
+            except OSError:
+                self._shed_seq = 0
+        self._shed_target: Dict[str, int] = {}
+        self._shed_step_sz: Dict[str, int] = {}
+        self._shed_hold = 0
 
     # -- public surface ------------------------------------------------------
 
@@ -175,6 +212,7 @@ class AutotuneController:
             if k.name in self._best_state:
                 k.set(self._best_state[k.name])
         self._probe = None
+        self._release_lease()  # the dropped probe may have held the token
         self._phase = "baseline"
         self._win_t0 = None
         self._win_batches = 0
@@ -219,6 +257,7 @@ class AutotuneController:
         self._win_batches = 0
         self._win_items = 0
         self._probe = None
+        self._release_lease()
         if self._phase in ("settle", "measure"):
             self._phase = "baseline"
 
@@ -266,6 +305,134 @@ class AutotuneController:
                 out["store"] = None
         return out
 
+    def release_coordination(self) -> None:
+        """Hand the fleet-wide up-probe token back (clean shutdown: peers
+        should not have to wait out the crash TTL).  No-op without a lease."""
+        self._release_lease()
+
+    # -- cooperative lease ---------------------------------------------------
+
+    def _lease_for_up(self) -> bool:
+        """True when an upward probe may run: no lease configured, already
+        holding (renewed), or the token was free to take.  A transient
+        shared-dir error (NFS hiccup) counts as "token unavailable" rather
+        than crashing the training loop — the controller just holds this
+        window and retries next time."""
+        if self.probe_lease is None:
+            return True
+        try:
+            if self._lease_held:
+                if self.probe_lease.renew():
+                    return True
+                self._lease_held = False  # TTL expired, a peer took over
+            self._lease_held = bool(self.probe_lease.try_acquire())
+        except OSError:
+            self._lease_held = False
+        return self._lease_held
+
+    def _release_lease(self) -> None:
+        if self.probe_lease is not None and self._lease_held:
+            self._lease_held = False
+            try:
+                self.probe_lease.release()
+            except OSError:  # pragma: no cover - shared dir unavailable
+                pass
+
+    # -- cooperative down-shedding (AIMD) ------------------------------------
+
+    def _apply_shed(self, tput: float, action: str) -> None:
+        """Multiplicative decrease: cancel any in-flight probe, hand the
+        up-probe token back, and cut every scalable concurrency knob by
+        ``shed_md_factor``, remembering the pre-shed values as additive
+        recovery targets.  Binary and additive-scale knobs are left alone —
+        halving a 0/1 toggle or an admission policy isn't "backing off"."""
+        cfg = self.cfg
+        if self._probe is not None:
+            p, self._probe = self._probe, None
+            p.knob.set(p.old_value)
+        self._release_lease()
+        n = 0
+        for k in self.knobs:
+            if k.is_binary or k.scale != "mult":
+                continue
+            cur = k.get()
+            cut = max(k.lo, int(cur * cfg.shed_md_factor))
+            if cut >= cur:
+                continue
+            k.set(cut)
+            self._shed_target[k.name] = cur
+            self._shed_step_sz[k.name] = max(
+                1, -(-(cur - cut) // max(cfg.shed_recover_windows, 1))
+            )
+            n += 1
+        self._shed_hold = max(cfg.shed_hold_windows, 0)
+        self._phase = "baseline"
+        self._log(action, "-", n, tput)
+
+    def _shed_step(self, tput: float) -> bool:
+        """AIMD coordination, run before normal hill climbing each window.
+        Returns True when this window was consumed by shed/hold/recover —
+        probing is suspended until additive recovery completes (climbing on
+        top of a deliberate fleet-wide back-off would judge moves against a
+        moving baseline AND defeat the back-off)."""
+        if self.congestion is None:
+            return False
+        cfg = self.cfg
+        try:
+            seq, events = self.congestion.poll(self._shed_seq)
+        except OSError:
+            seq, events = self._shed_seq, []
+        self._shed_seq = max(self._shed_seq, seq)
+        if not self._shed_target:
+            # a peer observed collapse: honor its shed event (our own posts
+            # are consumed by the _shed_seq advance above, not re-applied)
+            if any(e.get("h") != self.congestion.host for e in events):
+                self._apply_shed(tput, "shed_peer")
+                return True
+            # local collapse: this settled window fell below the shed
+            # fraction of our best settled throughput — post fleet-wide
+            # (rate-limited under the board lock) and cut ourselves
+            if (
+                cfg.shed_collapse_fraction > 0
+                and self._windows_seen > cfg.warmup_windows
+                and self._best_state_tput > 0
+                and tput < cfg.shed_collapse_fraction * self._best_state_tput
+            ):
+                try:
+                    posted = self.congestion.post_shed(
+                        tput, min_interval_s=cfg.shed_min_interval_s
+                    )
+                except OSError:
+                    posted = None
+                if posted is not None:
+                    self._shed_seq = max(self._shed_seq, posted)
+                self._apply_shed(tput, "shed")
+                return True
+            return False
+        # shedding: hold at the cut point, then climb back additively.
+        # Recovery only re-applies values this host already ran at, so it
+        # deliberately does not contend for the up-probe lease.
+        if self._shed_hold > 0:
+            self._shed_hold -= 1
+            return True
+        done = True
+        for k in self.knobs:
+            tgt = self._shed_target.get(k.name)
+            if tgt is None:
+                continue
+            cur = k.get()
+            if cur >= tgt:
+                continue
+            nv = min(tgt, cur + self._shed_step_sz.get(k.name, 1))
+            k.set(nv)
+            self._log("recover", k.name, nv, tput)
+            if nv < tgt:
+                done = False
+        if done:
+            self._shed_target.clear()
+            self._shed_step_sz.clear()
+        return True
+
     # -- controller core -----------------------------------------------------
 
     def _log(self, action: str, knob: str, value: int, tput: float) -> None:
@@ -273,6 +440,27 @@ class AutotuneController:
 
     def _step(self, tput: float) -> None:
         self._windows_seen += 1
+        if self._shed_step(tput):
+            return
+        if self._lease_held and self._probe is not None:
+            # keep the token alive across the settle+measure windows of an
+            # in-flight upward probe (TTL is sized for a few windows only);
+            # a transient shared-dir error counts as a lost token
+            try:
+                self._lease_held = bool(self.probe_lease.renew())
+            except OSError:
+                self._lease_held = False
+            if not self._lease_held:
+                # the TTL lapsed mid-probe and a peer may already hold the
+                # token: letting our upward move keep running would be the
+                # two-concurrent-up-probes state the lease exists to prevent
+                # (and invisible to the lease audit).  Abort: roll the knob
+                # back and re-baseline.
+                p, self._probe = self._probe, None
+                p.knob.set(p.old_value)
+                self._log("revert", p.knob.name, p.old_value, tput)
+                self._phase = "settle_revert"
+                return
         if self._windows_seen <= self.cfg.warmup_windows:
             return  # settle: prefetch burst / startup warps early windows
         if self._phase == "settle":
@@ -389,6 +577,7 @@ class AutotuneController:
             # regression (or an unconvincing binary flip): roll back, then
             # settle + re-measure a clean baseline before the next probe
             p.knob.set(p.old_value)
+            self._release_lease()  # the up-probe failed: let a peer try
             self._log("revert", p.knob.name, p.old_value, tput)
             self._refine(p.knob)  # the coarse jump overshot: step finer
             if not p.knob.is_binary:
@@ -401,6 +590,7 @@ class AutotuneController:
             self._phase = "settle_revert"
             return
         # dead-band: keep the value but stop pushing this knob
+        self._release_lease()  # plateaued: the token helps a peer more
         self._log("hold", p.knob.name, p.new_value, tput)
         self._refine(p.knob)  # plateaued at this granularity: step finer
         if went_down:
@@ -416,6 +606,7 @@ class AutotuneController:
             self._quiescent = True
             self._quiet_windows = 0
             self._phase = "baseline"
+            self._release_lease()
             # park at the best point ever measured, not wherever the walk
             # happened to stop
             if self._best_state and self._current_state() != self._best_state:
@@ -472,7 +663,10 @@ class AutotuneController:
         utilization gate is active, upward moves and binary trials are
         skipped (they would buy throughput nobody eats); downward moves
         still run.  Reorder-window up-moves are skipped below the shuffle
-        entropy floor."""
+        entropy floor.  With a ``probe_lease``, upward moves and binary
+        trials also need the fleet-wide up-probe token: a peer holding it
+        means the shared NIC is already being probed, so this host holds or
+        refines downward until the token frees up."""
         if not self.knobs:
             return
         gated = self._util_gated()
@@ -485,6 +679,7 @@ class AutotuneController:
             if k is not prefer:
                 order.append(k)
         skipped_for_gate = False
+        skipped_for_lease = False
         skipped_for_entropy = False
         for k in order:
             cur = k.get()
@@ -506,18 +701,29 @@ class AutotuneController:
             if k.name == "reorder_window" and up_move and self._entropy_gated():
                 skipped_for_entropy = True
                 continue
+            if up_move and not self._lease_for_up():
+                skipped_for_lease = True
+                continue
             applied = k.set(nxt)
             if applied == cur:
                 continue  # owner clamped the move away: not a probe
+            if not up_move:
+                # refining downward: hand the token back so a peer can climb
+                self._release_lease()
             self._probe = _Probe(k, cur, applied, baseline)
             self._ki = self.knobs.index(k)
             self._phase = "settle"
             self._log("probe", k.name, applied, baseline)
             return
-        if skipped_for_gate or skipped_for_entropy:
-            # accelerator-bound or entropy-floored, not converged: stay armed
-            # and re-check next window instead of quiescing
-            self._log("gate" if skipped_for_gate else "entropy", "-", 0, baseline)
+        if skipped_for_gate or skipped_for_lease or skipped_for_entropy:
+            # accelerator-bound, entropy-floored, or a peer holds the
+            # up-probe token: not converged, so stay armed and re-check next
+            # window instead of quiescing.  An idle hold of the token is
+            # released so peers can use it.
+            self._release_lease()
+            action = ("gate" if skipped_for_gate
+                      else "lease" if skipped_for_lease else "entropy")
+            self._log(action, "-", 0, baseline)
             self._phase = "baseline"
             return
         # nothing movable anywhere (e.g. a coarse momentum-accept landed every
@@ -525,6 +731,7 @@ class AutotuneController:
         self._quiescent = True
         self._quiet_windows = 0
         self._phase = "baseline"
+        self._release_lease()
         self._log("quiesce", "-", 0, baseline)
 
     def _util_gated(self) -> bool:
@@ -772,4 +979,70 @@ def build_budget_knobs(
     if get_reorder is not None and set_reorder is not None:
         knobs.append(build_reorder_knob(cfg, get_reorder=get_reorder,
                                         set_reorder=set_reorder))
+    return knobs
+
+
+def build_cache_knobs(cfg: AutotuneConfig, cache: Any) -> List[Knob]:
+    """Knobs for a ``TieredCacheStore``-shaped object (duck-typed so
+    ``repro_torch.core`` never imports ``repro_torch.data``): memory
+    capacity, disk capacity, and the disk admission-policy index.
+
+    Capacity knobs are attached ONLY when the config names an explicit
+    ceiling above the configured capacity (``max_*_cache_bytes``): growing a
+    cache is almost always throughput-positive, so a default ceiling would
+    silently walk a user-sized cache up to it — and without growth headroom
+    the knob would start pinned at its upper wall, where the controller
+    never probes a multiplicative knob, making it a silent no-op.  No
+    ceiling, no knob.  The lower bound widens down to the configured capacity, mirroring
+    the loader-knob rule that enabling autotune must never clamp an explicit
+    static config.  An unbounded disk tier (capacity 0) gets no capacity
+    knob — there is nothing to trade off.  The admission knob is attached
+    whenever a disk tier exists (``tune_admission``).  The cache object
+    outlives any ``_LoaderIter``, so these knobs are attached per-epoch via
+    ``attach_knob`` and keep their learned values."""
+    knobs: List[Knob] = []
+    mem = getattr(cache, "memory", None)
+    if mem is not None and cfg.max_memory_cache_bytes > mem.capacity:
+        knobs.append(
+            Knob(
+                name="cache_mem_bytes",
+                get=lambda m=mem: m.capacity,
+                set=cache.set_memory_capacity,
+                lo=min(cfg.min_memory_cache_bytes, mem.capacity),
+                hi=cfg.max_memory_cache_bytes,
+            )
+        )
+    disk = getattr(cache, "disk", None)
+    # a journal-shared disk tier's capacity belongs to the fleet, not to one
+    # host's hill climber: two hosts walking the same shared bound in
+    # opposite directions would thrash every peer's working set.  The
+    # (per-host) memory knob and admission knob remain tunable.
+    disk_shared = disk is not None and getattr(disk, "journal", None) is not None
+    if (
+        disk is not None and not disk_shared
+        and disk.capacity and cfg.max_disk_cache_bytes > disk.capacity
+    ):
+        knobs.append(
+            Knob(
+                name="cache_disk_bytes",
+                get=lambda d=disk: d.capacity,
+                set=cache.set_disk_capacity,
+                lo=min(cfg.min_disk_cache_bytes, disk.capacity),
+                hi=cfg.max_disk_cache_bytes,
+            )
+        )
+    if disk is not None and cfg.tune_admission:
+        kinds = getattr(cache, "ADMISSION_KINDS", ())
+        if len(kinds) > 2:  # a 2-policy space would look binary to the controller
+            knobs.append(
+                Knob(
+                    name="cache_admission",
+                    get=cache.admission_index,
+                    set=cache.set_admission,
+                    lo=0,
+                    hi=len(kinds) - 1,
+                    scale="add",
+                    step_schedule=(1,),
+                )
+            )
     return knobs

@@ -9,7 +9,7 @@ pipeline, per ``LoaderConfig.pipeline``; with its online autotuner, per
 A trimmed copy of the reference's factory: it takes a ``LoaderConfig``
 only.  A ``RunConfig`` and the ``mesh`` parameter (sharded delivery) wait
 for ROADMAP.md §1 item 7, and the serving mirror ``make_read_path`` waits
-for ``serve/readpath.py`` (§1 item 5.10).
+for ``serve/readpath.py`` (§1 item 5.7).
 """
 from __future__ import annotations
 

@@ -22,24 +22,38 @@ staged pipeline (:mod:`repro_torch.core.pipeline`), with optional pinned
 host staging (:mod:`repro_torch.core.staging`).  ``LoaderConfig.autotune``
 (enabled) gives the loader an :class:`~repro_torch.core.autotune.
 AutotuneController` that moves either iterator's knobs between batches;
-its learned values persist across epochs on the loader.  The reference's
-shared-memory transport, elastic mode and sharded delivery have no config
-field in the port yet.
+its learned values persist across epochs on the loader.  A store stack
+holding a :class:`~repro_torch.data.cache.TieredCacheStore` gives the
+autotuner its cache knobs, on the per-batch controller or, with
+``cache_cadence="epoch"``, on a second controller fed once per epoch.
+``AutotuneConfig.coord_dir`` puts upward probes under a fleet-wide lease
+(and, with ``shed_collapse_fraction``, collapses under fleet-wide
+shedding); ``LoaderConfig.elastic`` replaces static sharding with claims
+on an :class:`~repro_torch.core.elastic.ElasticBatchSampler` (legacy path
+only).  :meth:`ConcurrentDataLoader.release_coordination` hands back the
+lease and the membership slot.  The reference's shared-memory transport,
+predicate pushdown and sharded delivery have no config field in the port
+yet.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
 import weakref
+from dataclasses import replace
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from repro_torch.config import LoaderConfig
 from repro_torch.core.autotune import (
     AutotuneController,
+    Knob,
+    build_cache_knobs,
     build_loader_knobs,
     make_weak_knob_callbacks,
 )
+from repro_torch.core.elastic import ClaimStarved, ElasticBatchSampler, ElasticSession
 from repro_torch.core.fetcher import HedgeTracker, make_fetcher
 from repro_torch.core.sampler import BatchIndices, ShardedBatchSampler
 from repro_torch.core.tracing import GET_BATCH, NULL_TRACER, Tracer
@@ -58,6 +72,18 @@ def _store_stats_fn(dataset: MapDataset):
     while store is not None:
         if hasattr(store, "stats"):
             return lambda s=store: s.stats
+        store = getattr(store, "base", None)
+    return None
+
+
+def _find_tiered_cache(dataset: MapDataset):
+    """Find a TieredCacheStore in the dataset's store stack (duck-typed on
+    its knob surface) so its capacities and admission become autotune
+    knobs."""
+    store = getattr(dataset, "store", None)
+    while store is not None:
+        if hasattr(store, "set_memory_capacity"):
+            return store
         store = getattr(store, "base", None)
     return None
 
@@ -127,6 +153,38 @@ class ConcurrentDataLoader:
             host_id=host_id,
             num_hosts=num_hosts,
         )
+        # elastic fleet mode (repro_torch.core.elastic): claim-based batch
+        # scheduling over the coord substrate replaces static sharding, so
+        # hosts may join, leave or crash mid-epoch and the fleet-wide union
+        # of delivered batches still covers the epoch exactly
+        self._elastic: Optional[ElasticSession] = None
+        if cfg.elastic:
+            if not cfg.elastic.coord_dir:
+                raise ValueError("elastic mode requires ElasticConfig.coord_dir")
+            if num_hosts != 1:
+                raise ValueError(
+                    "elastic mode replaces static host_id/num_hosts sharding "
+                    "with claim-based scheduling of whole global batches; "
+                    "construct each elastic host with num_hosts=1"
+                )
+            if pipe:
+                raise ValueError(
+                    "elastic mode currently requires the legacy loader path "
+                    "(pipeline=PipelineConfig(enabled=False)): the staged "
+                    "pipeline's dispatcher does not yet retry a "
+                    "claim-starved sampler"
+                )
+            self._elastic = ElasticSession(
+                cfg.elastic, member=f"host{host_id}-pid{os.getpid()}"
+            )
+            self.sampler = ElasticBatchSampler(
+                len(dataset),
+                cfg.batch_size,
+                shuffle=cfg.shuffle,
+                seed=cfg.seed,
+                drop_last=cfg.drop_last,
+                session=self._elastic,
+            )
         # hedging pairs with any path whose assembler runs a hedge scan: the
         # legacy threaded iterator and both staged-pipeline IO modes
         self.hedge = (
@@ -140,6 +198,29 @@ class ConcurrentDataLoader:
         # the LOADER so learning persists across epochs; each epoch's
         # iterator re-binds the knob callbacks to itself
         at = cfg.autotune
+        probe_lease = None
+        congestion = None
+        if at.enabled and at.coord_dir:
+            # multi-host cooperation: upward probes need the fleet-wide
+            # token under the shared coord dir.  With elastic membership, a
+            # holder that left the fleet is reaped at once instead of idling
+            # the token out to its TTL.
+            from repro_torch.core.coord import CongestionBoard, UpProbeLease
+
+            probe_lease = UpProbeLease(
+                at.coord_dir,
+                owner=f"host{host_id}-pid{os.getpid()}",
+                ttl_s=at.coord_ttl_s,
+                membership=(
+                    self._elastic.membership if self._elastic is not None else None
+                ),
+            )
+            if at.shed_collapse_fraction > 0:
+                # cooperative AIMD down-shedding: collapse events post to
+                # the fleet board and every controller cuts multiplicatively
+                congestion = CongestionBoard(
+                    at.coord_dir, host=f"host{host_id}-pid{os.getpid()}"
+                )
         entropy_fn = None
         if (
             at.enabled
@@ -166,7 +247,9 @@ class ConcurrentDataLoader:
                 [],
                 tracer=tracer,
                 store_stats_fn=_store_stats_fn(dataset),
+                probe_lease=probe_lease,
                 entropy_fn=entropy_fn,
+                congestion=congestion,
             )
             if at.enabled
             else None
@@ -176,6 +259,41 @@ class ConcurrentDataLoader:
         # the loader because workers cost hundreds of ms to spawn; each
         # epoch's pipeline iterator attaches and rebinds.  close() ends it.
         self._cpu_pool = None
+        # cache-tier knobs: the cache outlives every iterator, so the knob
+        # list is built once here and re-attached after each epoch's bind().
+        # The cache's tracer is not rebound here: the store may be shared by
+        # several loaders (pass a tracer to build_store for cache_get spans).
+        self._cache_knobs: List[Knob] = []
+        # epoch-cadence cache tuning: capacity knobs pay off one epoch later
+        # in full-pass regimes, so with cache_cadence="epoch" the cache knobs
+        # get their own controller, judged on cache_epoch_windows-epoch
+        # windows fed from _note_epoch_end, instead of riding the per-batch
+        # controller
+        self.cache_autotuner: Optional[AutotuneController] = None
+        if at.enabled and at.cache_cadence not in ("batch", "epoch"):
+            # a typo'd cadence must not silently fall back to per-batch
+            raise ValueError(
+                f"unknown cache_cadence {at.cache_cadence!r}; "
+                "known: 'batch', 'epoch'"
+            )
+        if self.autotuner is not None and at.tune_cache:
+            cache = _find_tiered_cache(dataset)
+            if cache is not None:
+                knobs = build_cache_knobs(at, cache)
+                if knobs and at.cache_cadence == "epoch":
+                    epoch_cfg = replace(
+                        at,
+                        interval_batches=max(at.cache_epoch_windows, 1),
+                        min_window_s=0.0,
+                        warmup_windows=1,
+                        # epoch-scale windows on a shared machine: a slow
+                        # phase spanning one window says nothing about the
+                        # knobs, so never restore-on-collapse here
+                        collapse_restore=False,
+                    )
+                    self.cache_autotuner = AutotuneController(epoch_cfg, knobs)
+                else:
+                    self._cache_knobs = knobs
 
     # -- epoch / resume ------------------------------------------------------
     def set_epoch(self, epoch: int) -> None:
@@ -242,12 +360,43 @@ class ConcurrentDataLoader:
         stage; remembering it (weakly) folds its depth into stage_stats."""
         self._device_ring = weakref.ref(ring)
 
+    def _note_batch_delivered(self) -> None:
+        """One batch crossed into the consumer: elastic mode forwards the
+        event to the claim sampler's confirmation pipeline."""
+        note = getattr(self.sampler, "note_delivered", None)
+        if note is not None:
+            note()
+
+    def _note_epoch_end(self) -> None:
+        """The epoch drained: confirm every delivered batch to an elastic
+        fleet, and feed the epoch-cadence cache controller one completed
+        epoch (items = batches consumed; only the rate's consistency
+        matters)."""
+        flush = getattr(self.sampler, "flush_delivered", None)
+        if flush is not None:
+            flush()
+        if self.cache_autotuner is not None and self._consumed:
+            self.cache_autotuner.on_batch(items=self._consumed)
+
+    def release_coordination(self) -> None:
+        """Hand back any held up-probe lease and the elastic membership slot
+        (clean shutdown: peers should not have to wait out the crash TTL).
+        Safe to call repeatedly."""
+        for ctrl in (self.autotuner, self.cache_autotuner):
+            if ctrl is not None:
+                ctrl.release_coordination()
+        if self._elastic is not None:
+            self._elastic.leave()
+
     def close(self) -> None:
         """End the process CPU pool's workers, if a pipeline epoch started
-        them.  The loader stays usable: a later epoch spawns a new pool."""
+        them, and release the loader's coordination.  The loader stays
+        usable: a later epoch spawns a new pool (and an elastic loader
+        rejoins its fleet)."""
         pool, self._cpu_pool = self._cpu_pool, None
         if pool is not None:
             pool.close()
+        self.release_coordination()
 
 
 def deliver_traced(it) -> Any:
@@ -264,6 +413,7 @@ def deliver_traced(it) -> Any:
     if isinstance(batch, dict) and "nbytes" in batch:
         args["nbytes"] = int(batch["nbytes"].sum())
     it.tracer.record(GET_BATCH, t0, time.monotonic(), **args)
+    it.loader._note_batch_delivered()
     auto = it.loader.autotuner
     if auto is not None and not it._exhausted:
         auto.on_batch()
@@ -335,6 +485,11 @@ class _LoaderIter:
                     max_outstanding=self._max_outstanding_bound,
                 )
             )
+            # bind() replaced the knob list; the cache knobs ride along every
+            # epoch (attach_knob re-applies learned values and keeps a
+            # quiescent controller parked for knobs it has seen)
+            for knob in loader._cache_knobs:
+                loader.autotuner.attach_knob(knob)
 
         if not cfg.lazy_init:
             # Vanilla blocking behaviour: the constructor sequentially starts
@@ -400,6 +555,10 @@ class _LoaderIter:
             except StopIteration:
                 self._exhausted = True
                 return
+            except ClaimStarved:
+                # elastic sampler: peers hold every remaining shard; keep
+                # delivering what is in flight and retry on a later dispatch
+                return
             if self._next_bid is None:
                 self._next_bid = task.batch_id
             # Round-robin over ALL worker queues (PyTorch's
@@ -436,7 +595,7 @@ class _LoaderIter:
                 and self._received >= self._dispatched
                 and not self._reorder
             ):
-                self.shutdown()
+                self._finish_epoch()
                 raise StopIteration
             try:
                 bid, payload = self.data_queue.get(timeout=0.1)
@@ -451,12 +610,20 @@ class _LoaderIter:
                         f"no batch within {self.cfg.timeout_s}s "
                         f"(dispatched={self._dispatched}, received={self._received})"
                     ) from None
+                # a claim-starved elastic sampler returns from _dispatch
+                # without marking exhaustion: retry it while idle, so a shard
+                # freed by a peer's departure is picked up
+                self._dispatch()
                 continue
             self._received += 1
             if isinstance(payload, WorkerFailure):
                 self.shutdown()
                 raise payload.exc
             self._reorder[bid] = payload
+
+    def _finish_epoch(self) -> None:
+        self.shutdown()
+        self.loader._note_epoch_end()
 
     # -- shutdown ------------------------------------------------------------
     def shutdown(self) -> None:

@@ -36,9 +36,11 @@ This module splits the item path into an explicit stage graph::
   reorder window between batches, or, under ``thread_budget``, one coupled
   io/cpu split and the CPU executor kind (thread or process, swapped live).
 
-A trimmed copy of the reference's pipeline: its shared-memory transport
-(ROADMAP §1 item 5.4) and its sharded lanes (item 7) are not ported and
-have no config field.  The module imports no ``torch``: ``spawn``
+The pipeline carries the loader's cache knobs into each epoch's knob list
+and reports each drained epoch to the loader (``_note_epoch_end``), which
+feeds the epoch-cadence cache controller.  A trimmed copy of the
+reference's pipeline: its shared-memory transport (ROADMAP §1 item 5.4)
+and its sharded lanes (item 7) are not ported and have no config field.  The module imports no ``torch``: ``spawn``
 re-imports it in every CPU worker process.
 """
 from __future__ import annotations
@@ -1243,6 +1245,9 @@ class _PipelineIter:
                 # knobs would waste the controller's probe windows
                 knobs = [k for k in knobs if k.name not in ("cpu_workers", "stage_queue")]
         auto.bind(knobs)
+        # the cache knobs (per-batch cadence) ride along every epoch
+        for knob in self.loader._cache_knobs:
+            auto.attach_knob(knob)
 
     # -- CPU stage factory / executor swap -----------------------------------
     def _make_cpu_stage(self, kind: str):
@@ -1503,7 +1508,7 @@ class _PipelineIter:
                 and self._completed_samples >= self._dispatched_samples
                 and self._emitted_batches >= self._dispatched_batches
             ):
-                self.shutdown()
+                self._finish_epoch()
                 raise StopIteration
             self._pump()
             self.io.hedge_scan()
@@ -1526,6 +1531,12 @@ class _PipelineIter:
                 self.shutdown()
                 raise payload.exc
             self._absorb(s, payload)
+
+    def _finish_epoch(self) -> None:
+        # the epoch drained: the loader feeds its epoch-cadence cache
+        # controller (without this, cache_cadence="epoch" never runs here)
+        self.shutdown()
+        self.loader._note_epoch_end()
 
     # -- observability -------------------------------------------------------
     def stage_stats(self) -> Dict[str, Any]:

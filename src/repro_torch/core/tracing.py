@@ -1,15 +1,18 @@
 """Span-level tracer — the paper's profiling methodology (Fig. 1 lanes).
 
 Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
-``run_training_batch``, and the staged pipeline's ``stage_*`` lanes) with
-wall-clock start/end and thread id, like the log-entry instrumentation in
-the paper, plus named monotonic counters (``bytes_copied``), and feeds the
+``run_training_batch``, the cache tiers' ``cache_get`` and the staged
+pipeline's ``stage_*`` lanes) with wall-clock start/end and thread id, like
+the log-entry instrumentation in the paper, plus named monotonic counters
+(``bytes_copied``).  Exports Chrome ``trace_event`` JSON
+(:meth:`Tracer.dump`) so the Fig. 1 lanes open in Perfetto, and feeds the
 Table-3 busy/idle statistics (:mod:`repro_torch.core.utilization`) and the
 autotuner's windowed views (:meth:`Tracer.recent_spans`,
 :func:`window_summary`).
 """
 from __future__ import annotations
 
+import json
 import threading
 import time
 from contextlib import contextmanager
@@ -21,6 +24,9 @@ GET_BATCH = "get_batch"
 GET_ITEM = "get_item"
 BATCH_TO_DEVICE = "batch_to_device"
 RUN_TRAINING_BATCH = "run_training_batch"
+# cache-subsystem lane: one span per TieredCacheStore GET, tagged with the
+# serving tier (memory | disk | origin)
+CACHE_GET = "cache_get"
 # staged-pipeline lanes (repro_torch.core.pipeline): one span per sample per
 # stage (fetch on the IO executor, decode/augment on the CPU executor) and
 # one collate span per assembled batch
@@ -59,6 +65,7 @@ class Tracer:
         self._max = max_spans
         self._dropped = 0
         self._counters: Dict[str, float] = {}
+        self.t_start = time.monotonic()
 
     def count(self, name: str, n: float = 1) -> None:
         """Bump a named monotonic counter (e.g. :data:`BYTES_COPIED`)."""
@@ -134,6 +141,36 @@ class Tracer:
             return float("nan")
         n = len(ds)
         return ds[n // 2] if n % 2 else 0.5 * (ds[n // 2 - 1] + ds[n // 2])
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counters.clear()
+            self._dropped = 0
+        self.t_start = time.monotonic()
+
+    # -- export ------------------------------------------------------------
+    def to_chrome_trace(self) -> Dict[str, Any]:
+        """Chrome ``trace_event`` form: one complete ("X") event per span,
+        times in microseconds, each thread (or worker pid) its own lane."""
+        events = []
+        for s in self.spans():
+            events.append(
+                {
+                    "name": s.name,
+                    "ph": "X",
+                    "ts": s.t0 * 1e6,
+                    "dur": (s.t1 - s.t0) * 1e6,
+                    "pid": 0,
+                    "tid": s.tid % 1_000_000,
+                    "args": {k: repr(v) for k, v in s.args.items()},
+                }
+            )
+        return {"traceEvents": events}
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_chrome_trace(), f)
 
 
 class _NullTracer(Tracer):

@@ -3,18 +3,23 @@
 ``ObjectStore`` is the minimal S3-like interface (GET/PUT/LIST).  Backends:
 
 * :class:`InMemoryStore`    — dict-backed "scratch" (fast local path).
+* :class:`LocalFSStore`     — directory of files ("scratch" on real disks).
 * :class:`SimulatedS3Store` — wraps any store with a calibrated network
   model: per-GET lognormal latency, per-connection bandwidth, an aggregate
   NIC cap and a bounded connection pool.
+* :class:`CachedStore` / :class:`DiskCacheStore` / :class:`TieredCacheStore`
+  — the cache tiers (Varnish analogue, paper §2.4), implemented in
+  :mod:`repro_torch.data.cache` and re-exported here.
 
 Both sync ``get`` and async ``aget`` are provided; the simulated network
 sleeps with ``time.sleep`` (releases the GIL — I/O-like) or ``asyncio.sleep``.
-The cache tiers of the reference come in a later slice of the port.
+The module imports no ``torch``.
 """
 from __future__ import annotations
 
 import asyncio
 import hashlib
+import os
 import random
 import threading
 import time
@@ -86,6 +91,45 @@ class InMemoryStore(ObjectStore):
                 return len(self._data[key])
             except KeyError:
                 raise KeyNotFound(key) from None
+
+
+class LocalFSStore(ObjectStore):
+    """Directory-of-files store ("scratch" local drives in the paper)."""
+
+    def __init__(self, root: str) -> None:
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+
+    def _path(self, key: str) -> str:
+        safe = key.replace("/", "__")
+        return os.path.join(self.root, safe)
+
+    def get(self, key: str) -> bytes:
+        try:
+            with open(self._path(key), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            raise KeyNotFound(key) from None
+
+    def put(self, key: str, data: bytes) -> None:
+        tmp = self._path(key) + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, self._path(key))
+
+    def list_keys(self, prefix: str = "") -> List[str]:
+        safe_prefix = prefix.replace("/", "__")
+        return sorted(
+            k.replace("__", "/")
+            for k in os.listdir(self.root)
+            if k.startswith(safe_prefix) and not k.endswith(".tmp")
+        )
+
+    def size(self, key: str) -> int:
+        try:
+            return os.path.getsize(self._path(key))
+        except FileNotFoundError:
+            raise KeyNotFound(key) from None
 
 
 @dataclass
@@ -238,12 +282,42 @@ class SimulatedS3Store(ObjectStore):
             return self._stats.snapshot()
 
 
+# ---------------------------------------------------------------------------
+# Caches: implemented in repro_torch.data.cache, re-exported here
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.coord import SharedDiskJournal  # noqa: E402
+from repro_torch.data.cache import (  # noqa: E402, F401  (re-exports)
+    CachedStore,
+    DiskCacheStore,
+    DiskTierCache,
+    MemoryTierCache,
+    TieredCacheStore,
+    make_admission,
+)
+
+# TieredCacheStore implements the full ObjectStore protocol but cannot inherit
+# from it (repro_torch.data.cache must not import this module back)
+ObjectStore.register(TieredCacheStore)
+
+
 def build_store(cfg: StoreConfig, base: Optional[ObjectStore] = None,
-                time_scale: float = 1.0, seed: int = 0) -> ObjectStore:
-    """Assemble the store stack described by a StoreConfig (memory | s3sim)."""
-    if cfg.kind not in ("memory", "s3sim"):
-        raise ValueError(f"unsupported store kind {cfg.kind!r}; known: 'memory', 's3sim'")
-    store: ObjectStore = base if base is not None else InMemoryStore()
+                time_scale: float = 1.0, seed: int = 0,
+                tracer=None) -> ObjectStore:
+    """Assemble the store stack described by a StoreConfig (memory | localfs
+    | s3sim, then the cache tiers of ``cfg.cache``).
+
+    ``tracer`` (a ``repro_torch.core.tracing.Tracer``) makes the cache tiers
+    emit per-GET ``cache_get`` spans.  It must be passed explicitly: the
+    loader never rebinds a store's tracer (the store may be shared by
+    several loaders), so omitting it means no cache spans."""
+    if cfg.kind not in ("memory", "localfs", "s3sim"):
+        raise ValueError(
+            f"unsupported store kind {cfg.kind!r}; known: 'memory', 'localfs', 's3sim'"
+        )
+    if base is None:
+        base = LocalFSStore(cfg.root) if cfg.kind == "localfs" else InMemoryStore()
+    store: ObjectStore = base
     if cfg.kind == "s3sim":
         store = SimulatedS3Store(
             store,
@@ -257,4 +331,48 @@ def build_store(cfg: StoreConfig, base: Optional[ObjectStore] = None,
             time_scale=time_scale,
             overload_penalty=cfg.overload_penalty,
         )
+    cache = cfg.cache
+    if cache.dir and cache.memory_bytes:
+        # both tiers configured: one two-tier store (memory over disk)
+        store = TieredCacheStore(
+            store,
+            memory=MemoryTierCache(cache.memory_bytes, shards=cache.shards),
+            disk=_build_disk_tier(cfg),
+            admission_max_item_bytes=cache.admission_max_item_bytes,
+        )
+    elif cache.dir:
+        store = TieredCacheStore(
+            store,
+            disk=_build_disk_tier(cfg),
+            admission_max_item_bytes=cache.admission_max_item_bytes,
+        )
+    elif cache.memory_bytes:
+        store = CachedStore(store, cache.memory_bytes)
+    if tracer is not None and isinstance(store, TieredCacheStore):
+        store.tracer = tracer
     return store
+
+
+def _build_disk_tier(cfg: StoreConfig) -> DiskTierCache:
+    """Disk tier per StoreConfig.cache, with its multi-host coordination
+    mode (``coord``): "" = private in-process accounting (single host),
+    "journal" = shared byte journal under ``dir/.coord``, "shard" =
+    ``host_shard``-partitioned keyspace (per-host capacity)."""
+    cache = cfg.cache
+    journal = None
+    shard = None
+    if cache.coord == "journal":
+        journal = SharedDiskJournal(cache.dir, cache.disk_bytes)
+    elif cache.coord == "shard":
+        shard = (cache.coord_host_id, cache.coord_num_hosts)
+    elif cache.coord:
+        raise ValueError(
+            f"unknown cache coord {cache.coord!r}; known: '', 'journal', 'shard'"
+        )
+    return DiskTierCache(
+        cache.dir,
+        cache.disk_bytes,
+        make_admission(cache.admission, cache.admission_max_item_bytes),
+        journal=journal,
+        shard=shard,
+    )

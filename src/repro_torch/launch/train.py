@@ -1,13 +1,18 @@
 """End-to-end training launcher.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --full --device-ingest \
-        --items 1024 --batch-size 64 --avg-kb 115 --steps 48 --optimizer sgd
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --full \
+        --device-ingest --items 1024 --batch-size 64 --avg-kb 115 --steps 48 --optimizer sgd
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --full \
+        --device-ingest --items 1024 --batch-size 64 --avg-kb 115 --steps 48 --optimizer sgd \
+        --cache-mb 256
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --device cpu \
         --items 16 --batch-size 4 --seq-len 64 --steps 4 --microbatches 2
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --device-ingest \
-        --items 32 --batch-size 8 --steps 6 --optimizer sgd --pipeline --staging-buffers 2
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --device-ingest \
-        --items 256 --batch-size 8 --steps 64 --optimizer sgd --pipeline --autotune
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
+        --device-ingest --items 32 --batch-size 8 --steps 6 --optimizer sgd --pipeline \
+        --staging-buffers 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
+        --device-ingest --items 256 --batch-size 8 --steps 64 --optimizer sgd --pipeline \
+        --autotune
 
 Wires the stack together: a synthetic dataset in an object store behind
 simulated S3 -> dataset -> ``make_loader`` (the paper's loader, or with
@@ -18,9 +23,12 @@ and prints the paper's Table-3 columns (throughput + accelerator busy
 stats) and, with ``--pipeline``, the per-stage stats at the end.
 ``--autotune`` moves the loader's knobs online between batches (and
 ``--thread-budget N`` co-tunes the pipeline's io/cpu split under N threads);
-``--hedge`` duplicates straggling GETs.
-``--arch resnet18-imagenet`` (default) trains the paper's own model on
-synthetic ImageNet; ``--arch granite-8b`` the dense decoder (or another
+``--hedge`` duplicates straggling GETs.  ``--cache-mb N`` puts an N MiB
+in-memory LRU cache tier (the paper's Varnish analogue) in front of the
+store; the launcher passes no tracer to it, as the reference's does.
+``--arch resnet18-imagenet`` trains the paper's own model on synthetic
+ImageNet; ``--arch granite-8b`` (the default, as the reference's) the
+dense decoder (or another
 registered LM: ``minicpm3-4b`` with MLA, ``granite-moe-3b-a800m`` and
 ``qwen2-moe-a2.7b`` with MoE, ``rwkv6-7b``, the hybrid ``jamba-v0.1-52b``,
 the VLM stub ``internvl2-26b`` with no patch embeddings in its batches) on
@@ -43,6 +51,7 @@ import torch
 
 from repro_torch.config import (
     AutotuneConfig,
+    CacheConfig,
     LoaderConfig,
     ModelConfig,
     PipelineConfig,
@@ -109,7 +118,11 @@ def build_dataset(cfg: ModelConfig, args, tracer: Tracer) -> MapDataset:
     """Materialize a synthetic dataset behind the requested store stack:
     ImageNet-like images for the resnet family, packed token sequences
     otherwise."""
-    scfg = StoreConfig(kind=args.store, latency_mean_s=args.latency)
+    scfg = StoreConfig(
+        kind=args.store,
+        latency_mean_s=args.latency,
+        cache=CacheConfig(memory_bytes=args.cache_mb * 1 << 20),
+    )
     if cfg.family == "resnet":
         base = build_synthetic_imagenet(num_items=args.items, avg_kb=args.avg_kb)
         return ImageDataset(
@@ -124,7 +137,7 @@ def build_dataset(cfg: ModelConfig, args, tracer: Tracer) -> MapDataset:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="resnet18-imagenet")
+    ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -137,6 +150,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seq-len", type=int, default=256, help="tokens per LM sequence")
     ap.add_argument("--store", choices=["memory", "s3sim"], default="s3sim")
     ap.add_argument("--latency", type=float, default=0.02)
+    ap.add_argument("--cache-mb", type=int, default=0,
+                    help="in-memory LRU cache tier in front of the store, in MiB "
+                         "(0 = no cache)")
     ap.add_argument("--loader", choices=["vanilla", "threaded", "asyncio"],
                     default="threaded")
     ap.add_argument("--workers", type=int, default=4)
@@ -172,7 +188,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="co-tune the pipeline io/cpu split (and executor "
                          "kind) as ONE knob under this fixed total width; "
                          "implies --autotune (0 = independent knobs)")
-    ap.add_argument("--optimizer", choices=["adamw", "adafactor", "sgd"], default="adamw")
+    ap.add_argument("--optimizer", default="adamw",
+                    help="adamw, adafactor or sgd (another name raises at make_optimizer)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compression", default="none", choices=["none", "bf16", "int8_ef"])

@@ -22,7 +22,7 @@ import sys
 # chip_smoke's AUTO_ARGS (its MAIN_ARGS at 8192 items, 384 steps, through
 # the pipeline with 4 staging buffers)
 ARGS = [
-    "--full", "--device", "cuda", "--device-ingest",
+    "--arch", "resnet18-imagenet", "--full", "--device", "cuda", "--device-ingest",
     "--items", "8192", "--avg-kb", "115", "--batch-size", "64",
     "--latency", "0.02", "--loader", "threaded", "--workers", "4", "--fetchers", "16",
     "--steps", "384", "--optimizer", "sgd", "--log-every", "128",

@@ -93,6 +93,15 @@ def _make_ring(loader, depth: int, tracer: Tracer, ingest_fn, device) -> DeviceP
     return ring
 
 
+def _release_coordination(loader) -> None:
+    """End-of-run courtesy for multi-host runs: hand back any held up-probe
+    lease and elastic membership slot, so co-located hosts do not wait out
+    the crash TTL."""
+    release = getattr(loader, "release_coordination", None)
+    if callable(release):
+        release()
+
+
 class Trainer:
     def __init__(
         self,
@@ -157,6 +166,7 @@ class Trainer:
             if done:
                 break
         self._hook("on_train_end")
+        _release_coordination(loader)
         return TrainResult(
             steps=self.global_step,
             epochs=epoch + 1,
@@ -196,7 +206,11 @@ def raw_train_loop(
                 history.append(metrics)
                 steps += 1
                 if max_steps is not None and steps >= max_steps:
-                    return TrainResult(steps, epoch + 1, time.time() - t0, metrics, history)
+                    break
         finally:
             ring.close()
+        if max_steps is not None and steps >= max_steps:
+            _release_coordination(loader)
+            return TrainResult(steps, epoch + 1, time.time() - t0, metrics, history)
+    _release_coordination(loader)
     return TrainResult(steps, epochs, time.time() - t0, metrics, history)

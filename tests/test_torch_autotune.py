@@ -900,11 +900,6 @@ def test_build_knobs_functions_match_the_reference():
 
 # the reference's AutotuneConfig fields of features the port lacks
 UNPORTED = {
-    "coord_dir", "coord_ttl_s", "shed_collapse_fraction", "shed_md_factor",
-    "shed_hold_windows", "shed_recover_windows", "shed_min_interval_s",  # item 5.2
-    "tune_cache", "min_memory_cache_bytes", "max_memory_cache_bytes",
-    "min_disk_cache_bytes", "max_disk_cache_bytes", "tune_admission",
-    "cache_cadence", "cache_epoch_windows",  # item 5.1
     "min_slab_slots", "max_slab_slots",  # item 5.4
     "skew_gate",  # item 7
     "min_hedge_delay_ms", "max_hedge_delay_ms", "min_coalesce_ms", "max_coalesce_ms",

@@ -124,6 +124,59 @@ def test_pipeline_flags_take_the_reference_defaults():
         f: getattr(ref, f) for f in PIPELINE_FLAGS.values()}
 
 
+class _Parsed(Exception):
+    """Carries the ArgumentParser a launcher's ``main`` built."""
+
+    def __init__(self, parser):
+        super().__init__("parser built")
+        self.parser = parser
+
+
+def _flags(parser):
+    """Each option flag of ``parser``: its default and choices."""
+    return {a.option_strings[0]: (a.default, None if a.choices is None else list(a.choices))
+            for a in parser._actions if a.option_strings and a.dest != "help"}
+
+
+def _reference_parser(monkeypatch, main):
+    import argparse
+
+    def capture(self, *a, **kw):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed) as parsed:
+        main()
+    monkeypatch.undo()
+    return parsed.value.parser
+
+
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_shared_flags_take_the_reference_defaults_and_choices(monkeypatch, launcher):
+    """Every flag both launchers have takes the reference's default and
+    choices, for training and serving: ``--arch`` defaults to granite-8b in
+    both (pass ``--arch resnet18-imagenet`` for the paper's ResNet),
+    ``--cache-mb`` to 0, and ``--optimizer`` takes any name, as the
+    reference's does (an unknown one raises in ``make_optimizer``)."""
+    import importlib
+
+    port_mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    ref_mod = importlib.import_module(f"repro.launch.{launcher}")
+    ref = _flags(_reference_parser(monkeypatch, ref_mod.main))
+    port = _flags(_reference_parser(monkeypatch, lambda: port_mod.parse_args([])))
+    shared = sorted(set(ref) & set(port))
+    assert {f: port[f] for f in shared} == {f: ref[f] for f in shared}
+    assert "--arch" in shared and port["--arch"][0] == "granite-8b"
+    assert launch.parse_args([]).arch == "granite-8b"
+    if launcher == "train":
+        assert {"--cache-mb", "--optimizer", "--store", "--pipeline"} <= set(shared)
+        # the reference's flags the port lacks come with later items
+        assert set(ref) - set(port) == {"--transport", "--delivery", "--delivery-axis",
+                                        "--ckpt-dir", "--ckpt-every", "--resume"}
+    else:
+        assert set(ref) <= set(port)
+
+
 @pytest.mark.parametrize("flags", [
     ["--pipeline", "--transport", "shm"],
     ["--delivery", "sharded"],
@@ -154,21 +207,42 @@ def _loader_config(monkeypatch, module, call):
     return built.value.cfg
 
 
-@pytest.mark.parametrize("flags", [["--hedge"], ["--autotune"], ["--thread-budget", "4"]])
+@pytest.mark.parametrize("flags", [["--hedge"], ["--autotune"], ["--thread-budget", "4"],
+                                   ["--cache-mb", "4"]])
 def test_launcher_flags_build_the_reference_loader_config(monkeypatch, flags):
-    """``--hedge``, ``--autotune`` and ``--thread-budget N`` reach the loader
-    as the reference's launcher passes them: ``hedge_requests``, and an
-    ``AutotuneConfig`` enabled by either autotune flag, with the budget."""
+    """``--hedge``, ``--autotune``, ``--thread-budget N`` and ``--cache-mb N``
+    reach the loader and the store as the reference's launcher passes them:
+    ``hedge_requests``, an ``AutotuneConfig`` enabled by either autotune
+    flag, with the budget, and a ``StoreConfig`` whose ``CacheConfig`` holds
+    an N MiB memory tier (no tracer handed to the store, in either)."""
     import sys
 
     from repro.launch import train as jax_launch
 
+    stores = {}
+
+    def recording(module, side):
+        real = module.build_store
+
+        def build(cfg, *a, **kw):
+            stores.setdefault(side, []).append((cfg, kw.get("tracer")))
+            return real(cfg, *a, **kw)
+
+        monkeypatch.setattr(module, "build_store", build)
+
+    recording(launch, "port")
+    recording(jax_launch, "reference")
     argv = ["--arch", "resnet18-imagenet", "--items", "8", "--batch-size", "4",
             "--store", "memory", "--pipeline", "--workers", "2", "--fetchers", "2"] + flags
     port = _loader_config(monkeypatch, launch,
                           lambda: launch.run(argv + ["--device", "cpu"]))
     monkeypatch.setattr(sys, "argv", ["train"] + argv)
     ref = _loader_config(monkeypatch, jax_launch, jax_launch.main)
+    (pstore, ptracer), = stores["port"]
+    (rstore, rtracer), = stores["reference"]
+    assert ptracer is None and rtracer is None
+    assert dataclasses.asdict(pstore) == dataclasses.asdict(rstore)
+    assert pstore.cache.memory_bytes == (4 << 20 if flags[0] == "--cache-mb" else 0)
     fields = ("impl", "batch_size", "num_workers", "num_fetch_workers", "seed",
               "hedge_requests", "hedge_factor", "hedge_min_s")
     assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}
@@ -177,7 +251,7 @@ def test_launcher_flags_build_the_reference_loader_config(monkeypatch, flags):
         f: getattr(ref.autotune, f) for f in ported}
     assert port.pipeline.enabled and ref.pipeline.enabled
     assert port.hedge_requests is (flags[0] == "--hedge")
-    assert port.autotune.enabled is (flags[0] != "--hedge")
+    assert port.autotune.enabled is (flags[0] in ("--autotune", "--thread-budget"))
     assert port.autotune.thread_budget == (4 if flags[0] == "--thread-budget" else 0)
     assert launch.parse_args(argv).hedge is (flags[0] == "--hedge")
 

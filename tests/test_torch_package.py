@@ -99,12 +99,16 @@ print("torch" in sys.modules)
 @pytest.mark.parametrize("module", ["repro_torch.core.pipeline", "repro_torch.core.staging",
                                     "repro_torch.core.loader", "repro_torch.core.factory",
                                     "repro_torch.core.autotune",
+                                    "repro_torch.core.coord", "repro_torch.core.elastic",
+                                    "repro_torch.data.cache", "repro_torch.data.store",
                                     "repro_torch.data.dataset",
                                     "repro_torch.data.imagenet_synth"])
 def test_loader_module_imports_without_torch(module):
     """A spawned CPU worker of the staged pipeline imports these modules
-    (and unpickles the dataset); none of them may pull in torch, which
-    would cost each worker torch's import and risk a CUDA context."""
+    (and unpickles the dataset), and a spawned elastic member or cache
+    writer imports the coordination layer; none of them may pull in torch,
+    which would cost each process torch's import and risk a CUDA
+    context."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_NO_TORCH, str(ROOT / "src"), module],
                          capture_output=True, text=True, env=env, timeout=120, check=False)
