@@ -76,6 +76,35 @@ Phases, each printing one JSON line:
    gated on the members' claims covering the epoch exactly once, every
    card batch matching the u8 bytes of the items it claimed, and an empty
    membership board once both left.
+6e. main_formats — the loader's data plane and its serving mirror: (a)
+   main_pipeline's process-executor cell through the launcher with
+   ``--transport shm`` (1 MiB slots, as many a worker slab as fit in half
+   of /dev/shm's free bytes, printed, at most 32 and at least 8): items/s
+   of each epoch beside the pipe transport's run, the transport's samples,
+   fallbacks by reason, fallback rate, bytes copied a sample and slab
+   peak; gated on main_pipeline (a)'s gates, samples through the slab, no
+   oversize or ragged fallback, fewer bytes copied a sample than the pipe
+   run, no torch mapped in the CPU workers and no segment left under
+   /dev/shm after the loader closes.  (b) 128 items at full image size
+   through ``make_loader`` (2 process workers): the shm transport's device
+   stream (main_autotune's digest) equals the pipe transport's and the
+   thread executor's, again with every worker armed to die mid slab write
+   (crashes and respawns seen) and with the slab cap set to 8 mid-epoch;
+   samples augmented without torch.  (c) 2048 items converted to a
+   label-clustered columnar store behind s3sim, full-width ResNet-18
+   trained 3 epochs under ``label < 250`` (about a quarter of the rows):
+   the device stream equals the row store's with the rejected rows removed,
+   a filtered epoch moves at most half the origin bytes of an unfiltered
+   epoch drained on the host, launches equal batches moved.  (d) main's
+   1024 items as 16 tar shards of 64 behind s3sim, 2 epochs of one
+   full-width SGD step a batch of 64 (host-normalized f32: no
+   ``ingest_norm``): 16 GETs an epoch, each epoch's labels the store's,
+   every member the bytes of its item.  (e) benchmarks/bench_serve.py's
+   trace at its quick sizes, uncoalesced and through the read path, over a
+   memory and a disk tier in front of s3sim: interactive p50 / p99 / p999
+   of each; gated on one primary fetch a key a coalesce window, the disk
+   tier within its bound at every 50 ms sample, the scraper within its
+   byte budget, every payload the store's.  Host only; no kernel runs.
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
@@ -87,7 +116,8 @@ Phases, each printing one JSON line:
 9. model_rwkv — two AdamW steps of the rwkv6-7b smoke model on the card
    against the CPU (fp32, TF32 off).
 10. main_rwkv — the RWKV path: full-width rwkv6-7b (depth cut to 4 layers)
-   trained from simulated S3 through the launcher, then 4 loader batches
+   trained 8 steps over 16 sequences from simulated S3 through the
+   launcher, then 4 loader batches
    walked through the trained blocks, each layer's time-mix run through
    the WKV kernel (``wkv_impl``) beside the plain chunked scan; the kernel
    gated on the real r, k, v, w, and RMSNorm on a real residual.
@@ -163,7 +193,9 @@ Phases, each printing one JSON line:
 
 Launch counts are set to 0 just before each main path and read just after
 (for main_pipeline and main_autotune, around each launcher run; for main_cache, around
-each launcher run and each training run of (b) and (c); for main_rwkv, before and
+each launcher run and each training run of (b) and (c); for main_formats, around
+its launcher run (a), each device stream of (b) and the training run of (c);
+for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
 again around (d); for main_mla, main_moe and main_hybrid, around each
 launcher run, and for main_hybrid around its flash eval (k); for
@@ -271,11 +303,16 @@ FLASH_Q, FLASH_KV = (LM_BS, 32, LM_SEQ, 128), (LM_BS, 8, LM_SEQ, 128)
 
 # The RWKV path: rwkv6-7b at full width, depth cut to 4 of its 32 layers
 # (32 layers are 7.53 B parameters, about 120 GB with fp32 AdamW state),
-# with main_lm's loader settings, sequences, batch and steps.
+# with main_lm's loader settings, sequences and batch; 8 steps over 16
+# sequences (4 batches an epoch, so the steps still cross an epoch
+# boundary): its host-bound steps (3.4-5.5 s each) are the script's first
+# cut when the whole run nears its time budget.
 RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b-4l", 4
-RWKV_ARGS = [a if a != LM_ARCH else RWKV_ARCH for a in LM_ARGS]
+RWKV_ITEMS, RWKV_STEPS = 16, 8
+RWKV_ARGS = with_values([a if a != LM_ARCH else RWKV_ARCH for a in LM_ARGS],
+                        items=RWKV_ITEMS, steps=RWKV_STEPS)
 RWKV_REDUCED = {"num_layers": "32 -> 4 (AdamW state of 32 layers does not fit one card)",
-                "items": "32 packed sequences of 4097 tokens", "steps": 16}
+                "items": "16 packed sequences of 4097 tokens", "steps": RWKV_STEPS}
 # the WKV kernel at the path's shape: r, k, v, w (B,S,H,D) fp32, 64 heads of 64
 WKV_SHAPE = (LM_BS, LM_SEQ, 64, 64)
 WKV_CHUNK = 32  # the chunk of the plain scan, for the underflow readings
@@ -1055,7 +1092,7 @@ def phase_main_pipeline(torch, ops, legacy: dict, smi: str) -> dict:
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     main, _ = pipeline_run(torch, ops, PIPE_ARGS, "pipeline")
-    proc_run, _ = pipeline_run(torch, ops, PROC_ARGS, "pipeline_process")
+    proc_run, proc_report = pipeline_run(torch, ops, PROC_ARGS, "pipeline_process")
     out = {
         "phase": "main_pipeline", "nvidia_smi": smi, "args": PIPE_ARGS,
         "ingest_norm_launches": main["ingest_norm_launches"],
@@ -1066,6 +1103,14 @@ def phase_main_pipeline(torch, ops, legacy: dict, smi: str) -> dict:
             r["label"]: {k: v["median_ms"] for k, v in r["spans"].items()}
             for r in (main, proc_run)},
         "queues_last_epoch": {r["label"]: r["queues_per_epoch"][-1] for r in (main, proc_run)},
+        # the pipe transport's figures, which main_formats (a) is compared with
+        "process_run": {
+            "items_per_s": proc_run["items_per_s"],
+            "items_per_s_per_epoch": epoch_rates(proc_report.tracer, MAIN_PER_EPOCH),
+            "bytes_copied": proc_run["bytes_copied"],
+            "samples": sum(st["transport"]["pipe_samples"] + st["transport"]["shm_samples"]
+                           for st in proc_report.stages if st.get("transport")),
+            "transport": transport_totals(proc_report.stages)},
     }
     emit(out)
 
@@ -1942,6 +1987,721 @@ def phase_main_cache(torch, ops, legacy: dict, smi: str) -> dict:
     return out
 
 
+# main_formats: the loader's data plane on the ResNet path and its serving
+# mirror.  (a) main's process-executor cell (PROC_ARGS) with the shared-memory
+# transport, through the launcher: 1 MiB slots, as many a worker slab as fit
+# in half of /dev/shm's free bytes, at most PipelineConfig's 32 and at least
+# 8.  (b) the same transport through make_loader at full image size, 128
+# items at batch 32 over 2 workers: its device stream against the pipe's and
+# the thread executor's, then with every worker crashed mid slab write, then
+# with the slab cap set to 8 mid-epoch.  (c) 2048 items converted to a
+# columnar store (label-clustered, a chunk a row) behind s3sim, trained 3
+# epochs under the reference benchmark's 25 %-selectivity predicate
+# (benchmarks/bench_columnar.py:59), beside one unfiltered epoch drained on
+# the host.  (d) main's 1024 items as 16 tar shards of 64 behind s3sim, 2
+# epochs of one step a batch.  (e) benchmarks/bench_serve.py's trace at its
+# quick sizes, both of its cells, over a memory tier and a disk tier under
+# build/ in front of s3sim.
+FORMATS_SLOT_BYTES = 1 << 20
+FORMATS_MAX_SLOTS, FORMATS_MIN_SLOTS = 32, 8
+SHM_ARGS = PROC_ARGS + ["--transport", "shm"]
+SHM_LAUNCHER_WORKERS = 4  # PipelineConfig's cpu_workers 0 derives 4
+SHM_ITEMS, SHM_BS, SHM_WORKERS, SHM_CAP, SHM_CAP_AFTER = 128, 32, 2, 8, 1
+COL_ITEMS, COL_EPOCHS = 2048, 3
+COL_PREDICATE = (("label", "<", 250),)
+COL_BYTES_RATIO = 0.5  # bench_columnar's own claim (benchmarks/bench_columnar.py:221-224)
+SHARD_ITEMS, SHARD_PER, SHARD_EPOCHS = 1024, 64, 2
+FORMATS_DIR = ROOT / "build" / "chip_smoke_formats"
+# bench_serve's quick scale (the full one replays 10 s a cell over 512
+# items; the phase's budget takes the quick one)
+READ = {"items": 256, "duration_s": 6.0, "base_rate": 50.0, "bursts": 3,
+        "burst_size": 64, "zipf_alpha": 1.1, "mem_bytes": 1536 * 1024,
+        "disk_bytes": 4 * 1024 * 1024, "scrape_rate": 384 * 1024.0,
+        "scrape_burst": 192 * 1024, "latency_mean_s": 0.02, "latency_sigma": 0.5,
+        "bandwidth_per_conn": 50e6, "nic_bandwidth": 1.2e9, "max_connections": 256}
+READ_MAX_OBJ, READ_CLIENTS, READ_SCRAPERS = 48 * 1024, 64, 2
+READ_REDUCED = {"items": "512 -> 256", "duration_s": "10 -> 6", "bursts": "5 -> 3"}
+
+
+def dev_shm_slots(workers: int) -> dict:
+    """1 MiB slots a worker slab: as many as let ``workers`` slabs fill at
+    most half of /dev/shm's free bytes, capped at PipelineConfig's 32; a
+    write past a short /dev/shm is a SIGBUS in the worker, so fewer than 8
+    fails the phase."""
+    import os
+
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    slots = min(FORMATS_MAX_SLOTS, free // 2 // (workers * FORMATS_SLOT_BYTES))
+    out = {"dev_shm_free_bytes": free, "workers": workers,
+           "slot_bytes": FORMATS_SLOT_BYTES, "slab_slots": slots,
+           "slab_bytes_all_workers": slots * workers * FORMATS_SLOT_BYTES}
+    emit({"phase": "main_formats", "check": "dev_shm", **out})
+    if slots < FORMATS_MIN_SLOTS:
+        fail(f"/dev/shm holds {free} free bytes: fewer than {FORMATS_MIN_SLOTS} slots of "
+             f"{FORMATS_SLOT_BYTES} bytes a worker fit in half of it for {workers} workers")
+    return out
+
+
+class SlabSlots:
+    """For the launcher runs inside it, gives the loader config the launcher
+    builds ``slots`` slots a worker slab (the launcher has no flag for it, as
+    the reference's has none)."""
+
+    def __init__(self, slots: int) -> None:
+        self.slots = slots
+
+    def __enter__(self) -> "SlabSlots":
+        from dataclasses import replace
+
+        from repro_torch.launch import train as launch
+
+        self.mod, self.make = launch, launch.make_loader
+        make, slots = self.make, self.slots
+
+        def sized(cfg, dataset, **kw):
+            return make(replace(cfg, pipeline=replace(cfg.pipeline, slab_slots=slots)),
+                        dataset, **kw)
+
+        launch.make_loader = sized
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.make_loader = self.make
+
+
+def maps_torch(pid: int) -> bool:
+    """Whether process ``pid`` has torch's shared library mapped (an
+    ``import torch`` loads it)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in line for line in f)
+
+
+def segments_left(names: list) -> list:
+    """Those of ``names`` (shared-memory segments) still under /dev/shm."""
+    import os
+
+    return [n for n in names if os.path.exists(os.path.join("/dev/shm", n.lstrip("/")))]
+
+
+def transport_totals(stages: list) -> dict:
+    """Each epoch's ``stage_stats()["transport"]`` summed over the run."""
+    rows = [st["transport"] for st in stages if st.get("transport")]
+    fallbacks: dict = {}
+    for r in rows:
+        for why, n in r["fallbacks"].items():
+            fallbacks[why] = fallbacks.get(why, 0) + n
+    shm = sum(r["shm_samples"] for r in rows)
+    pipe = sum(r["pipe_samples"] for r in rows)
+    return {"kind": rows[-1]["kind"] if rows else None, "shm_samples": shm,
+            "pipe_samples": pipe, "fallbacks": fallbacks,
+            "fallback_rate": sum(fallbacks.values()) / (shm + pipe) if shm + pipe else 0.0,
+            "transport_bytes_copied": sum(r["bytes_copied"] for r in rows),
+            "slab_slots": rows[-1].get("slab_slots") if rows else None,
+            "slots_peak_per_worker": max((r.get("slots_peak_per_worker", 0) for r in rows),
+                                         default=0)}
+
+
+class PoolWatch:
+    """For the runs inside it, records at each process pool's ``close`` (the
+    launcher closes its loader after the run) the live workers' pids,
+    whether each has torch mapped, and the names of every slab the pool
+    made, retired ones included."""
+
+    def __enter__(self) -> "PoolWatch":
+        from repro_torch.core.pipeline import _CPUProcessPool
+
+        self.cls, self.close = _CPUProcessPool, _CPUProcessPool.close
+        self.pids, self.torch_mapped, self.names = [], [], []
+        watch = self
+
+        def close(pool):
+            pids = [w.proc.pid for w in pool.workers]
+            watch.pids += pids
+            watch.torch_mapped += [maps_torch(pid) for pid in pids]
+            watch.names += [sl.name for sl in pool._slabs]
+            return watch.close(pool)
+
+        _CPUProcessPool.close = close
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.close = self.close
+
+
+def shm_launcher_check(torch, ops, pipe_proc: dict, slots: int, smi: str) -> dict:
+    """(a) main's process-executor cell with ``--transport shm`` through the
+    launcher, every gate of main_pipeline (a) held too."""
+    with SlabSlots(slots), PoolWatch() as watch:
+        run, report = pipeline_run(torch, ops, SHM_ARGS, "pipeline_shm")
+    pids, torch_mapped, names = watch.pids, watch.torch_mapped, watch.names
+    left = segments_left(names)
+    tr = transport_totals(report.stages)
+    samples = tr["shm_samples"] + tr["pipe_samples"]
+    per_sample = run["bytes_copied"] / samples if samples else None
+    pipe_per_sample = (pipe_proc["bytes_copied"] / pipe_proc["samples"]
+                       if pipe_proc["samples"] else None)
+    out = {"phase": "main_formats", "check": "a_shm_launcher", "nvidia_smi": smi,
+           "args": SHM_ARGS, "slab_slots": slots,
+           "items_per_s_per_epoch": {"pipe_process": pipe_proc["items_per_s_per_epoch"],
+                                     "shm_process": epoch_rates(report.tracer,
+                                                                MAIN_PER_EPOCH)},
+           "items_per_s": {"pipe_process": pipe_proc["items_per_s"],
+                           "shm_process": run["items_per_s"]},
+           "transport": tr, "transport_per_epoch": [st.get("transport") for st in report.stages],
+           "bytes_copied_per_sample": {"pipe_process": pipe_per_sample,
+                                       "shm_process": per_sample},
+           "ingest_norm_launches": run["ingest_norm_launches"],
+           "batches_transferred": run["batches_transferred"],
+           "busy_fraction": run["busy_fraction"],
+           "worker_pids": pids, "workers_with_torch_mapped": sum(torch_mapped),
+           "slab_segments": len(names), "segments_left_after_close": left}
+    emit(out)
+    if tr["kind"] != "shm" or tr["shm_samples"] <= 0:
+        fail(f"(a) the shm transport moved no sample: {tr}")
+    if tr["fallbacks"].get("oversize", 0) or tr["fallbacks"].get("ragged", 0):
+        fail(f"(a) oversize or ragged fallbacks for 150,528-byte samples: {tr['fallbacks']}")
+    if per_sample is None or pipe_per_sample is None or per_sample >= pipe_per_sample:
+        fail(f"(a) bytes copied a sample {per_sample} not under the pipe run's "
+             f"{pipe_per_sample}")
+    if not pids or any(torch_mapped):
+        fail(f"(a) CPU workers {pids} with torch mapped: {torch_mapped}")
+    if left:
+        fail(f"(a) segments left under /dev/shm after close: {left}")
+    return out
+
+
+class Capping:
+    """Iterates ``loader`` and sets its slab cap (the slab knob's setter) to
+    ``cap`` after batch ``after``, on the consumer's thread between batches,
+    as the autotuner does."""
+
+    def __init__(self, loader, after: int, cap: int) -> None:
+        self.loader, self.after, self.cap, self.applied = loader, after, cap, None
+
+    def __iter__(self):
+        it = iter(self.loader)
+        for i, batch in enumerate(it):
+            yield batch
+            if i == self.after:
+                self.applied = it._set_slab_slots(self.cap)
+
+
+def arm_every_worker(it) -> int:
+    """Arms the mid-slab-write crash in every worker of the iterator's pool
+    as soon as the pump has spawned them, so each dies on its first task
+    sent after the message; returns the workers armed."""
+    pool = it.cpu.pool
+    deadline = time.monotonic() + 60
+    while len(pool.workers) < it.cpu.width:
+        if time.monotonic() > deadline:
+            fail(f"(b) the pool spawned {len(pool.workers)} of {it.cpu.width} workers")
+        time.sleep(0.001)
+    for i in range(len(pool.workers)):
+        pool.inject_crash(mode="mid_slab_write", worker=i)
+    return len(pool.workers)
+
+
+def shm_stream_check(torch, ops, slots: int, smi: str) -> dict:
+    """(b) The device stream of the shm transport at full image size against
+    the pipe's and the thread executor's (main_autotune's digest, taken on
+    the card before ingest_norm), then with every worker crashed mid slab
+    write, then with the slab cap set mid-epoch; each sample says whether
+    torch was loaded where it was augmented, and no loader leaves a segment
+    behind."""
+    from repro_torch.config import LoaderConfig, PipelineConfig, StoreConfig
+    from repro_torch.core import make_loader
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.data.store import build_store
+    from repro_torch.kernels.ingest_norm.ops import make_ingest_fn
+
+    ingest = make_ingest_fn()
+    base = build_synthetic_imagenet(num_items=SHM_ITEMS, avg_kb=115.0)
+
+    def loader(executor: str, transport: str = "pipe"):
+        store = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02), base=base)
+        data = ImageDataset(store, SHM_ITEMS, out_size=224, sim_decode_s_per_mb=0.052,
+                            epilogue="device")
+        return make_loader(LoaderConfig(
+            impl="threaded", batch_size=SHM_BS, num_workers=4, num_fetch_workers=16, seed=0,
+            pipeline=PipelineConfig(enabled=True, cpu_executor=executor,
+                                    cpu_workers=SHM_WORKERS, transport=transport,
+                                    slab_slots=slots, staging_buffers=2)),
+            ModulesProbe(data))
+
+    runs, digests = {}, {}
+    for label, executor, transport in (("thread", "thread", "pipe"),
+                                       ("pipe", "process", "pipe"),
+                                       ("shm", "process", "shm"),
+                                       ("shm_crash", "process", "shm"),
+                                       ("shm_cap", "process", "shm")):
+        ld = loader(executor, transport)
+        src, armed, capping = ld, None, None
+        try:
+            if label == "shm_crash":
+                src = iter(ld)
+                armed = arm_every_worker(src)
+            elif label == "shm_cap":
+                src = capping = Capping(ld, SHM_CAP_AFTER, SHM_CAP)
+            ops.ingest_norm.launches = 0
+            with DeviceDigest() as dig:
+                batches = device_stream(torch, src, ingest, Tracer())
+            launches = ops.ingest_norm.launches
+            digests[label] = dig.digests(torch)
+            stats = ld.stage_stats()
+            pool = ld._cpu_pool
+            names = [s.name for s in pool._slabs] if pool is not None else []
+        finally:
+            ld.close()
+        loaded = sorted({bool(x) for b in batches for x in b["torch_loaded"].tolist()})
+        runs[label] = {"batches": len(batches), "ingest_norm_launches": launches,
+                       "transport": stats.get("transport"), "cpu_pool": stats.get("cpu_pool"),
+                       "torch_in_sys_modules": loaded, "armed_workers": armed,
+                       "cap_applied": capping.applied if capping else None,
+                       "slab_segments": len(names), "segments_left": segments_left(names)}
+        del batches
+    want = digests["thread"]
+    out = {"phase": "main_formats", "check": "b_shm_stream", "nvidia_smi": smi,
+           "items": SHM_ITEMS, "batch": SHM_BS, "workers": SHM_WORKERS, "slab_slots": slots,
+           "cap": SHM_CAP, "cap_after_batch": SHM_CAP_AFTER,
+           "streams_equal_thread": {k: v == want for k, v in digests.items()},
+           "runs": runs,
+           "ingest_norm_launches": sum(r["ingest_norm_launches"] for r in runs.values()),
+           "batches_transferred": sum(r["batches"] for r in runs.values())}
+    emit(out)
+    n = SHM_ITEMS // SHM_BS
+    for label, r in runs.items():
+        if r["batches"] != n or digests[label] != want:
+            fail(f"(b) {label}: {r['batches']} batches, stream equal to the thread "
+                 f"executor's: {digests[label] == want}")
+        if r["ingest_norm_launches"] != r["batches"]:
+            fail(f"(b) {label}: ingest_norm launched {r['ingest_norm_launches']} times for "
+                 f"{r['batches']} batches")
+        if r["segments_left"]:
+            fail(f"(b) {label}: segments left after close: {r['segments_left']}")
+        want_loaded = [True] if label == "thread" else [False]
+        if r["torch_in_sys_modules"] != want_loaded:
+            fail(f"(b) {label}: torch in sys.modules where samples were augmented: "
+                 f"{r['torch_in_sys_modules']}")
+        if label.startswith("shm") and not r["transport"]["shm_samples"]:
+            fail(f"(b) {label}: no sample took the slab: {r['transport']}")
+    crash = runs["shm_crash"]["cpu_pool"]
+    if crash["crashes"] < 1 or crash["respawns"] < 1:
+        fail(f"(b) the armed crash never fired: {crash}")
+    if runs["shm_cap"]["cap_applied"] != min(SHM_CAP, slots):
+        fail(f"(b) the slab cap was not applied: {runs['shm_cap']['cap_applied']}")
+    return out
+
+
+def columnar_check(torch, ops, base, labels: list, smi: str) -> dict:
+    """(c) Full-width ResNet-18 trained 3 epochs from a columnar store behind
+    s3sim under a 25 %-selectivity predicate: its device stream against the
+    row store's with the rejected rows removed, its origin bytes an epoch
+    against one unfiltered epoch's."""
+    import numpy as np
+
+    from repro_torch.config import LoaderConfig, SamplerPredicate, StoreConfig
+    from repro_torch.core import make_loader
+    from repro_torch.core.sampler import ShardedBatchSampler
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.data.columnar import ColumnarImageDataset, ColumnarStore, convert_store
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.store import InMemoryStore, build_store
+    from repro_torch.train.trainer import Callback
+
+    class EpochBytes(Callback):
+        """Keeps the origin store's bytes read and GETs at every epoch's end."""
+
+        def __init__(self, store) -> None:
+            self.store, self.rows = store, []
+
+        def on_epoch_end(self, trainer, epoch: int) -> None:
+            st = self.store.stats
+            self.rows.append((st.bytes_read, st.gets))
+
+    t0 = time.perf_counter()
+    col_base = InMemoryStore()
+    shards = convert_store(base, COL_ITEMS, ColumnarStore(col_base))  # cluster_by="label"
+    convert_s = time.perf_counter() - t0
+
+    def dataset():
+        s3 = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02), base=col_base)
+        return s3, ColumnarImageDataset(ColumnarStore(s3), COL_ITEMS, out_size=224,
+                                        sim_decode_s_per_mb=0.052, epilogue="device")
+
+    def config(**kw):
+        return LoaderConfig(impl="threaded", batch_size=MAIN_BS, num_workers=4,
+                            num_fetch_workers=16, seed=0, **kw)
+
+    s3, ds = dataset()
+    mask = ds.predicate_mask(COL_PREDICATE)  # the footers: the index's only GETs
+    footer_bytes, footer_gets = s3.stats.bytes_read, s3.stats.gets
+    tracer, watch = Tracer(), EpochBytes(s3)
+    loader = make_loader(config(sampler=SamplerPredicate(clauses=COL_PREDICATE)), ds,
+                         tracer=tracer)
+    ops.ingest_norm.launches = 0
+    with DeviceDigest() as dig:
+        result = tier_train(torch, loader, tracer, COL_EPOCHS, callbacks=[watch])
+    launches = ops.ingest_norm.launches
+    got = dig.digests(torch)
+    rows, prev = [], (footer_bytes, footer_gets)
+    for r in watch.rows:
+        rows.append({"bytes": r[0] - prev[0], "gets": r[1] - prev[1]})
+        prev = r
+    losses = [h["loss"] for h in result.history]
+
+    # the row store's stream with the rejected rows removed, on the host
+    keep = np.asarray(labels[:COL_ITEMS]) < COL_PREDICATE[0][2]
+    rows_ds = ImageDataset(base, COL_ITEMS, out_size=224, epilogue="device")
+    sampler = ShardedBatchSampler(COL_ITEMS, MAIN_BS, shuffle=True, seed=0)
+    want = []
+    for e in range(COL_EPOCHS):
+        sampler.set_epoch(e)
+        rows_ds.set_epoch(e)
+        order = [i for b in sampler for i in b.indices if keep[i]]
+        for lo in range(0, len(order) - MAIN_BS + 1, MAIN_BS):
+            want.append(host_digest([rows_ds[i] for i in order[lo:lo + MAIN_BS]]))
+
+    # one unfiltered epoch drained on the host: the yardstick for bytes
+    s3_all, ds_all = dataset()
+    t1 = time.perf_counter()
+    drained = sum(1 for _ in make_loader(config(), ds_all))
+    drain_s = time.perf_counter() - t1
+    unfiltered = s3_all.stats.bytes_read
+    filtered = footer_bytes + max(r["bytes"] for r in rows)
+    out = {"phase": "main_formats", "check": "c_columnar", "nvidia_smi": smi,
+           "items": COL_ITEMS, "predicate": COL_PREDICATE, "shards": shards,
+           "convert_s": convert_s, "rows_kept": int(mask.sum()),
+           "rows_kept_row_store": int(keep.sum()),
+           "batches_an_epoch": int(mask.sum()) // MAIN_BS, "steps": result.steps,
+           "items_per_s_per_epoch": epoch_rates(tracer, int(mask.sum()) // MAIN_BS),
+           "origin_per_epoch": rows, "footer_bytes": footer_bytes, "footer_gets": footer_gets,
+           "unfiltered_epoch": {"batches": drained, "bytes": unfiltered,
+                                "gets": s3_all.stats.gets, "wall_s": drain_s},
+           "bytes_ratio": filtered / unfiltered if unfiltered else None,
+           "stream_equal_row_store": got == want, "device_batches": len(got),
+           "row_store_batches": len(want), "ingest_norm_launches": launches,
+           "batches_transferred": len(got),
+           "first_loss": losses[0] if losses else None,
+           "last_loss": losses[-1] if losses else None}
+    emit(out)
+    if not np.array_equal(mask, keep):
+        fail("(c) the columnar predicate mask differs from the row store's labels")
+    if got != want or not got:
+        fail(f"(c) the filtered stream ({len(got)} batches) differs from the row store's "
+             f"with the rejected rows removed ({len(want)} batches)")
+    if out["bytes_ratio"] is None or out["bytes_ratio"] > COL_BYTES_RATIO:
+        fail(f"(c) a filtered epoch moved {out['bytes_ratio']} of an unfiltered one's bytes")
+    if launches != len(got):
+        fail(f"(c) ingest_norm launched {launches} times for {len(got)} batches")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"(c) non-finite loss: {losses}")
+    return out
+
+
+def shards_check(torch, base, labels: list, smi: str) -> dict:
+    """(d) Full-width ResNet-18, one SGD step a batch of 64, fed from tar
+    shards streamed from s3sim; the dataset emits host-normalized f32, so no
+    ingest_norm runs here."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    from repro_torch.config import StoreConfig, TrainConfig, get_arch
+    from repro_torch.data.dataset import collate
+    from repro_torch.data.imagenet_synth import item_key
+    from repro_torch.data.shards import ShardedIterableDataset, write_shards
+    from repro_torch.data.store import InMemoryStore, build_store
+    from repro_torch.train.steps import init_resnet_train_state, make_resnet_train_step
+
+    keys = [item_key(i) for i in range(SHARD_ITEMS)]
+    shard_base = InMemoryStore()
+    shard_keys = write_shards(base, shard_base, keys, items_per_shard=SHARD_PER)
+    members = []
+    for sk in shard_keys:
+        with tarfile.open(fileobj=io.BytesIO(shard_base.get(sk)), mode="r") as tar:
+            members += [(m.name, tar.extractfile(m).read()) for m in tar.getmembers()]
+    members_ok = ([n for n, _ in members] == [k.replace("/", "__") for k in keys]
+                  and all(d == base.get(k) for (_, d), k in zip(members, keys, strict=True)))
+    s3 = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02), base=shard_base)
+    ds = ShardedIterableDataset(s3, shard_keys, out_size=224)
+    cfg, tcfg = get_arch("resnet18-imagenet"), TrainConfig(optimizer="sgd")
+    state = init_resnet_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_resnet_train_step(cfg, tcfg)
+    want = sorted(labels[:SHARD_ITEMS])
+    epochs, losses = [], []
+    for e in range(SHARD_EPOCHS):
+        ds.set_epoch(e)
+        gets0, buf, seen, steps = s3.stats.gets, [], [], 0
+        t0 = time.perf_counter()
+        for item in ds:
+            buf.append(item)
+            seen.append(int(item["label"]))
+            if len(buf) == MAIN_BS:
+                b = collate(buf)
+                buf = []
+                state, m = step(state, {"image": torch.from_numpy(b["image"]).cuda(),
+                                        "label": torch.from_numpy(b["label"]).cuda()})
+                losses.append(m["loss"])
+                steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epochs.append({"gets": s3.stats.gets - gets0, "steps": steps, "wall_s": wall,
+                       "items_per_s": steps * MAIN_BS / wall,
+                       "labels_equal_store": sorted(seen) == want})
+    losses = [float(x.item()) for x in losses]
+    out = {"phase": "main_formats", "check": "d_tar_shards", "nvidia_smi": smi,
+           "items": SHARD_ITEMS, "items_per_shard": SHARD_PER, "shards": len(shard_keys),
+           "members_equal_items": members_ok, "epochs": epochs,
+           "ingest_norm": "not run: the shard dataset emits host-normalized f32",
+           "first_loss": losses[0] if losses else None,
+           "last_loss": losses[-1] if losses else None}
+    emit(out)
+    if not members_ok:
+        fail("(d) a tar member's name or bytes differ from its item object")
+    for e, row in enumerate(epochs):
+        if row["gets"] != len(shard_keys) or not row["labels_equal_store"]:
+            fail(f"(d) epoch {e}: {row['gets']} GETs for {len(shard_keys)} shards, labels "
+                 f"equal to the store's: {row['labels_equal_store']}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"(d) non-finite loss: {losses}")
+    return out
+
+
+def read_trace(keys: list, rng) -> list:
+    """bench_serve's interactive trace: (t_offset, key) arrivals, a
+    diurnal-modulated Zipf background plus same-instant flash crowds on cold
+    keys, one distinct key a burst."""
+    w = [1.0 / (i + 1) ** READ["zipf_alpha"] for i in range(len(keys))]
+    tot, acc, cdf = sum(w), 0.0, []
+    for x in w:
+        acc += x / tot
+        cdf.append(acc)
+
+    def pick() -> int:
+        u, lo, hi = rng.random(), 0, len(cdf) - 1
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if cdf[mid] < u:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    events, t, dur = [], 0.0, READ["duration_s"]
+    while t < dur:
+        rate = READ["base_rate"] * (1.0 + 0.6 * math.sin(2.0 * math.pi * t / dur))
+        t += rng.expovariate(max(rate, 1.0))
+        events.append((t, keys[pick()]))
+    cold = keys[len(keys) // 2:]
+    for b in range(READ["bursts"]):
+        tb = dur * (b + 0.5) / READ["bursts"]
+        events.extend((tb, cold[(b * 37) % len(cold)]) for _ in range(READ["burst_size"]))
+    events.sort(key=lambda ev: ev[0])
+    return events
+
+
+def order_pctl(xs: list, q: float) -> float:
+    s = sorted(xs)
+    return s[min(int(len(s) * q), len(s) - 1)] if s else 0.0
+
+
+def read_cell(spec, cell: str) -> dict:
+    """One of bench_serve's cells: 64 client threads replay the trace and 2
+    scraper threads scan cold keys closed-loop for its duration, through a
+    ReadPath over a memory tier and a disk tier in front of s3sim; every
+    served payload is held to the store's bytes and the disk tier's bytes
+    are sampled every 50 ms."""
+    import os
+    import random
+    import shutil
+
+    from repro_torch.core import make_read_path
+    from repro_torch.data.cache import (
+        DiskTierCache,
+        MemoryTierCache,
+        TieredCacheStore,
+        make_admission,
+    )
+    from repro_torch.data.store import InMemoryStore, SimulatedS3Store
+
+    rng = random.Random(7)
+    base = InMemoryStore()
+
+    def fill(prefix: str, n: int) -> list:
+        out = []
+        for i in range(n):
+            k = f"{prefix}/{i:05d}"
+            base.put(k, bytes([i % 251]) * rng.randint(16 * 1024, READ_MAX_OBJ))
+            out.append(k)
+        return out
+
+    keys, scrape_keys = fill("obj", READ["items"]), fill("scan", 512)
+    disk_dir = FORMATS_DIR / f"read_{cell}"
+    shutil.rmtree(disk_dir, ignore_errors=True)
+    disk_dir.mkdir(parents=True)
+    s3 = SimulatedS3Store(base, latency_mean_s=READ["latency_mean_s"],
+                          latency_sigma=READ["latency_sigma"],
+                          bandwidth_per_conn=READ["bandwidth_per_conn"],
+                          nic_bandwidth=READ["nic_bandwidth"],
+                          max_connections=READ["max_connections"], seed=7,
+                          overload_penalty=2.0)
+    store = TieredCacheStore(s3, memory=MemoryTierCache(READ["mem_bytes"]),
+                             disk=DiskTierCache(str(disk_dir), READ["disk_bytes"],
+                                                make_admission("admit-all")))
+    trace = read_trace(keys, random.Random(11))
+    rp = make_read_path(spec, store)
+    lat = {"interactive": [], "scraper": []}
+    wrong = [0]
+    lock, stop, peak = threading.Lock(), threading.Event(), [0]
+
+    def disk_bytes() -> int:
+        total = 0
+        for f in os.listdir(disk_dir):
+            if not f.startswith("."):
+                try:
+                    total += os.path.getsize(disk_dir / f)
+                except OSError:
+                    pass  # unlinked mid-scan by a live writer
+        return total
+
+    def poll() -> None:
+        while not stop.is_set():
+            peak[0] = max(peak[0], disk_bytes())
+            time.sleep(0.05)
+
+    def served(key: str, tenant: str) -> float:
+        r = rp.get(key, tenant=tenant)
+        if r.data != base.get(key):
+            with lock:
+                wrong[0] += 1
+        return r.latency_s
+
+    t0 = time.monotonic()
+
+    def client(shard: list) -> None:
+        out = []
+        for toff, key in shard:
+            dt = t0 + toff - time.monotonic()
+            if dt > 0:
+                time.sleep(dt)
+            out.append(served(key, "interactive"))
+        with lock:
+            lat["interactive"].extend(out)
+
+    def scraper(tid: int) -> None:
+        out, i = [], tid
+        while not stop.is_set():
+            out.append(served(scrape_keys[i % len(scrape_keys)], "scraper"))
+            i += READ_SCRAPERS
+        with lock:
+            lat["scraper"].extend(out)
+
+    shards = [trace[j::READ_CLIENTS] for j in range(READ_CLIENTS)]
+    threads = [threading.Thread(target=client, args=(s,)) for s in shards if s]
+    threads += [threading.Thread(target=scraper, args=(i,)) for i in range(READ_SCRAPERS)]
+    poller = threading.Thread(target=poll)
+    poller.start()
+    for t in threads:
+        t.start()
+    time.sleep(READ["duration_s"])
+    stop.set()  # the scrapers stop issuing; requests in flight drain
+    for t in threads:
+        t.join()
+    window = time.monotonic() - t0
+    poller.join()
+    peak[0] = max(peak[0], disk_bytes())
+    stats = rp.stats()
+    audit = rp.audit_max_fetches_per_window(
+        spec.coalesce_window_s if spec.coalesce_window_s > 0 else 0.05)
+    rp.close()
+    ia = lat["interactive"]
+    return {"cell": cell, "requests": {k: len(v) for k, v in lat.items()},
+            "interactive_ms": {q: 1e3 * order_pctl(ia, p) for q, p in
+                               (("p50", 0.50), ("p99", 0.99), ("p999", 0.999))},
+            "scraper_p99_ms": 1e3 * order_pctl(lat["scraper"], 0.99),
+            "tenants": stats["tenants"], "hedge": stats["hedge"],
+            "audit_max_fetches_per_window": audit, "peak_disk_bytes": peak[0],
+            "disk_bytes_bound": READ["disk_bytes"], "scrape_window_s": window,
+            "payloads_wrong": wrong[0], "origin_gets": s3.stats.gets}
+
+
+def read_path_check(smi: str) -> dict:
+    """(e) bench_serve's two cells, uncoalesced and the read path; host
+    only, as the reference's read path is: no kernel runs here."""
+    from repro_torch.config import ServeSpec, TenantPolicy
+
+    served_spec = ServeSpec(
+        coalesce_window_s=0.1, hedge="slo", slo_p99_s=3.0 * READ["latency_mean_s"],
+        hedge_min_s=0.005, hedge_budget_fraction=0.1,
+        tenants=(TenantPolicy(tenant="scraper", rate_bytes_per_s=READ["scrape_rate"],
+                              burst_bytes=READ["scrape_burst"]),))
+    cells = [read_cell(ServeSpec(coalesce_window_s=0.0, hedge="off"), "uncoalesced"),
+             read_cell(served_spec, "readpath")]
+    served = cells[1]
+    budget = (READ["scrape_rate"] * served["scrape_window_s"] + READ["scrape_burst"]
+              + READ_SCRAPERS * READ_MAX_OBJ)
+    scraper_bytes = served["tenants"]["scraper"]["backend_bytes"]
+    out = {"phase": "main_formats", "check": "e_read_path", "nvidia_smi": smi,
+           "scale": READ, "reduced": READ_REDUCED, "cells": cells,
+           "scraper_budget_bytes": budget, "scraper_backend_bytes": scraper_bytes,
+           "p99_ratio_readpath_over_uncoalesced": (
+               served["interactive_ms"]["p99"] / cells[0]["interactive_ms"]["p99"]
+               if cells[0]["interactive_ms"]["p99"] else None)}
+    emit(out)
+    if served["audit_max_fetches_per_window"] > 1:
+        fail(f"(e) {served['audit_max_fetches_per_window']} primary fetches of one key in "
+             "one coalesce window")
+    for c in cells:
+        if c["peak_disk_bytes"] > READ["disk_bytes"]:
+            fail(f"(e) {c['cell']}: the disk tier held {c['peak_disk_bytes']} bytes of "
+                 f"{READ['disk_bytes']}")
+        if c["payloads_wrong"] or not c["requests"]["interactive"]:
+            fail(f"(e) {c['cell']}: {c['payloads_wrong']} payloads differ from the store's "
+                 f"over {c['requests']} requests")
+    if scraper_bytes > budget:
+        fail(f"(e) the scraper's backend bytes {scraper_bytes} exceed its budget {budget}")
+    return out
+
+
+def phase_main_formats(torch, ops, pipe_out: dict, smi: str) -> dict:
+    """(a) the shm transport through the launcher; (b) its device stream,
+    a crash and a cap through make_loader; (c) columnar with pushdown; (d)
+    tar shards; (e) the read path."""
+    from repro_torch.data import codec
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet, item_key
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parts, walls = {}, {}
+    t0 = time.perf_counter()
+    shm = dev_shm_slots(SHM_LAUNCHER_WORKERS)
+    parts["a"] = shm_launcher_check(torch, ops, pipe_out["process_run"], shm["slab_slots"], smi)
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["b"] = shm_stream_check(torch, ops, shm["slab_slots"], smi)
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = build_synthetic_imagenet(num_items=COL_ITEMS, avg_kb=115.0)
+    labels = [codec.decode_image(base.get(item_key(i))).label for i in range(COL_ITEMS)]
+    parts["c"] = columnar_check(torch, ops, base, labels, smi)
+    walls["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["d"] = shards_check(torch, base, labels, smi)
+    walls["d"] = time.perf_counter() - t0
+    del base
+    t0 = time.perf_counter()
+    parts["e"] = read_path_check(smi)
+    walls["e"] = time.perf_counter() - t0
+    for part, wall in walls.items():
+        emit({"phase": "main_formats", "check": "phase_wall", "part": part, "wall_s": wall})
+    launches = {p: parts[p]["ingest_norm_launches"] for p in ("a", "b", "c")}
+    return {"parts": parts, "launches": launches, "launches_total": sum(launches.values())}
+
+
 def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     import dataclasses
 
@@ -2350,7 +3110,7 @@ def phase_main_rwkv(torch, wkv_ops, wkv_ref, rms_ops, ingest_ops, flash_ops) -> 
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     }
     emit(out)
-    if report.result.steps < LM_STEPS or report.result.epochs < 2:
+    if report.result.steps < RWKV_STEPS or report.result.epochs < 2:
         fail(f"RWKV path ran {report.result.steps} steps over {report.result.epochs} epochs")
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss on the RWKV path: {losses}")
@@ -3677,6 +4437,7 @@ def main() -> int:
     auto_out = timed(torch, "main_autotune", phase_main_autotune, ops, main_out,
                      pipe_out["figures"]["pipeline"], smi)
     cache_out = timed(torch, "main_cache", phase_main_cache, ops, main_out, smi)
+    formats_out = timed(torch, "main_formats", phase_main_formats, ops, pipe_out, smi)
     lm_out = timed(torch, "main_lm", phase_main_lm, flash_ops, ops)
     rwkv_out = timed(torch, "main_rwkv", phase_main_rwkv, wkv_ops, wkv_ref, rms_ops, ops,
                      flash_ops)
@@ -3707,6 +4468,8 @@ def main() -> int:
         "launches_store_memory": cache_out["launches"]["store_memory"],
         "launches_two_tier": cache_out["tiers"]["ingest_norm_launches"],
         "launches_elastic": cache_out["elastic"]["ingest_norm_launches"],
+        "launches_formats": formats_out["launches_total"],
+        "launches_formats_by_part": formats_out["launches"],
         "launches_serve": serve_out["launches"]["ingest_norm"],
         **family["ingest_norm"],
         "max_abs_err": kern["max_abs_err"],

@@ -15,13 +15,15 @@ warn-once flat-kwarg shims (``pipeline=True, reorder=...`` folded into
 (:class:`CacheConfig`, ``StoreConfig.root``/``cache``), elastic membership
 (:class:`ElasticConfig`, ``LoaderConfig.elastic``), and
 :class:`AutotuneConfig`'s cache knobs, up-probe lease (``coord_dir``) and
-fleet shedding (``shed_*``).  Not yet ported, so without a field:
-``PipelineConfig``'s ``transport`` and slab fields (shared-memory
-transport), ``LoaderConfig.sampler`` (predicate pushdown),
-``LoaderConfig.delivery`` (sharded delivery) and :class:`AutotuneConfig`'s
-slab knob, lane-skew gate and serving bounds.  :class:`ServeSpec` sizes the
-serving engine only; the reference's read-path fields come with its read
-path.  ``replace()`` (from dataclasses) derives variants.
+fleet shedding (``shed_*``); the shared-memory transport
+(``PipelineConfig.transport``, ``slab_slot_bytes``, ``slab_slots`` and the
+slab knob's bounds), predicate pushdown (:class:`SamplerPredicate`,
+``LoaderConfig.sampler``), and the serving read path (:class:`TenantPolicy`,
+:class:`ServeSpec`'s read-path fields, :class:`AutotuneConfig`'s latency
+objective and serve bounds).  Not yet ported, so without a field:
+``LoaderConfig.delivery`` and :class:`AutotuneConfig`'s ``skew_gate``
+(sharded delivery, ROADMAP §1 item 7).  ``replace()`` (from dataclasses)
+derives variants.
 """
 from __future__ import annotations
 
@@ -355,6 +357,12 @@ class AutotuneConfig:
     max_cpu_workers: int = 32
     min_stage_queue: int = 4
     max_stage_queue: int = 512
+    # shm-transport slab pressure knob (PipelineConfig.transport="shm"): the
+    # controller caps how many of the preallocated slots each worker may use
+    # (live, via a slab_cap message); fewer slots pin less memory and fall
+    # back to the pickle pipe sooner
+    min_slab_slots: int = 4
+    max_slab_slots: int = 512
     # budget co-tuning (staged pipeline + split datasets only).  0 keeps the
     # independent io_workers/cpu_workers knobs; >0 fixes the TOTAL executor
     # width and replaces them with one coupled "io_cpu_split" knob (value =
@@ -363,6 +371,20 @@ class AutotuneConfig:
     # with thread_budget set and a process-capable dataset, also expose the
     # CPU executor KIND (thread vs spawn-process) as a binary knob
     tune_cpu_executor: bool = True
+    # -- objective ----------------------------------------------------------
+    # "throughput" (default): score = windowed items/s (training loaders).
+    # "latency": score = latency_target_s / windowed latency_quantile; the
+    # serving read path feeds per-request latencies via on_request() and the
+    # same hill climber minimizes the tail by maximizing the inverted score.
+    objective: str = "throughput"
+    latency_target_s: float = 0.5  # the SLO target the p-quantile is scored against
+    latency_quantile: float = 0.99
+    # serve read-path knob bounds (objective="latency"): the SLO hedge delay
+    # and the single-flight coalesce result-hold window, in milliseconds
+    min_hedge_delay_ms: int = 1
+    max_hedge_delay_ms: int = 5_000
+    min_coalesce_ms: int = 1
+    max_coalesce_ms: int = 5_000
     # shuffle-entropy floor (reorder="window" pipelines): upward probes of
     # the reorder_window knob are skipped while the delivered stream's
     # within-batch entropy sits below it.  0.0 disables the gate.
@@ -413,11 +435,26 @@ class PipelineConfig:
     # decode+augment executor: "thread" (gated thread pool, for GIL-releasing
     # decoders) or "process" (spawn-based worker processes; needs the split
     # path and a picklable dataset; persists across epochs on the loader;
-    # results come back pickled over each worker's pipe)
+    # results come back per ``transport``)
     cpu_executor: str = "thread"
     # bounded fetch->decode queue, in samples: a full queue stalls the IO
     # stage (the pipeline's backpressure)
     stage_queue_depth: int = 64
+    # process-stage result transport (cpu_executor="process" only):
+    #   "pipe" — every decoded sample is pickled through the result pipe
+    #            (two full copies a sample)
+    #   "shm"  — workers write decoded arrays into a preallocated per-worker
+    #            shared-memory slab (slot-granular, generation-counted) and
+    #            ship only (slot, dtype, shape, offset) handles over the
+    #            pipe; the parent reads zero-copy views.  Oversized or ragged
+    #            samples and slab pressure fall back to pickle per sample.
+    transport: str = "pipe"
+    # shm slab sizing: bytes a slot and slots a worker slab.  A slot holds
+    # one whole decoded sample (every array, each padded to 64 bytes);
+    # bigger samples take the pickle fallback.  slab_slots is an autotune
+    # knob (AutotuneConfig.min/max_slab_slots).
+    slab_slot_bytes: int = 1 << 20
+    slab_slots: int = 32
     # pinned host staging (repro_torch.core.staging): >0 collates batches
     # straight into a pool of this many reusable page-aligned buffer sets
     # that the device prefetch ring copies from and recycles after the copy
@@ -454,6 +491,52 @@ class ElasticConfig:
         return bool(self.enabled)
 
 
+_PREDICATE_OPS = ("==", "!=", "<", "<=", ">", ">=", "in", "not_in")
+
+
+@dataclass(frozen=True)
+class SamplerPredicate:
+    """Callable-free sampler predicate for columnar pushdown.
+
+    ``clauses`` is an AND-list of ``(field, op, value)`` tuples over a
+    dataset's metadata columns, e.g. ``(("label", "in", (0, 1, 2)),
+    ("length", "<", 65536))``.  Tuples (not callables) keep predicates
+    picklable, checkpointable, and evaluable against chunk statistics:
+    the loader hands them to the dataset's ``predicate_mask`` so rejected
+    rows' bytes are never requested from the store.
+
+    ``schedule`` optionally re-declares the clause list per epoch for
+    curriculum filtering: ``((epoch, clauses), ...)``; the entry with the
+    largest ``epoch <= current`` wins, and before the first entry
+    ``clauses`` applies.  Epoch masks are pure functions of (predicate,
+    epoch), so strict-mode resume cursors replay the identical filtered
+    stream.
+    """
+
+    clauses: Tuple[Tuple[str, str, Any], ...] = ()
+    schedule: Tuple[Tuple[int, Tuple[Tuple[str, str, Any], ...]], ...] = ()
+
+    def __post_init__(self) -> None:
+        for cls in (self.clauses, *(cl for _, cl in self.schedule)):
+            for c in cls:
+                if len(c) != 3 or not isinstance(c[0], str) or c[1] not in _PREDICATE_OPS:
+                    raise ValueError(
+                        f"predicate clause must be (field, op, value) with op "
+                        f"in {_PREDICATE_OPS}, got {c!r}")
+                if callable(c[2]):
+                    raise ValueError(f"predicate values must be data, not "
+                                     f"callables: {c!r}")
+
+    def clauses_for_epoch(self, epoch: int) -> Tuple[Tuple[str, str, Any], ...]:
+        out = self.clauses
+        for e, cls in sorted(self.schedule, key=lambda t: t[0]):
+            if epoch >= e:
+                out = tuple(cls)
+        return out
+
+    def __bool__(self) -> bool:
+        return bool(self.clauses or self.schedule)
+
 
 @dataclass(frozen=True)
 class LoaderConfig:
@@ -476,6 +559,11 @@ class LoaderConfig:
     # (pipeline=<bool>, reorder=..., io_workers=..., ...) still construct the
     # nested form through the shim below; reads of the flat names delegate.
     pipeline: PipelineConfig = PipelineConfig()
+    # columnar predicate pushdown (see SamplerPredicate): filters the epoch
+    # stream at the sampler via dataset metadata, so rejected rows are never
+    # fetched.  None = unfiltered.  Needs a dataset with predicate metadata
+    # (repro_torch.data.columnar.ColumnarImageDataset).
+    sampler: Optional[SamplerPredicate] = None
     # online knob control (off by default: behaviour is bit-identical to a
     # statically configured loader when disabled)
     autotune: AutotuneConfig = AutotuneConfig()
@@ -551,13 +639,57 @@ LoaderConfig.__init__ = _loader_config_shim_init  # type: ignore[method-assign]
 
 
 @dataclass(frozen=True)
-class ServeSpec:
-    """Sizing of the continuous-batching engine (:mod:`repro_torch.serve`):
-    ``num_slots`` requests decode together over a pooled KV cache of
-    ``max_len`` positions a slot."""
+class TenantPolicy:
+    """Per-tenant admission/fairness policy on the serving read path.
 
+    Budgets meter the *shared* tiers: bytes served from the disk tier or
+    fetched from origin debit the tenant's token bucket (memory-tier hits are
+    free: they contend on nothing).  A tenant over budget blocks before
+    issuing backend I/O until the bucket refills, so one hot tenant cannot
+    starve the rest of disk/NIC service.  ``tenant="*"`` is the default
+    policy for tenants without an explicit entry."""
+
+    tenant: str = "*"
+    rate_bytes_per_s: float = 0.0  # sustained budget; 0 = unmetered
+    burst_bytes: int = 0  # bucket depth; 0 derives one second of rate
+    max_inflight: int = 0  # concurrent backend fetches; 0 = unlimited
+
+
+@dataclass(frozen=True)
+class ServeSpec:
+    """Online-serving surface (:mod:`repro_torch.serve`): the
+    continuous-batching engine's sizing (``num_slots`` requests decode
+    together over a pooled KV cache of ``max_len`` positions a slot) and the
+    multi-tenant read path (single-flight coalescing, tenant fairness, SLO
+    hedging; :class:`repro_torch.serve.readpath.ReadPath`)."""
+
+    # -- engine (continuous-batching slots) ---------------------------------
     num_slots: int = 4
     max_len: int = 512
+    # -- read path ----------------------------------------------------------
+    # single-flight coalescing: concurrent misses on one key share a single
+    # backend fetch, and the completed result is held for this window so
+    # bursts arriving just after completion still coalesce.  0 disables
+    # coalescing entirely (every miss fetches: the uncoalesced baseline).
+    coalesce_window_s: float = 0.05
+    # hedged reads: "off" | "fixed" (constant hedge_delay_s) | "slo" (delay
+    # derived from the live latency distribution against slo_p99_s: fire the
+    # duplicate at max(hedge_min_s, slo_p99_s - p50) so it can still finish
+    # inside the SLO)
+    hedge: str = "off"
+    hedge_delay_s: float = 0.1  # "fixed" mode delay
+    hedge_min_s: float = 0.005  # floor under the derived "slo" delay
+    slo_p99_s: float = 0.5  # tail-latency objective the path is tuned against
+    hedge_budget_fraction: float = 0.05  # max hedges a request, sustained
+    # global backend concurrency cap (leader + hedge fetches)
+    max_inflight: int = 64
+    # per-tenant fairness policies ("*" entry = default for unlisted tenants)
+    tenants: Tuple[TenantPolicy, ...] = ()
+    # latency-objective closed-loop control (AutotuneConfig.objective must be
+    # "latency" when enabled here): tunes the hedge delay, the coalesce
+    # window and, when the store stack has a TieredCacheStore, the cache
+    # knobs against the p99 target
+    autotune: AutotuneConfig = AutotuneConfig()
 
 
 @dataclass(frozen=True)

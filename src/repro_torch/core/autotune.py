@@ -40,12 +40,15 @@ rebind and :meth:`AutotuneController.release_coordination`.  With a
 ``shed_collapse_fraction > 0``) a collapse posts a fleet-wide shed, and
 every controller cuts its multiplicative knobs and climbs back additively.
 :func:`build_cache_knobs` turns a tiered cache's capacities and admission
-policy into knobs.
+policy into knobs, :func:`build_serve_knobs` the serving read path's hedge
+delay and coalesce window; with ``objective="latency"`` the read path feeds
+:meth:`AutotuneController.on_request` and the controller minimizes the tail
+latency through the same hill climber.  The shm transport's usable slots a
+slab ride along the pipeline's knobs.
 
 A trimmed copy of the reference's controller: its lane-skew gate (ROADMAP
-§1 item 7), the serving read path's latency objective (``on_request``) and
-``build_serve_knobs`` (item 5.7) are not ported.  With those features off
-the reference gives the same events as this controller, except where an
+§1 item 7) is not ported.  With that gate off the reference gives the same
+events as this controller, except where an
 additive knob (the thread budget's split, the cache admission index) sits
 at its upper wall: the reference never probes it down from there (ROADMAP
 §3).  The module imports no ``torch``: the staged pipeline imports it, and
@@ -138,6 +141,11 @@ class AutotuneController:
         entropy_fn: Optional[Callable[[], Optional[float]]] = None,
         congestion: Optional[Any] = None,
     ) -> None:
+        if cfg.objective not in ("throughput", "latency"):
+            raise ValueError(
+                f"unknown autotune objective {cfg.objective!r};"
+                " known: 'throughput', 'latency'"
+            )
         self.cfg = cfg
         self.knobs = list(knobs)
         self.tracer = tracer
@@ -154,6 +162,9 @@ class AutotuneController:
         # cfg.min_shuffle_entropy, upward probes of the reorder_window knob
         # are skipped
         self.entropy_fn = entropy_fn
+        # latency-objective window (on_request): per-request latencies whose
+        # tail quantile is inverted into the hill climber's score
+        self._lat_window: List[float] = []
         # bounded: the reprobe heartbeat keeps appending for the loader's
         # lifetime; consumers only ever need the recent tail
         self.events: Deque[TuneEvent] = deque(maxlen=4096)
@@ -281,6 +292,34 @@ class AutotuneController:
         self._win_batches = 0
         self._win_items = 0
         self._step(tput)
+
+    def on_request(self, latency_s: float, now: Optional[float] = None) -> None:
+        """Account one served request (``objective="latency"``): windows
+        per-request latencies and feeds the unchanged hill climber an
+        inverted tail score, ``latency_target_s / latency_quantile``, so the
+        same maximizer (probe, judge, hysteresis, quiesce) MINIMIZES the
+        tail against the SLO target.  Size ``interval_batches`` to hold
+        enough requests for the quantile to mean something (at least 200
+        for a p99)."""
+        t = time.monotonic() if now is None else now
+        self._lat_window.append(latency_s)
+        if self._win_t0 is None:
+            self._win_t0 = t
+            return  # the first request only anchors the window clock
+        self._batches += 1
+        self._win_batches += 1
+        if (
+            self._win_batches < self.cfg.interval_batches
+            or t - self._win_t0 < self.cfg.min_window_s
+        ):
+            return
+        lat = sorted(self._lat_window)
+        self._lat_window.clear()
+        q = lat[min(int(len(lat) * self.cfg.latency_quantile), len(lat) - 1)]
+        self._win_t0 = t
+        self._win_batches = 0
+        self._win_items = 0
+        self._step(self.cfg.latency_target_s / max(q, 1e-9))
 
     def diagnostics(self, window_s: float = 5.0) -> Dict[str, Any]:
         """Live signal snapshot (stage latencies + store stats)."""
@@ -786,6 +825,19 @@ def _hedge_knob(hedge: Any) -> Knob:
     return Knob("hedge", _get_hedge, _set_hedge, 0, 1)
 
 
+def _slab_knob(cfg: AutotuneConfig, get_slab: Callable[[], int],
+               set_slab: Callable[[int], int], max_slab: Optional[int]) -> Knob:
+    """The shm transport's usable-slot cap a worker slab: slab pressure
+    traded against the pickle-fallback rate."""
+    return Knob(
+        name="slab_slots",
+        get=get_slab,
+        set=set_slab,
+        lo=cfg.min_slab_slots,
+        hi=min(cfg.max_slab_slots, max_slab or cfg.max_slab_slots),
+    )
+
+
 def build_loader_knobs(
     cfg: AutotuneConfig,
     *,
@@ -840,12 +892,17 @@ def build_pipeline_knobs(
     max_queue: Optional[int] = None,
     get_reorder: Optional[Callable[[], int]] = None,
     set_reorder: Optional[Callable[[int], int]] = None,
+    get_slab: Optional[Callable[[], int]] = None,
+    set_slab: Optional[Callable[[int], int]] = None,
+    max_slab: Optional[int] = None,
 ) -> List[Knob]:
     """Per-stage knob set for a staged-pipeline ``_PipelineIter``: IO
     executor width, CPU executor width, the outstanding sample window (in
     batches) and the fetch->decode queue depth, each stage tuned
     independently.  ``max_*`` widen the configured ceilings over the static
-    config; IO workers share the ``min/max_fetch_workers`` bounds."""
+    config; IO workers share the ``min/max_fetch_workers`` bounds.
+    ``get/set_slab`` (shm transport only) tune the usable-slot cap of each
+    worker's slab."""
     knobs = [
         Knob(
             name="io_workers",
@@ -876,6 +933,8 @@ def build_pipeline_knobs(
             hi=max(cfg.max_stage_queue, max_queue or 0),
         ),
     ]
+    if get_slab is not None and set_slab is not None:
+        knobs.append(_slab_knob(cfg, get_slab, set_slab, max_slab))
     if cfg.tune_hedge and hedge is not None:
         knobs.append(_hedge_knob(hedge))
     if get_reorder is not None and set_reorder is not None:
@@ -932,6 +991,9 @@ def build_budget_knobs(
     max_queue: Optional[int] = None,
     get_reorder: Optional[Callable[[], int]] = None,
     set_reorder: Optional[Callable[[int], int]] = None,
+    get_slab: Optional[Callable[[], int]] = None,
+    set_slab: Optional[Callable[[int], int]] = None,
+    max_slab: Optional[int] = None,
 ) -> List[Knob]:
     """Knob set for a budget co-tuned ``_PipelineIter``
     (``AutotuneConfig.thread_budget``): the ``io_workers`` / ``cpu_workers``
@@ -939,7 +1001,7 @@ def build_budget_knobs(
     the IO width (the CPU width is ``budget - value``), stepped additively
     coarse->fine.  When the owner can swap its CPU stage between threads and
     spawned processes, the executor KIND rides along as a binary knob.
-    Outstanding window, queue depth and hedging stay as in
+    Outstanding window, queue depth, the slab knob and hedging stay as in
     :func:`build_pipeline_knobs`."""
     knobs = [
         Knob(
@@ -974,11 +1036,47 @@ def build_budget_knobs(
         knobs.append(
             Knob("cpu_executor", get_cpu_executor, set_cpu_executor, 0, 1)
         )
+    if get_slab is not None and set_slab is not None:
+        knobs.append(_slab_knob(cfg, get_slab, set_slab, max_slab))
     if cfg.tune_hedge and hedge is not None:
         knobs.append(_hedge_knob(hedge))
     if get_reorder is not None and set_reorder is not None:
         knobs.append(build_reorder_knob(cfg, get_reorder=get_reorder,
                                         set_reorder=set_reorder))
+    return knobs
+
+
+def build_serve_knobs(cfg: AutotuneConfig, path: Any) -> List[Knob]:
+    """Knobs for a ``ReadPath``-shaped object (duck-typed so
+    ``repro_torch.core`` never imports ``repro_torch.serve``) under the
+    latency objective: the hedge delay and the single-flight coalesce
+    result-hold window, both in milliseconds.  Each knob is attached only
+    when the spec enables its mechanism: a knob over a disabled one is a
+    no-op the controller would waste probe windows on.  Cache knobs
+    (:func:`build_cache_knobs`) ride along separately when the store stack
+    has a tiered cache."""
+    knobs: List[Knob] = []
+    if getattr(path, "hedge_mode", "off") != "off":
+        knobs.append(
+            Knob(
+                name="hedge_delay_ms",
+                get=path.hedge_delay_ms,
+                set=path.set_hedge_delay_ms,
+                lo=cfg.min_hedge_delay_ms,
+                hi=cfg.max_hedge_delay_ms,
+            )
+        )
+    get_coalesce = getattr(path, "coalesce_ms", None)
+    if get_coalesce is not None and get_coalesce() > 0:
+        knobs.append(
+            Knob(
+                name="coalesce_ms",
+                get=path.coalesce_ms,
+                set=path.set_coalesce_ms,
+                lo=cfg.min_coalesce_ms,
+                hi=cfg.max_coalesce_ms,
+            )
+        )
     return knobs
 
 

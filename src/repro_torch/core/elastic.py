@@ -32,11 +32,12 @@ keeps flowing while the fleet converges.  A blocking wait here deadlocks
 two hosts each holding the other's termination hostage on an unconfirmed
 final batch.
 
-The port's copy has no ``set_filter``: predicate pushdown comes with the
-columnar datasets (ROADMAP §1 item 5.5).  Claims, progress and membership
-go through :mod:`repro_torch.core.coord` in the reference's on-disk
-format, so reference and port members can share one fleet.  The module
-imports no ``torch``.
+A predicate filter (``set_filter``, columnar pushdown) narrows each
+epoch's permutation before it is cut into shards, as in the static
+sampler.  Claims, progress and membership go through
+:mod:`repro_torch.core.coord` in the reference's on-disk format, so
+reference and port members can share one fleet.  The module imports no
+``torch``.
 """
 from __future__ import annotations
 
@@ -52,11 +53,7 @@ from repro_torch.core.coord import (
     ShardClaim,
     default_owner,
 )
-from repro_torch.core.sampler import (
-    BatchIndices,
-    ShardedBatchSampler,
-    epoch_permutation,
-)
+from repro_torch.core.sampler import BatchIndices, ShardedBatchSampler
 
 
 class ClaimStarved(Exception):
@@ -130,7 +127,7 @@ class ElasticBatchSampler:
     batch *assignment*.
 
     Mirrors the :class:`ShardedBatchSampler` surface the loader wires
-    (``set_epoch`` / ``__len__`` / ``state_dict`` /
+    (``set_filter`` / ``set_epoch`` / ``__len__`` / ``state_dict`` /
     iteration yielding :class:`BatchIndices`) but draws batches from
     :class:`EpochShardBoard` claims.  Three contracts the loader relies on:
 
@@ -194,6 +191,9 @@ class ElasticBatchSampler:
     def next_batch(self) -> int:
         return self._inner.next_batch
 
+    def set_filter(self, filter_fn) -> None:
+        self._inner.set_filter(filter_fn)
+
     def set_epoch(self, epoch: int) -> None:
         self._inner.set_epoch(epoch)
 
@@ -242,10 +242,7 @@ class ElasticBatchSampler:
         ses = self.session
         epoch = self._inner.epoch
         ses.maybe_heartbeat()
-        inner = self._inner
-        self._perm = epoch_permutation(
-            inner.dataset_len, inner.seed, epoch, inner.shuffle
-        )
+        self._perm = self._inner._epoch_perm(epoch)
         gbs = self._inner.global_batch_size
         if self._inner.drop_last:
             nb = len(self._perm) // gbs

@@ -31,9 +31,11 @@ autotuner its cache knobs, on the per-batch controller or, with
 shedding); ``LoaderConfig.elastic`` replaces static sharding with claims
 on an :class:`~repro_torch.core.elastic.ElasticBatchSampler` (legacy path
 only).  :meth:`ConcurrentDataLoader.release_coordination` hands back the
-lease and the membership slot.  The reference's shared-memory transport,
-predicate pushdown and sharded delivery have no config field in the port
-yet.
+lease and the membership slot.  ``LoaderConfig.sampler`` (a
+:class:`~repro_torch.config.SamplerPredicate`) filters each epoch's stream
+through the dataset's ``predicate_mask`` (columnar pushdown), on the static
+and the elastic sampler alike.  The reference's sharded delivery has no
+config field in the port yet (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -112,6 +114,10 @@ class ConcurrentDataLoader:
                 f"unknown cpu_executor {pipe.cpu_executor!r}; "
                 "known: 'thread', 'process'"
             )
+        if pipe.transport not in ("pipe", "shm"):
+            raise ValueError(
+                f"unknown transport {pipe.transport!r}; known: 'pipe', 'shm'"
+            )
         if pipe:
             # fail at construction, naming the field — not at first iter()
             if cfg.impl == "vanilla":
@@ -126,6 +132,13 @@ class ConcurrentDataLoader:
                     raise ValueError(f"{field} must be >= 0 (0 = derive)")
             if pipe.stage_queue_depth < 1:
                 raise ValueError("stage_queue_depth must be >= 1")
+            if pipe.transport == "shm":
+                if pipe.slab_slot_bytes < 1 or pipe.slab_slots < 1:
+                    raise ValueError(
+                        "transport='shm' needs slab_slot_bytes >= 1 and "
+                        "slab_slots >= 1 (one slot must hold one decoded "
+                        "sample)"
+                    )
             if pipe.staging_buffers < 0:
                 raise ValueError("staging_buffers must be >= 0 (0 = off)")
             at_ = cfg.autotune
@@ -153,6 +166,28 @@ class ConcurrentDataLoader:
             host_id=host_id,
             num_hosts=num_hosts,
         )
+        if cfg.sampler:
+            # predicate pushdown: the sampler filters each epoch's stream by
+            # dataset metadata, so rejected rows' bytes are never requested.
+            # The mask is a pure function of (predicate, epoch): strict-mode
+            # resume cursors replay the identical filtered stream.
+            if not hasattr(dataset, "predicate_mask"):
+                raise ValueError(
+                    "LoaderConfig.sampler (predicate pushdown) requires a "
+                    "dataset exposing predicate metadata via "
+                    "predicate_mask(clauses), e.g. "
+                    "repro_torch.data.columnar.ColumnarImageDataset; "
+                    f"{type(dataset).__name__} does not"
+                )
+            pred = cfg.sampler
+
+            def _predicate_filter(epoch: int):
+                clauses = pred.clauses_for_epoch(epoch)
+                if not clauses:
+                    return None  # an unfiltered epoch (curriculum warm-up)
+                return dataset.predicate_mask(clauses)
+
+            self.sampler.set_filter(_predicate_filter)
         # elastic fleet mode (repro_torch.core.elastic): claim-based batch
         # scheduling over the coord substrate replaces static sharding, so
         # hosts may join, leave or crash mid-epoch and the fleet-wide union
@@ -177,7 +212,7 @@ class ConcurrentDataLoader:
             self._elastic = ElasticSession(
                 cfg.elastic, member=f"host{host_id}-pid{os.getpid()}"
             )
-            self.sampler = ElasticBatchSampler(
+            elastic_sampler = ElasticBatchSampler(
                 len(dataset),
                 cfg.batch_size,
                 shuffle=cfg.shuffle,
@@ -185,6 +220,9 @@ class ConcurrentDataLoader:
                 drop_last=cfg.drop_last,
                 session=self._elastic,
             )
+            if cfg.sampler:
+                elastic_sampler.set_filter(self.sampler._filter_fn)
+            self.sampler = elastic_sampler
         # hedging pairs with any path whose assembler runs a hedge scan: the
         # legacy threaded iterator and both staged-pipeline IO modes
         self.hedge = (

@@ -39,9 +39,12 @@ This module splits the item path into an explicit stage graph::
 The pipeline carries the loader's cache knobs into each epoch's knob list
 and reports each drained epoch to the loader (``_note_epoch_end``), which
 feeds the epoch-cadence cache controller.  A trimmed copy of the
-reference's pipeline: its shared-memory transport (ROADMAP §1 item 5.4)
-and its sharded lanes (item 7) are not ported and have no config field.  The module imports no ``torch``: ``spawn``
-re-imports it in every CPU worker process.
+reference's pipeline, with its shared-memory transport
+(``PipelineConfig.transport="shm"``, :mod:`repro_torch.core.shm`: decoded
+samples come back as views into a slab the parent owns, and the slab's
+usable slots are an autotune knob); its sharded lanes (ROADMAP §1 item 7)
+are not ported and have no config field.  The module imports no
+``torch``: ``spawn`` re-imports it in every CPU worker process.
 """
 from __future__ import annotations
 
@@ -50,15 +53,18 @@ import math
 import multiprocessing
 import pickle
 import queue
+import os
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from multiprocessing.connection import wait as _mp_wait
-from typing import Any, Deque, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core import shm as shm_mod
 from repro_torch.core.autotune import (
     build_budget_knobs,
     build_pipeline_knobs,
@@ -81,17 +87,6 @@ from repro_torch.core.tracing import (
 )
 from repro_torch.core.utilization import available_cpu_count
 from repro_torch.data.dataset import collate
-
-
-def item_nbytes(item: Mapping[str, Any]) -> int:
-    """Total array payload of one sample or batch dict (the unit of copy
-    accounting)."""
-    total = 0
-    for v in item.values():
-        a = np.asarray(v)
-        if a.dtype != object:
-            total += a.nbytes
-    return total
 
 
 class _Sample:
@@ -517,7 +512,7 @@ PROC_PREFILL_DEPTH = 2
 PROC_SPAWN_STEP = 4
 
 
-def _cpu_proc_main(payload: bytes, conn) -> None:
+def _cpu_proc_main(payload: bytes, conn, shm_spec=None) -> None:
     """Spawn entry point for one CPU worker process.
 
     Runs ONLY ``decode_raw`` + ``augment_item`` on tasks received over the
@@ -535,7 +530,18 @@ def _cpu_proc_main(payload: bytes, conn) -> None:
     full pipe will not take: a deadlock once a sample outgrows the socket
     buffer (about 200 KB).  The reference's worker reads between samples.
     With the reader, the pump's sends always drain; the inbox holds at most
-    ``PROC_PREFILL_DEPTH`` tasks and the rebinds."""
+    ``PROC_PREFILL_DEPTH`` tasks, the rebinds and the slab messages.
+
+    ``shm_spec`` = ``(name, slot_bytes, slots)`` attaches the zero-copy
+    transport (``PipelineConfig.transport="shm"``): finished samples are
+    packed into the parent-owned slab and shipped as ``done_shm`` handles;
+    ``free`` returns slots the parent consumed, ``slab_reset`` reclaims
+    everything at an epoch takeover, ``slab_cap`` is the autotuner's live
+    pressure knob.  Anything that cannot pack falls back to the pickle
+    ``done`` with the reason attached.  The slab's writer is
+    single-threaded, so this loop applies those three messages from the
+    inbox, never the reader thread.  ``die`` is the test-only crash
+    injection hook (:meth:`_CPUProcessPool.inject_crash`)."""
     try:
         dataset = pickle.loads(payload)
     except Exception as e:  # exotic: the parent pre-validated pickling
@@ -545,6 +551,18 @@ def _cpu_proc_main(payload: bytes, conn) -> None:
             pass
         conn.close()
         return
+    writer = None
+    if shm_spec is not None:
+        try:
+            writer = shm_mod.SlabWriter(*shm_spec)
+        except Exception as e:
+            # the segment vanished (the parent raced shutdown): degrade to
+            # the pipe
+            try:
+                conn.send(("crash", f"worker could not attach slab: {e!r}"))
+            except OSError:
+                pass
+            writer = None
     inbox: "queue.Queue" = queue.Queue()
 
     def read() -> None:
@@ -558,6 +576,7 @@ def _cpu_proc_main(payload: bytes, conn) -> None:
                 return
 
     threading.Thread(target=read, name="cpu-proc-reader", daemon=True).start()
+    die_on_task: Optional[str] = None
     while True:
         msg = inbox.get()
         tag = msg[0]
@@ -573,6 +592,27 @@ def _cpu_proc_main(payload: bytes, conn) -> None:
                     pass
                 break
             continue
+        if tag == "free":
+            if writer is not None:
+                writer.free_slots(msg[1])
+            continue
+        if tag == "slab_reset":
+            if writer is not None:
+                writer.reset()
+            continue
+        if tag == "slab_cap":
+            if writer is not None:
+                writer.set_cap(msg[1])
+            continue
+        if tag == "die":
+            # crash injection: "now" dies at once; "mid_slab_write" dies on
+            # the NEXT task with a slot claimed and half-written, so the
+            # handle is never sent and the parent must reclaim the slot by
+            # retiring the slab and retry the sample elsewhere
+            if msg[1] == "mid_slab_write" and writer is not None:
+                die_on_task = msg[1]
+                continue
+            os._exit(1)
         _, sid, index, raw = msg
         try:
             t0 = time.monotonic()
@@ -580,7 +620,18 @@ def _cpu_proc_main(payload: bytes, conn) -> None:
             t1 = time.monotonic()
             item = dataset.augment_item(decoded, index)
             t2 = time.monotonic()
-            conn.send(("done", sid, item, (t0, t1, t2)))
+            if die_on_task == "mid_slab_write":
+                slot = writer._take_slot()
+                if slot is not None:
+                    writer.shm.buf[slot * writer.slot_bytes] = 0xAB
+                os._exit(1)
+            why = None
+            if writer is not None:
+                handle, why = writer.try_pack(item)
+                if handle is not None:
+                    conn.send(("done_shm", sid, handle, (t0, t1, t2)))
+                    continue
+            conn.send(("done", sid, item, (t0, t1, t2), why))
         except Exception as e:
             try:
                 pickle.dumps(e)
@@ -591,6 +642,8 @@ def _cpu_proc_main(payload: bytes, conn) -> None:
                 conn.send(("err", sid, exc))
             except OSError:
                 break
+    if writer is not None:
+        writer.close()
     conn.close()
 
 
@@ -600,17 +653,26 @@ class _ProcWorker:
     an epoch takeover the outgoing pump can still be mid-``send`` when
     ``attach`` broadcasts the rebind."""
 
-    __slots__ = ("proc", "conn", "sids", "send_lock")
+    __slots__ = ("proc", "conn", "sids", "send_lock", "slab")
 
-    def __init__(self, proc, conn) -> None:
+    def __init__(self, proc, conn, slab=None) -> None:
         self.proc = proc
         self.conn = conn
         self.sids: List[int] = []  # at most PROC_PREFILL_DEPTH entries
         self.send_lock = threading.Lock()
+        self.slab: Optional[shm_mod.ParentSlab] = slab  # shm transport only
 
     def send(self, msg: Tuple) -> None:
         with self.send_lock:
             self.conn.send(msg)
+
+
+def _finalize_pool(slabs: List["shm_mod.ParentSlab"],
+                   shutdown: threading.Event) -> None:
+    """weakref.finalize target for :class:`_CPUProcessPool` (must not hold
+    the pool itself): bar further spawns, then unlink every slab."""
+    shutdown.set()
+    shm_mod.close_slabs(slabs)
 
 
 class _CPUProcessPool:
@@ -625,9 +687,18 @@ class _CPUProcessPool:
     results from an abandoned epoch's tasks are recognized and dropped.
     ``spawn``, never ``fork``: the parent runs threads and may hold a CUDA
     context.  Workers are daemon processes; the loader's ``close`` ends
-    them."""
+    them.
 
-    def __init__(self, payload: bytes, hard_cap: int) -> None:
+    With the shm transport (``shm_spec`` = ``(slot_bytes, slots)``) the pool
+    creates, and so owns, one slab a worker; ``_slabs`` is a live list
+    shared with the exit finalizer, so segments made for respawned workers
+    are unlinked even if the pool is never closed.  The finalizer runs
+    before multiprocessing's own atexit ends the daemon workers, so a pump
+    could reap those and respawn after the slabs were unlinked; the shared
+    ``_shutdown`` flag bars ``ensure`` from spawning once it is set."""
+
+    def __init__(self, payload: bytes, hard_cap: int,
+                 shm_spec: Optional[Tuple[int, int]] = None) -> None:
         self.ctx = multiprocessing.get_context("spawn")
         self.payload = payload
         self.hard_cap = max(1, hard_cap)
@@ -640,6 +711,12 @@ class _CPUProcessPool:
         self._sid = 0
         self._lock = threading.Lock()
         self._closed = False
+        self.shm_spec = shm_spec
+        self.slab_cap: Optional[int] = None  # live usable-slot bound
+        self._slabs: List[shm_mod.ParentSlab] = []
+        self._shutdown = threading.Event()
+        self._finalizer = weakref.finalize(
+            self, _finalize_pool, self._slabs, self._shutdown)
 
     def next_sid(self) -> int:
         with self._lock:
@@ -660,15 +737,28 @@ class _CPUProcessPool:
 
     def spawn_one(self) -> None:
         parent_conn, child_conn = self.ctx.Pipe()
+        slab = None
+        worker_spec = None
+        if self.shm_spec is not None:
+            slab = shm_mod.ParentSlab(*self.shm_spec)
+            self._slabs.append(slab)
+            worker_spec = slab.spec()
         proc = self.ctx.Process(
             target=_cpu_proc_main,
-            args=(self.payload, child_conn),
+            args=(self.payload, child_conn, worker_spec),
             name=f"pipe-cpu-proc-{len(self.workers)}",
             daemon=True,
         )
         proc.start()
         child_conn.close()  # the child holds its own copy
-        self.workers.append(_ProcWorker(proc, parent_conn))
+        w = _ProcWorker(proc, parent_conn, slab)
+        if slab is not None and self.slab_cap is not None:
+            # respawned workers honour the tuned slab-pressure cap too
+            try:
+                w.send(("slab_cap", self.slab_cap))
+            except OSError:  # pragma: no cover - died at birth; reap handles it
+                pass
+        self.workers.append(w)
 
     def ensure(self, n: int) -> None:
         """Grow toward ``n`` workers (at most ``hard_cap``), by at most
@@ -678,7 +768,7 @@ class _CPUProcessPool:
         # under the lock: at an epoch takeover the outgoing and incoming
         # pumps briefly coexist, and unsynchronized growth could overshoot
         with self._lock:
-            if self._closed:
+            if self._closed or self._shutdown.is_set():
                 return
             want = min(max(n, 1), self.hard_cap, len(self.workers) + PROC_SPAWN_STEP)
             while len(self.workers) < want:
@@ -692,9 +782,48 @@ class _CPUProcessPool:
         with self._lock:
             if w in self.workers:
                 self.workers.remove(w)
+        if w.slab is not None:
+            # views already delivered stay valid (the parent owns the
+            # mapping); the name is dropped now so nothing outlives the pool
+            w.slab.retire()
+
+    def reset_slabs(self) -> None:
+        """Epoch takeover: every slot is reclaimed wholesale (a previous
+        iterator may have been abandoned with handles it never released)."""
+        for w in list(self.workers):
+            if w.slab is None:
+                continue
+            w.slab.reset_accounting()
+            try:
+                w.send(("slab_reset",))
+            except OSError:
+                pass  # dead worker; the pump's reap pass replaces it
+
+    def set_slab_cap(self, cap: int) -> None:
+        """The autotuner's live slab-pressure knob: bound how many slots each
+        worker may use (lower = earlier pickle fallback, less memory hot)."""
+        self.slab_cap = cap
+        for w in list(self.workers):
+            if w.slab is None:
+                continue
+            try:
+                w.send(("slab_cap", cap))
+            except OSError:
+                pass
+
+    def inject_crash(self, mode: str = "now", worker: int = 0) -> None:
+        """TEST HOOK: make worker ``worker`` die: ``"now"`` at once,
+        ``"mid_slab_write"`` on the first task sent after this message, with
+        a slot claimed and half-written (crash-safe slot reclamation)."""
+        with self._lock:
+            if not self.workers:
+                raise RuntimeError("no workers to crash")
+            w = self.workers[worker % len(self.workers)]
+        w.send(("die", mode))
 
     def close(self) -> None:
-        """Terminate every worker (the loader's ``close``)."""
+        """Terminate every worker (the loader's ``close``) and unlink every
+        slab."""
         with self._lock:
             self._closed = True
             workers, self.workers = list(self.workers), []
@@ -709,6 +838,8 @@ class _CPUProcessPool:
             if w.proc.is_alive():
                 w.proc.terminate()
                 w.proc.join(timeout=2.0)
+        shm_mod.close_slabs(self._slabs)
+        self._slabs.clear()
 
 
 class _ProcCPUStage:
@@ -725,7 +856,9 @@ class _ProcCPUStage:
     Crash handling: a dead worker's in-flight samples are requeued ahead of
     fresh work and retried on another worker up to ``PROC_TASK_ATTEMPTS``
     attempts (raw bytes are kept parent-side, so a retry never refetches),
-    the corpse is reaped and a replacement spawned."""
+    the corpse is reaped and a replacement spawned.  With the shm transport
+    the pump also flushes the slots collate released back to their workers
+    (``free`` messages), and a dead worker's slab is retired with it."""
 
     def __init__(
         self,
@@ -751,7 +884,12 @@ class _ProcCPUStage:
         self.gate = AdjustableSemaphore(PROC_PREFILL_DEPTH * self._width)
         self.active = True
         self.requeued = 0  # samples retried after a worker crash
+        # transport accounting (stage_stats()["transport"]): a pipe sample
+        # costs serialize + deserialize (2x payload), an shm sample the
+        # worker's single slab write
+        self.shm_samples = 0
         self.pipe_samples = 0
+        self.fallbacks: Dict[str, int] = {}
         self.bytes_copied = 0
         self._inflight: Dict[int, _Sample] = {}
         self._attempts: Dict[int, int] = {}
@@ -760,6 +898,8 @@ class _ProcCPUStage:
         # executor flip mid-epoch), so the pump grows the pool from its
         # first pass on
         pool.attach(self, payload)
+        if pool.shm_spec is not None:
+            pool.reset_slabs()
         self._thread = threading.Thread(
             target=self._run, name="pipe-cpu-pool-pump", daemon=True
         )
@@ -791,6 +931,7 @@ class _ProcCPUStage:
                 return
             self._reap()
             self.pool.ensure(self._width)
+            self._flush_frees()
             self._dispatch()
             workers = list(self.pool.workers)
             busy = [w.conn for w in workers if w.sids]
@@ -803,6 +944,21 @@ class _ProcCPUStage:
                         self._resolve(w, w.conn.recv())
                     except (EOFError, OSError):
                         pass  # worker died mid-send; the next reap handles it
+
+    def _flush_frees(self) -> None:
+        """Return consumed slots to their workers (shm transport): collate
+        queued them through ``ShmItem.release``; sending them on the command
+        pipe here keeps the consumer's release path lock-only."""
+        for w in list(self.pool.workers):
+            if w.slab is None:
+                continue
+            pairs = w.slab.drain_freed()
+            if not pairs:
+                continue
+            try:
+                w.send(("free", pairs))
+            except OSError:
+                pass  # dead worker; its slab is retired by the reap pass
 
     def _dispatch(self) -> None:
         while self._owned():
@@ -889,24 +1045,42 @@ class _ProcCPUStage:
         self._attempts.pop(sid, None)
         if s is None:
             return  # stale result from an abandoned epoch's stage
-        if tag == "done":
-            _, _, item, (t0, t1, t2) = msg
-            # pickle transport: one serialize in the worker, one deserialize
-            # here — two full passes over the payload
-            nbytes = item_nbytes(item) if isinstance(item, dict) else 0
+        if tag == "done_shm":
+            _, _, handle, (t0, t1, t2) = msg
+            item: Any = w.slab.view_item(handle)
+            # the worker's slab write is the transport's only copy
+            nbytes = handle[2]
+            self.shm_samples += 1
+            self.bytes_copied += nbytes
+            self.tracer.count(BYTES_COPIED, nbytes)
+            self._record_proc_spans(w, s, t0, t1, t2)
+            s.raw = None
+            self.done_q.put((s, item))
+        elif tag == "done":
+            _, _, item, (t0, t1, t2), why = msg
+            # pickle transport (or an shm sample's fallback, with its
+            # reason): one serialize in the worker, one deserialize here,
+            # two full passes over the payload
+            nbytes = shm_mod.item_nbytes(item) if isinstance(item, dict) else 0
             self.pipe_samples += 1
             self.bytes_copied += 2 * nbytes
             self.tracer.count(BYTES_COPIED, 2 * nbytes)
-            pid = w.proc.pid
-            self.tracer.record(STAGE_DECODE, t0, t1, tid=pid,
-                               index=s.index, batch_id=s.batch_id, proc=True)
-            self.tracer.record(STAGE_AUGMENT, t1, t2, tid=pid,
-                               index=s.index, batch_id=s.batch_id, proc=True)
+            if why is not None:
+                self.fallbacks[why] = self.fallbacks.get(why, 0) + 1
+            self._record_proc_spans(w, s, t0, t1, t2)
             s.raw = None
             self.done_q.put((s, item))
         else:  # "err": a dataset exception, not a crash — no retry
             self.done_q.put((s, _Failure(msg[2])))
         self.gate.release()
+
+    def _record_proc_spans(self, w: _ProcWorker, s: _Sample,
+                           t0: float, t1: float, t2: float) -> None:
+        pid = w.proc.pid
+        self.tracer.record(STAGE_DECODE, t0, t1, tid=pid,
+                           index=s.index, batch_id=s.batch_id, proc=True)
+        self.tracer.record(STAGE_AUGMENT, t1, t2, tid=pid,
+                           index=s.index, batch_id=s.batch_id, proc=True)
 
     def join(self, timeout: float = 2.0) -> None:
         self._thread.join(timeout=timeout)
@@ -1119,6 +1293,23 @@ class _PipelineIter:
                     ) from e
                 self._proc_payload = None  # the executor-kind knob is just absent
 
+        # process-stage result transport: the zero-copy slab ring means
+        # something only where a process stage can exist (split + picklable);
+        # everything else keeps the pickle pipe (and the thread stage has no
+        # transport: its items never leave the process)
+        self.transport = "pipe"
+        self._shm_spec: Optional[Tuple[int, int]] = None
+        if pipe.transport == "shm" and self._proc_payload is not None:
+            self.transport = "shm"
+            self._shm_spec = (pipe.slab_slot_bytes, pipe.slab_slots)
+        # slab-pressure knob state (usable-slot cap <= allocated slots)
+        self._slab_cap = self._shm_spec[1] if self._shm_spec else 0
+        if at.enabled and self._shm_spec and "slab_slots" in loader._tuned:
+            self._slab_cap = min(
+                max(loader._tuned["slab_slots"], at.min_slab_slots),
+                self._shm_spec[1],
+            )
+
         self._stop = threading.Event()
         self.decode_q = _BoundedQ(queue_depth, self._stop)
         self.done_q: "queue.Queue" = queue.Queue()
@@ -1190,9 +1381,17 @@ class _PipelineIter:
         abandoned one (and its stage threads) until the next bind()."""
         _wget, _wset = make_weak_knob_callbacks(self)
         extra_kw: Dict[str, Any] = {}
+        if self._shm_spec is not None:
+            # the slab-pressure knob exists only while the shm transport is
+            # live (the slab allocation caps how far it may rise)
+            extra_kw.update(
+                get_slab=_wget(lambda it: it._slab_cap),
+                set_slab=_wset(lambda it, n: it._set_slab_slots(n)),
+                max_slab=self._shm_spec[1],
+            )
         if not self.strict:
             # the reorder-window knob exists only where the window does
-            extra_kw = dict(
+            extra_kw.update(
                 get_reorder=_wget(lambda it: it.window),
                 set_reorder=_wset(lambda it, n: it._set_reorder_window(n)),
             )
@@ -1258,13 +1457,18 @@ class _PipelineIter:
         if kind == "process":
             if self._proc_cpu is None:
                 pool = self.loader._cpu_pool
-                if pool is None or pool._closed:
-                    pool = _CPUProcessPool(self._proc_payload, self._cpu_hard)
+                if pool is None or pool._closed or pool.shm_spec != self._shm_spec:
+                    if pool is not None:
+                        pool.close()  # another transport's slabs: rebuild
+                    pool = _CPUProcessPool(self._proc_payload, self._cpu_hard,
+                                           shm_spec=self._shm_spec)
                     self.loader._cpu_pool = pool
                 else:
                     # a pool from a narrower static epoch: lift its ceiling
                     # instead of closing and respawning it on this thread
                     pool.raise_cap(self._cpu_hard)
+                if self._shm_spec and self._slab_cap < self._shm_spec[1]:
+                    pool.set_slab_cap(self._slab_cap)
                 self._proc_cpu = _ProcCPUStage(
                     self._proc_payload, pool=pool, width=self._cpu_width,
                     hard_cap=self._cpu_hard, decode_q=self.decode_q,
@@ -1350,6 +1554,22 @@ class _PipelineIter:
         applied = self.decode_q.resize(n, self._max_queue_bound)
         self.loader._tuned["stage_queue"] = applied
         return applied
+
+    def _set_slab_slots(self, n: int) -> int:
+        """Slab-pressure knob (shm transport): cap the usable slots of each
+        worker's slab.  The allocation is fixed (``slab_slots``), so the cap
+        only gates which slots a worker may hand out: lowering it never
+        touches slots in flight, it forces earlier pickle fallback; raising
+        it re-admits parked slots on their next free."""
+        at = self.cfg.autotune
+        hi = self._shm_spec[1] if self._shm_spec else 1
+        n = max(at.min_slab_slots, min(int(n), hi))
+        self._slab_cap = n
+        stage = self._proc_cpu
+        if stage is not None:
+            stage.pool.set_slab_cap(n)
+        self.loader._tuned["slab_slots"] = n
+        return n
 
     def _set_reorder_window(self, n: int) -> int:
         """Reorder-window knob (window mode only): takes effect for the NEXT
@@ -1471,7 +1691,9 @@ class _PipelineIter:
         # collate is one full pass over the batch either way (np.stack
         # allocates+copies; staging copies into a reused buffer)
         if isinstance(batch, dict):
-            self.tracer.count(BYTES_COPIED, item_nbytes(batch))
+            self.tracer.count(BYTES_COPIED, shm_mod.item_nbytes(batch))
+        # collate copied every view out: hand the shm slots back for reuse
+        shm_mod.release_items(items)
         self._emitted_batches += 1
         # consumer cursor in absolute batch ids (resume starts past 0)
         consumed = self._bid_base + self._emitted_batches
@@ -1573,11 +1795,33 @@ class _PipelineIter:
             }
             if pool.last_error:
                 out["cpu_pool"]["last_error"] = pool.last_error
-            out["transport"] = {
-                "kind": "pipe",
+            samples = stage.shm_samples + stage.pipe_samples
+            tr: Dict[str, Any] = {
+                "kind": self.transport,
+                "shm_samples": stage.shm_samples,
                 "pipe_samples": stage.pipe_samples,
+                "fallbacks": dict(stage.fallbacks),
+                "fallback_rate": (
+                    round(sum(stage.fallbacks.values()) / samples, 4)
+                    if samples else 0.0
+                ),
                 "bytes_copied": stage.bytes_copied,
             }
+            if pool.shm_spec is not None:
+                slot_bytes, slots = pool.shm_spec
+                live = [w.slab for w in pool.workers if w.slab is not None]
+                in_use = sum(sl.in_use for sl in live)
+                peak = max((sl.peak for sl in live), default=0)
+                total = slots * max(len(live), 1)
+                tr.update(
+                    slot_bytes=slot_bytes,
+                    slab_slots=slots,
+                    slab_cap=self._slab_cap,
+                    slots_in_use=in_use,
+                    slots_peak_per_worker=peak,
+                    occupancy=round(in_use / total, 4) if total else 0.0,
+                )
+            out["transport"] = tr
         hedge = self.io.hedge
         if hedge is not None:
             out["hedges_issued"] = hedge.hedges_issued

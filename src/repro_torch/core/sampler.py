@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -70,6 +70,32 @@ class ShardedBatchSampler:
         self.num_hosts = num_hosts
         self.epoch = 0
         self.next_batch = 0
+        self._filter_fn: Optional[Callable[[int], Optional[np.ndarray]]] = None
+
+    # -- predicate pushdown ----------------------------------------------------
+    def set_filter(self, filter_fn: Optional[Callable[[int], Optional[np.ndarray]]]) -> None:
+        """Install a per-epoch row filter (columnar predicate pushdown).
+
+        ``filter_fn(epoch)`` returns a boolean keep-mask over dataset indices
+        (or None for an unfiltered epoch).  The mask is applied to the epoch
+        permutation *preserving permutation order*, so the filtered stream
+        equals the unfiltered stream with rejected rows removed; and because
+        the mask is a pure function of the epoch, (epoch, next_batch) resume
+        cursors replay the identical filtered stream.
+        """
+        self._filter_fn = filter_fn
+
+    def _epoch_perm(self, epoch: int) -> np.ndarray:
+        perm = epoch_permutation(self.dataset_len, self.seed, epoch, self.shuffle)
+        if self._filter_fn is not None:
+            mask = self._filter_fn(epoch)
+            if mask is not None:
+                mask = np.asarray(mask, dtype=bool)
+                if mask.shape != (self.dataset_len,):
+                    raise ValueError(
+                        f"filter mask shape {mask.shape} != ({self.dataset_len},)")
+                perm = perm[mask[perm]]
+        return perm
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -95,11 +121,16 @@ class ShardedBatchSampler:
 
     # -- iteration -----------------------------------------------------------
     def __iter__(self) -> Iterator[BatchIndices]:
-        perm = epoch_permutation(self.dataset_len, self.seed, self.epoch, self.shuffle)
-        nb = len(self)
+        perm = self._epoch_perm(self.epoch)
+        if self.drop_last:
+            nb = len(perm) // self.global_batch_size
+        else:
+            nb = -(-len(perm) // self.global_batch_size)
         for b in range(self.next_batch, nb):
             lo = b * self.global_batch_size
             gbatch = perm[lo : lo + self.global_batch_size]
+            if len(gbatch) < self.global_batch_size and self.drop_last:
+                break
             mine = shard_plan(list(map(int, gbatch)), self.host_id, self.num_hosts)
             self.next_batch = b + 1
             yield BatchIndices(b, tuple(mine), len(gbatch))

@@ -2,8 +2,9 @@
 
 Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
 ``run_training_batch``, the cache tiers' ``cache_get`` and the staged
-pipeline's ``stage_*`` lanes) with wall-clock start/end and thread id, like
-the log-entry instrumentation in the paper, plus named monotonic counters
+pipeline's ``stage_*`` lanes, the read path's ``serve_get``) with
+wall-clock start/end and thread id, like the log-entry instrumentation in
+the paper, plus named monotonic counters
 (``bytes_copied``).  Exports Chrome ``trace_event`` JSON
 (:meth:`Tracer.dump`) so the Fig. 1 lanes open in Perfetto, and feeds the
 Table-3 busy/idle statistics (:mod:`repro_torch.core.utilization`) and the
@@ -34,6 +35,10 @@ STAGE_FETCH = "stage_fetch"
 STAGE_DECODE = "stage_decode"
 STAGE_AUGMENT = "stage_augment"
 STAGE_COLLATE = "stage_collate"
+# serving read path (repro_torch.serve.readpath): one span per ReadPath.get,
+# tagged with tenant, serving source (memory | disk | coalesced | fetch),
+# and whether a hedge fired
+SERVE_GET = "serve_get"
 # monotonic counter (not a span lane): host bytes copied on a sample's way
 # from decode to the collated batch (collate's pass, and the process CPU
 # stage's pickle both ways)

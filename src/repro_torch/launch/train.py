@@ -173,6 +173,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--cpu-executor", choices=["thread", "process"], default="thread",
                     help="pipeline decode+augment executor: 'thread' or 'process' "
                          "(spawned worker processes, which import no torch)")
+    ap.add_argument("--transport", choices=["pipe", "shm"], default="pipe",
+                    help="process CPU stage result transport: 'pipe' (pickle both "
+                         "ways) or 'shm' (zero-copy shared-memory slabs; only "
+                         "meaningful with --cpu-executor process)")
     ap.add_argument("--staging-buffers", type=int, default=0,
                     help="pinned host staging: collate into this many reusable "
                          "buffer sets that the ring copies from, pinned in place "
@@ -227,7 +231,7 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
                 enabled=args.pipeline, reorder=args.reorder,
                 reorder_window=args.reorder_window, io_workers=args.io_workers,
                 cpu_workers=args.cpu_workers, cpu_executor=args.cpu_executor,
-                staging_buffers=args.staging_buffers,
+                transport=args.transport, staging_buffers=args.staging_buffers,
             ),
         ),
         build_dataset(cfg, args, tracer),

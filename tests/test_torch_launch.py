@@ -169,16 +169,17 @@ def test_shared_flags_take_the_reference_defaults_and_choices(monkeypatch, launc
     assert "--arch" in shared and port["--arch"][0] == "granite-8b"
     assert launch.parse_args([]).arch == "granite-8b"
     if launcher == "train":
-        assert {"--cache-mb", "--optimizer", "--store", "--pipeline"} <= set(shared)
+        assert {"--cache-mb", "--optimizer", "--store", "--pipeline",
+                "--transport"} <= set(shared)
         # the reference's flags the port lacks come with later items
-        assert set(ref) - set(port) == {"--transport", "--delivery", "--delivery-axis",
+        assert set(ref) - set(port) == {"--delivery", "--delivery-axis",
                                         "--ckpt-dir", "--ckpt-every", "--resume"}
     else:
         assert set(ref) <= set(port)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pipeline", "--transport", "shm"],
+    ["--ckpt-dir", "ckpt"],
     ["--delivery", "sharded"],
     ["--delivery-axis=data"],
 ])
@@ -208,13 +209,16 @@ def _loader_config(monkeypatch, module, call):
 
 
 @pytest.mark.parametrize("flags", [["--hedge"], ["--autotune"], ["--thread-budget", "4"],
-                                   ["--cache-mb", "4"]])
+                                   ["--cache-mb", "4"],
+                                   ["--cpu-executor", "process", "--transport", "shm"]])
 def test_launcher_flags_build_the_reference_loader_config(monkeypatch, flags):
-    """``--hedge``, ``--autotune``, ``--thread-budget N`` and ``--cache-mb N``
-    reach the loader and the store as the reference's launcher passes them:
-    ``hedge_requests``, an ``AutotuneConfig`` enabled by either autotune
-    flag, with the budget, and a ``StoreConfig`` whose ``CacheConfig`` holds
-    an N MiB memory tier (no tracer handed to the store, in either)."""
+    """``--hedge``, ``--autotune``, ``--thread-budget N``, ``--cache-mb N``
+    and ``--transport shm`` reach the loader and the store as the
+    reference's launcher passes them: ``hedge_requests``, an
+    ``AutotuneConfig`` enabled by either autotune flag, with the budget, a
+    ``StoreConfig`` whose ``CacheConfig`` holds an N MiB memory tier (no
+    tracer handed to the store, in either), and the reference's
+    ``PipelineConfig`` (the transport and slab sizes included)."""
     import sys
 
     from repro.launch import train as jax_launch
@@ -250,6 +254,8 @@ def test_launcher_flags_build_the_reference_loader_config(monkeypatch, flags):
     assert {f: getattr(port.autotune, f) for f in ported} == {
         f: getattr(ref.autotune, f) for f in ported}
     assert port.pipeline.enabled and ref.pipeline.enabled
+    assert dataclasses.asdict(port.pipeline) == dataclasses.asdict(ref.pipeline)
+    assert port.pipeline.transport == ("shm" if "--transport" in flags else "pipe")
     assert port.hedge_requests is (flags[0] == "--hedge")
     assert port.autotune.enabled is (flags[0] in ("--autotune", "--thread-budget"))
     assert port.autotune.thread_budget == (4 if flags[0] == "--thread-budget" else 0)

@@ -98,11 +98,12 @@ print("torch" in sys.modules)
 
 @pytest.mark.parametrize("module", ["repro_torch.core.pipeline", "repro_torch.core.staging",
                                     "repro_torch.core.loader", "repro_torch.core.factory",
-                                    "repro_torch.core.autotune",
+                                    "repro_torch.core.autotune", "repro_torch.core.shm",
                                     "repro_torch.core.coord", "repro_torch.core.elastic",
                                     "repro_torch.data.cache", "repro_torch.data.store",
                                     "repro_torch.data.dataset",
-                                    "repro_torch.data.imagenet_synth"])
+                                    "repro_torch.data.imagenet_synth",
+                                    "repro_torch.data.columnar", "repro_torch.data.shards"])
 def test_loader_module_imports_without_torch(module):
     """A spawned CPU worker of the staged pipeline imports these modules
     (and unpickles the dataset), and a spawned elastic member or cache

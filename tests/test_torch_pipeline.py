@@ -490,17 +490,18 @@ def test_bad_cpu_executor_rejected(dataset):
 
 
 def test_config_and_factory_carry_only_ported_options(dataset):
-    """``PipelineConfig`` has the fields this slice reads and no other (the
-    reference's ``transport`` and slab sizes come with the shared-memory
-    transport), ``make_loader`` has no ``mesh`` parameter, and the
-    reference's validation of the ported fields holds."""
+    """``PipelineConfig`` has the reference's fields (the shared-memory
+    transport's ``transport`` and slab sizes included), with its defaults,
+    ``make_loader`` has no ``mesh`` parameter, and the reference's
+    validation of the ported fields holds."""
     import dataclasses
     import inspect
 
     from repro_torch.core import make_loader
 
     ported = ["enabled", "reorder", "reorder_window", "io_workers", "cpu_workers",
-              "cpu_executor", "stage_queue_depth", "staging_buffers"]
+              "cpu_executor", "stage_queue_depth", "transport", "slab_slot_bytes",
+              "slab_slots", "staging_buffers"]
     assert [f.name for f in dataclasses.fields(PipelineConfig)] == ported
     ref = {f.name: f.default for f in dataclasses.fields(JaxPipelineConfig)}
     assert {f.name: f.default for f in dataclasses.fields(PipelineConfig)} == {
