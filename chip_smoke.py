@@ -105,6 +105,29 @@ Phases, each printing one JSON line:
    of each; gated on one primary fetch a key a coalesce window, the disk
    tier within its bound at every 50 ms sample, the scraper within its
    byte budget, every payload the store's.  Host only; no kernel runs.
+6f. main_resume — checkpointing, fault tolerance and sharded delivery on
+   full-width ResNet-18 from s3sim with ``--device-ingest``: (a) the
+   launcher in child processes (deterministic algorithms, cuDNN's search
+   off, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), 12 AdamW steps of 32 over 320
+   items: run B unbroken, run A with ``--ckpt-dir --ckpt-every 4``
+   SIGKILLed (its whole session) as soon as its step-8 checkpoint exists,
+   then A again with ``--resume`` (and B again under PyTorch's defaults,
+   its losses against B's printed: whether the settings were needed); gated on the resume starting from the
+   newest complete step (a ``.tmp-`` directory left by the kill, or one
+   standing in for it, never counts), every resumed loss within rel 1e-5
+   of B's at that step (the largest difference printed), the killed run's
+   printed losses B's, and launches equal to batches moved in each
+   finished child.  (b) 256 items at batch 32 through ``make_loader``
+   and the staged pipeline, over a one-lane mesh on cuda:0 and through
+   host delivery, each through the device ring and ``ingest_norm``: the
+   f32 batches bit-equal, the sharded ring copying nothing (no
+   ``batch_to_device`` span, 0 bytes) while the lane records a
+   ``lane_h2d`` span a batch, items/s of both.  (c) a sharded loader
+   stopped after 5 batches, its state (lane block included) loaded by a
+   fresh one: batches 6-8 bit-equal to an unbroken run's.  (d) the full
+   ResNet-18 AdamW state's checkpoint: bytes, the time
+   ``save(blocking=False)`` blocks, the background write, the step right
+   after a save against steps without one (figures, not gates).
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
@@ -141,13 +164,14 @@ Phases, each printing one JSON line:
    frames) and internvl2-26b (VLM, batches with patch embeddings) smoke
    models on the card against the CPU (fp32, TF32 off), loss and aux loss.
 12. main_mla — minicpm3-4b at full width (depth 62 cut to 4) trained from
-   simulated S3 through the launcher as main_lm, then served whole (62
+   simulated S3 through the launcher as main_lm (8 steps over 16
+   sequences since main_resume joined the script), then served whole (62
    layers) through ``launch/serve.py`` at the reference launcher's
    defaults, with main_serve's (a), (b), (c) and (e), and the absorbed
    MLA decode against the expanded one (``MLA_ABSORB_MAX_S = 0``) on the
    engine's pooled cache.
 13. main_moe — granite-moe-3b-a800m at full width (32 cut to 4) trained
-   the same way (aux loss positive), gather against einsum dispatch on one
+   the same way (8 steps over 16 sequences) (aux loss positive), gather against einsum dispatch on one
    full-width layer at the training shape (fp32, within 2e-5), then
    granite-moe-3b-a800m served whole with (a) and (b), and
    qwen2-moe-a2.7b served whole (15.15 B parameters) with (a), its init
@@ -158,8 +182,8 @@ Phases, each printing one JSON line:
    on the MLA or MoE paths (no Pallas route in the reference's MLA or
    MoE).
 14. main_hybrid — jamba-v0.1-52b: (t) trained through the launcher at its
-   smoke widths (full width does not train on one card), main_lm's loader
-   and steps, aux loss positive; (a) one full-width period (8 layers, 13.30
+   smoke widths (full width does not train on one card), main_lm's loader,
+   main_mla's 8 steps over 16 sequences, aux loss positive; (a) one full-width period (8 layers, 13.30
    B parameters) served through ``launch/serve.py`` at the reference
    launcher's defaults, main_serve's figures; (b) pooled against batch-1
    decode printed, not gated (decode capacity 2), beside the ticks where a
@@ -195,6 +219,8 @@ Launch counts are set to 0 just before each main path and read just after
 (for main_pipeline and main_autotune, around each launcher run; for main_cache, around
 each launcher run and each training run of (b) and (c); for main_formats, around
 its launcher run (a), each device stream of (b) and the training run of (c);
+for main_resume, inside each child of (a) (the killed run's count dies with
+it) and around each device stream of (b);
 for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
 again around (d); for main_mla, main_moe and main_hybrid, around each
@@ -211,6 +237,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -343,12 +372,18 @@ RWKV_SERVE_REQUESTS, RWKV_SERVE_SLOTS = 8, 4
 # the reference launcher's defaults, held as main_serve's granite-8b.
 MLA_ARCH, MOE_ARCH, QWEN_ARCH = "minicpm3-4b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"
 MLA_TRAIN_ARCH, MOE_TRAIN_ARCH, FAMILY_LAYERS = "minicpm3-4b-4l", "granite-moe-3b-a800m-4l", 4
-MLA_TRAIN_ARGS = [a if a != LM_ARCH else MLA_TRAIN_ARCH for a in LM_ARGS]
-MOE_TRAIN_ARGS = [a if a != LM_ARCH else MOE_TRAIN_ARCH for a in LM_ARGS]
-MLA_REDUCED = {"num_layers": "62 -> 4, as main_lm", "items": LM_REDUCED["items"],
-               "steps": LM_STEPS}
-MOE_REDUCED = {"num_layers": "32 -> 4, as main_lm", "items": LM_REDUCED["items"],
-               "steps": LM_STEPS}
+# Their training runs 8 steps over 16 sequences (4 batches an epoch, so the
+# steps still cross an epoch boundary), main_rwkv's cut, to keep the script
+# inside its time budget since main_resume joined it.
+FAMILY_ITEMS, FAMILY_STEPS = 16, 8
+MLA_TRAIN_ARGS = with_values([a if a != LM_ARCH else MLA_TRAIN_ARCH for a in LM_ARGS],
+                             items=FAMILY_ITEMS, steps=FAMILY_STEPS)
+MOE_TRAIN_ARGS = with_values([a if a != LM_ARCH else MOE_TRAIN_ARCH for a in LM_ARGS],
+                             items=FAMILY_ITEMS, steps=FAMILY_STEPS)
+MLA_REDUCED = {"num_layers": "62 -> 4, as main_lm",
+               "items": "16 packed sequences of 4097 tokens", "steps": FAMILY_STEPS}
+MOE_REDUCED = {"num_layers": "32 -> 4, as main_lm",
+               "items": "16 packed sequences of 4097 tokens", "steps": FAMILY_STEPS}
 MLA_SERVE_ARGS = ["--arch", MLA_ARCH, "--full", "--device", "cuda"]
 MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--full", "--device", "cuda"]
 QWEN_SERVE_ARGS = ["--arch", QWEN_ARCH, "--full", "--device", "cuda"]
@@ -366,11 +401,15 @@ MOE_ROUTE_TOL = 2e-5
 # HYBRID_SERVE_ARCH, at the reference launcher's defaults.
 HYBRID_ARCH, HYBRID_SERVE_ARCH, HYBRID_SERVE_LAYERS = "jamba-v0.1-52b", "jamba-v0.1-52b-8l", 8
 HYBRID_STACKED_LAYERS = 16  # the smoke model in two stacked blocks of 8
-HYBRID_TRAIN_ARGS = [HYBRID_ARCH if a == LM_ARCH else a for a in LM_ARGS if a != "--full"]
+# Its smoke training (host-bound: 4-5 s a step) runs main_mla's 8 steps over
+# 16 sequences, cut like theirs for the script's time budget.
+HYBRID_TRAIN_ARGS = with_values(
+    [HYBRID_ARCH if a == LM_ARCH else a for a in LM_ARGS if a != "--full"],
+    items=FAMILY_ITEMS, steps=FAMILY_STEPS)
 HYBRID_TRAIN_REDUCED = {
     "widths": "smoke config (d_model 64, 8 layers): full width does not train on one card "
               "(4 layers are 6.88 B parameters, 110 GB with AdamW state; ROADMAP 4.7)",
-    "items": LM_REDUCED["items"], "steps": LM_STEPS}
+    "items": "16 packed sequences of 4097 tokens", "steps": FAMILY_STEPS}
 HYBRID_SERVE_ARGS = ["--arch", HYBRID_SERVE_ARCH, "--full", "--device", "cuda"]
 HYBRID_SERVE_REDUCED = {"num_layers": "32 -> 8, one period"}
 # (c) the Mamba state carried from prefill to decode on one served layer:
@@ -2702,6 +2741,383 @@ def phase_main_formats(torch, ops, pipe_out: dict, smi: str) -> dict:
     return {"parts": parts, "launches": launches, "launches_total": sum(launches.values())}
 
 
+# The crash/resume path (main_resume).  (a) full-width ResNet-18 from s3sim
+# with --device-ingest through the launcher in subprocesses: 12 steps of 32
+# over 320 items (10 batches an epoch, so the resumed steps 9-12 cross an
+# epoch boundary), the launcher's default optimizer (AdamW: the checkpoint
+# holds both moments), a checkpoint every 4 steps; run A is SIGKILLed once
+# its step-8 checkpoint exists, then resumed; each resumed loss within the
+# reference test's rel=1e-5 of the unbroken run B's.  The children run
+# with deterministic algorithms (RESUME_CHILD), cuDNN's algorithm search
+# off: a resumed process may otherwise pick other convolution algorithms.
+RESUME_ITEMS, RESUME_BS, RESUME_STEPS, RESUME_EVERY, RESUME_KILL_AT = 320, 32, 12, 4, 8
+RESUME_TOL = 1e-5
+RESUME_ARGS = [
+    "--arch", "resnet18-imagenet", "--full", "--device", "cuda", "--device-ingest",
+    "--items", str(RESUME_ITEMS), "--avg-kb", "115", "--batch-size", str(RESUME_BS),
+    "--latency", "0.02", "--loader", "threaded", "--workers", "4", "--fetchers", "16",
+    "--steps", str(RESUME_STEPS), "--log-every", "1", "--seed", "0",
+]
+RESUME_CHILD = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+if sys.argv[2] == "deterministic":
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+from repro_torch.kernels.ingest_norm import ops
+from repro_torch.launch import train
+ops.ingest_norm.launches = 0
+report = train.run(sys.argv[3:])
+start = report.resumed_from or 0
+print("RESUME_CHILD " + json.dumps({
+    "resumed_from": report.resumed_from, "steps": report.result.steps,
+    "losses": {start + i + 1: h["loss"] for i, h in enumerate(report.result.history)},
+    "launches": ops.ingest_norm.launches, "batches_transferred": report.batches_transferred,
+    "items_per_s": report.items_per_s, "wall_s": report.result.wall_s,
+    "deterministic": torch.are_deterministic_algorithms_enabled(),
+    "cudnn_benchmark": torch.backends.cudnn.benchmark}), flush=True)
+'''
+# (b), (c): make_loader with the staged pipeline (2 staging buffers) over
+# 256 items of 115 KB behind s3sim at batch 32: 8 batches, through a
+# one-lane mesh over cuda:0 and through host delivery; (c) stops a sharded
+# loader after 5 batches and resumes a fresh one from its state.
+SHARD_ITEMS, SHARD_BS, SHARD_STOP = 256, 32, 5
+# (d) the full ResNet-18 AdamW train state, saved asynchronously under
+# build/ while the step runs on a batch already on the card
+CKPT_COST_BS, CKPT_COST_STEPS, CKPT_COST_SAVES = 32, 6, 3
+
+
+def resume_child(args: list, deterministic: bool = True):
+    """The launcher with ``args`` in a child process of its own session,
+    deterministic algorithms on (RESUME_CHILD), or PyTorch's defaults."""
+    env = dict(os.environ)
+    if deterministic:
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    mode = "deterministic" if deterministic else "defaults"
+    return subprocess.Popen([sys.executable, "-c", RESUME_CHILD, str(SRC), mode, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, start_new_session=True)
+
+
+def child_report(proc, label: str, timeout: float = 600) -> dict:
+    out, err = proc.communicate(timeout=timeout)
+    lines = [ln for ln in out.splitlines() if ln.startswith("RESUME_CHILD ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"main_resume {label}: exit {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+    rec = json.loads(lines[-1][len("RESUME_CHILD "):])
+    rec["losses"] = {int(k): v for k, v in rec["losses"].items()}
+    return rec
+
+
+def printed_losses(out: str) -> dict:
+    """The ``step=N loss=X`` lines a launcher printed, by step."""
+    found = (re.match(r"\s*step=(\d+) loss=(\S+)", ln) for ln in out.splitlines())
+    return {int(m.group(1)): float(m.group(2)) for m in found if m}
+
+
+def crash_resume_check(smi: str) -> dict:
+    """(a) Runs B (unbroken) and A (checkpoints every RESUME_EVERY steps)
+    side by side; A is SIGKILLed (its whole session) as soon as
+    ``step_00000008`` exists, then resumed with ``--resume`` while B
+    finishes.  Gated on the
+    resume starting from the newest complete step with no ``.tmp-``
+    directory counted, every resumed loss within RESUME_TOL of B's at that
+    step, the killed run's printed losses B's, and each finished child's
+    ingest_norm launches equal to the batches it moved."""
+    import shutil
+
+    ckpt = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt_args = RESUME_ARGS + ["--ckpt-dir", str(ckpt), "--ckpt-every", str(RESUME_EVERY)]
+    t0 = time.perf_counter()
+    run_b = resume_child(RESUME_ARGS)
+    run_a = resume_child(ckpt_args)
+    target = ckpt / f"step_{RESUME_KILL_AT:08d}"
+    while not target.is_dir():
+        if run_a.poll() is not None:
+            out, err = run_a.communicate()
+            fail(f"main_resume: run A ended ({run_a.returncode}) before its step "
+                 f"{RESUME_KILL_AT} checkpoint\n{out[-2000:]}\n{err[-2000:]}")
+        time.sleep(0.01)
+    os.killpg(run_a.pid, signal.SIGKILL)
+    killed_s = time.perf_counter() - t0
+    a_out, _ = run_a.communicate()
+    at_kill = sorted(os.listdir(ckpt))
+    printed_a = printed_losses(a_out)
+    residue = [d for d in at_kill if ".tmp" in d]
+    planted = None
+    if not residue:
+        # a writer killed mid-write leaves its tmp directory: stand one in
+        # for the step after the kill, with half a file in it
+        planted = f"step_{RESUME_STEPS:08d}.tmp-{run_a.pid + 1}"
+        (ckpt / planted).mkdir()
+        (ckpt / planted / "arrays_h0.npz").write_bytes(b"PK\x03\x04" + bytes(1000))
+    complete = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt) if ".tmp" not in d)
+    run_c = resume_child(ckpt_args + ["--resume"])  # beside what is left of B
+    # B again with PyTorch's defaults: whether this path needed the settings
+    run_p = resume_child(RESUME_ARGS, deterministic=False)
+    b = child_report(run_b, "run B")
+    resume = child_report(run_c, "resumed run")
+    plain = child_report(run_p, "run B with PyTorch's defaults")
+    wall = time.perf_counter() - t0
+    diffs = {s: abs(loss - b["losses"][s]) / abs(b["losses"][s])
+             for s, loss in resume["losses"].items()}
+    abs_diffs = {s: abs(loss - b["losses"][s]) for s, loss in resume["losses"].items()}
+    out = {
+        "phase": "main_resume", "check": "a_crash_resume", "nvidia_smi": smi,
+        "args": RESUME_ARGS, "ckpt_every": RESUME_EVERY, "killed_after_step": RESUME_KILL_AT,
+        "killed_at_s": killed_s, "dir_at_kill": at_kill, "tmp_residue_at_kill": residue,
+        "planted_tmp": planted, "complete_steps": complete,
+        "killed_run_printed_steps": sorted(printed_a),
+        "resumed_from": resume["resumed_from"], "resumed_steps": sorted(resume["losses"]),
+        "losses_unbroken": b["losses"], "losses_resumed": resume["losses"],
+        "max_rel_diff": max(diffs.values()) if diffs else None,
+        "max_abs_diff": max(abs_diffs.values()) if abs_diffs else None,
+        "tolerance_rel": RESUME_TOL,
+        "deterministic": [b["deterministic"], resume["deterministic"]],
+        "cudnn_benchmark": [b["cudnn_benchmark"], resume["cudnn_benchmark"]],
+        # not a gate: the unbroken run under PyTorch's defaults against B
+        "defaults_run": {"deterministic": plain["deterministic"],
+                         "losses_bit_equal_to_unbroken": plain["losses"] == b["losses"],
+                         "max_abs_diff": max(abs(plain["losses"][s] - b["losses"][s])
+                                             for s in b["losses"])},
+        "items_per_s": {"unbroken": b["items_per_s"], "resumed": resume["items_per_s"]},
+        "launches": {"unbroken": b["launches"], "resumed": resume["launches"]},
+        "batches_transferred": {"unbroken": b["batches_transferred"],
+                                "resumed": resume["batches_transferred"]},
+        "wall_s": wall,
+    }
+    emit(out)
+    if complete != list(range(RESUME_EVERY, RESUME_KILL_AT + 1, RESUME_EVERY)):
+        fail(f"main_resume: complete checkpoints {complete} after the kill")
+    if resume["resumed_from"] != max(complete):
+        fail(f"main_resume: resumed from {resume['resumed_from']}, newest complete {complete}")
+    want_steps = list(range(RESUME_KILL_AT + 1, RESUME_STEPS + 1))
+    if sorted(resume["losses"]) != want_steps or sorted(b["losses"]) != list(
+            range(1, RESUME_STEPS + 1)):
+        fail(f"main_resume: steps {sorted(resume['losses'])} resumed, "
+             f"{sorted(b['losses'])} unbroken")
+    if not all(math.isfinite(x) for x in list(b["losses"].values())
+               + list(resume["losses"].values())):
+        fail(f"main_resume: a non-finite loss: {b['losses']}, {resume['losses']}")
+    if out["max_rel_diff"] > RESUME_TOL:
+        fail(f"main_resume: resumed losses {resume['losses']} against {b['losses']}")
+    if not printed_a or any(abs(v - round(b["losses"][s], 4)) > 1e-4
+                            for s, v in printed_a.items()):
+        fail(f"main_resume: the killed run printed {printed_a}, unbroken {b['losses']}")
+    for rec, label in ((b, "unbroken"), (resume, "resumed")):
+        if rec["launches"] == 0 or rec["launches"] != rec["batches_transferred"]:
+            fail(f"main_resume {label}: ingest_norm launched {rec['launches']} times for "
+                 f"{rec['batches_transferred']} batches transferred")
+    out["launches_total"] = b["launches"] + resume["launches"] + plain["launches"]
+    if plain["launches"] != plain["batches_transferred"]:
+        fail(f"main_resume defaults run: ingest_norm launched {plain['launches']} times for "
+             f"{plain['batches_transferred']} batches transferred")
+    return out
+
+
+def shard_loader(base, delivery, tracer):
+    from repro_torch.config import LoaderConfig, PipelineConfig, StoreConfig
+    from repro_torch.core import make_loader
+    from repro_torch.data.dataset import ImageDataset
+    from repro_torch.data.store import build_store
+
+    store = build_store(StoreConfig(kind="s3sim", latency_mean_s=0.02), base=base)
+    return make_loader(LoaderConfig(
+        impl="threaded", batch_size=SHARD_BS, num_workers=4, num_fetch_workers=16, seed=0,
+        pipeline=PipelineConfig(enabled=True, staging_buffers=2), delivery=delivery),
+        ImageDataset(store, SHARD_ITEMS, out_size=224, sim_decode_s_per_mb=0.052,
+                     epilogue="device"), tracer=tracer)
+
+
+def sharded_checks(torch, ops, smi: str) -> dict:
+    """(b) one epoch through a one-lane mesh over cuda:0 against host
+    delivery, each through the device ring and ingest_norm: bit-equal f32
+    batches, the sharded ring copying nothing (no ``batch_to_device`` span,
+    0 bytes) while the lane records one ``lane_h2d`` a batch, and
+    ingest_norm launched once a batch; items/s of each.  (c) a sharded
+    loader stopped after SHARD_STOP batches, its state (with the lane
+    block) loaded by a fresh one: the rest of the epoch bit-equal to an
+    unbroken run's."""
+    from repro_torch.config import DeliverySpec
+    from repro_torch.core.prefetch import DevicePrefetchRing
+    from repro_torch.core.tracing import BATCH_TO_DEVICE, LANE_H2D, Tracer
+    from repro_torch.data.imagenet_synth import build_synthetic_imagenet
+    from repro_torch.launch.mesh import make_mesh
+
+    base = build_synthetic_imagenet(num_items=SHARD_ITEMS, avg_kb=115.0)
+    mesh = make_mesh((1,), ("data",))
+    ingest = ops.make_ingest_fn()
+    nb = SHARD_ITEMS // SHARD_BS
+    runs = {}
+    for label, delivery in (("host", DeliverySpec.host()),
+                            ("sharded", DeliverySpec.sharded(mesh))):
+        tracer = Tracer()
+        loader = shard_loader(base, delivery, tracer)
+        torch.cuda.synchronize()
+        ops.ingest_norm.launches = 0
+        t0 = time.perf_counter()
+        ring = DevicePrefetchRing(iter(loader), depth=2, transfer=not loader.delivers_device_batches,
+                                  tracer=tracer, ingest_fn=ingest, device="cuda")
+        try:
+            batches = list(ring)
+        finally:
+            ring.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = loader.stage_stats()
+        runs[label] = {"batches": batches, "wall_s": wall,
+                       "items_per_s": len(batches) * SHARD_BS / wall,
+                       "launches": ops.ingest_norm.launches,
+                       "ring_bytes": ring.bytes_transferred,
+                       "batch_to_device_spans": len(tracer.spans(BATCH_TO_DEVICE)),
+                       "lane_h2d_spans": len(tracer.spans(LANE_H2D)),
+                       "copy_ms": [1e3 * sp.duration for sp in tracer.spans(
+                           LANE_H2D if loader.delivers_device_batches else BATCH_TO_DEVICE)],
+                       "delivery": stats.get("delivery")}
+    host, sharded = runs["host"], runs["sharded"]
+    equal = len(host["batches"]) == len(sharded["batches"]) == nb and all(
+        set(h) == set(s) and all(torch.equal(h[k], s[k]) for k in h)
+        for h, s in zip(host["batches"], sharded["batches"]))
+    dtypes = sorted({str(b["image"].dtype) for b in sharded["batches"]})
+    lanes = sharded["delivery"]["lanes"]
+    out_b = {"phase": "main_resume", "check": "b_sharded_one_lane", "nvidia_smi": smi,
+             "items": SHARD_ITEMS, "batch_size": SHARD_BS, "batches": nb,
+             "bit_equal": equal, "image_dtypes": dtypes,
+             "lane_h2d_mean_ms": 1e3 * lanes[0]["h2d_mean_s"],
+             "lane_collate_mean_ms": 1e3 * lanes[0]["collate_mean_s"],
+             "staging": sharded["delivery"].get("staging"),
+             **{f"{k}_{label}": runs[label][k] for label in runs for k in (
+                 "items_per_s", "wall_s", "launches", "ring_bytes", "batch_to_device_spans",
+                 "lane_h2d_spans", "copy_ms")}}
+    emit(out_b)
+    if not equal or dtypes != ["torch.float32"]:
+        fail(f"main_resume (b): sharded batches differ from host delivery's ({dtypes})")
+    if sharded["ring_bytes"] != 0 or sharded["batch_to_device_spans"] != 0:
+        fail(f"main_resume (b): the sharded ring copied {sharded['ring_bytes']} bytes in "
+             f"{sharded['batch_to_device_spans']} spans")
+    if sharded["lane_h2d_spans"] != nb or host["batch_to_device_spans"] < nb:
+        fail(f"main_resume (b): lane_h2d {sharded['lane_h2d_spans']}, host copies "
+             f"{host['batch_to_device_spans']}, batches {nb}")
+    for label, r in runs.items():
+        if r["launches"] != len(r["batches"]):
+            fail(f"main_resume (b) {label}: ingest_norm launched {r['launches']} times for "
+                 f"{len(r['batches'])} batches")
+    del runs, host, sharded
+
+    # (c) lane-cursor resume, raw u8 batches on the card
+    unbroken = [dict(b) for b in shard_loader(base, DeliverySpec.sharded(mesh), Tracer())]
+    first = shard_loader(base, DeliverySpec.sharded(mesh), Tracer())
+    it = iter(first)
+    for _ in range(SHARD_STOP):
+        next(it)
+    state = first.state_dict()
+    it.shutdown()
+    fresh = shard_loader(base, DeliverySpec.sharded(mesh), Tracer())
+    fresh.load_state_dict(json.loads(json.dumps(state)))
+    rest = list(fresh)
+    torch.cuda.synchronize()
+    equal_c = len(rest) == nb - SHARD_STOP and all(
+        all(torch.equal(r[k], u[k]) for k in u) for r, u in zip(rest, unbroken[SHARD_STOP:]))
+    out_c = {"phase": "main_resume", "check": "c_lane_cursor_resume", "nvidia_smi": smi,
+             "stopped_after": SHARD_STOP, "state": state, "resumed_batches": len(rest),
+             "bit_equal": equal_c,
+             "devices": sorted({str(v.device) for b in rest for v in b.values()})}
+    emit(out_c)
+    lanes_c = state.get("delivery", {}).get("lanes", [])
+    if [ln["next_batch"] for ln in lanes_c] != [SHARD_STOP] or state["next_batch"] != SHARD_STOP:
+        fail(f"main_resume (c): state {state}")
+    if not equal_c or out_c["devices"] != ["cuda:0"]:
+        fail(f"main_resume (c): the resumed batches differ from the unbroken run's")
+    return {"b": out_b, "c": out_c, "launches_sharded": out_b["launches_sharded"]}
+
+
+def ckpt_cost_check(torch, smi: str) -> dict:
+    """(d) The full ResNet-18 train state (params, BatchNorm, AdamW's two
+    moments, step): bytes written, how long ``save(blocking=False)`` blocks
+    for its snapshot, how long the background write takes, and the step
+    time right after a save against steps without one.  Figures, not
+    gates (the write must succeed and restore must hold the saved step)."""
+    import shutil
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.convert import checkpoint_layout
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.steps import init_resnet_train_state, make_resnet_train_step
+    from repro_torch.tree import leaves
+
+    cfg, tcfg = get_arch("resnet18-imagenet"), TrainConfig(optimizer="adamw")
+    state = init_resnet_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_resnet_train_step(cfg, tcfg)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"image": torch.randn(CKPT_COST_BS, 3, 224, 224, generator=gen).cuda(),
+             "label": torch.randint(0, cfg.num_classes, (CKPT_COST_BS,), generator=gen).cuda()}
+
+    def timed_step():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m["loss"].item()
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(3):
+        timed_step()
+    plain = [timed_step() for _ in range(CKPT_COST_STEPS)]
+    root = ROOT / "build" / "chip_smoke_ckpt_cost"
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(str(root), keep=1, layout=checkpoint_layout(cfg))
+    snapshot, write, after, blocked = [], [], [], []
+    for _ in range(CKPT_COST_SAVES):
+        t0 = time.perf_counter()
+        mgr.save(state["step"], state, blocking=False)
+        blocked.append((time.perf_counter() - t0) * 1e3)
+        snapshot.append(mgr.last_snapshot_s * 1e3)
+        after.append(timed_step())
+        mgr.wait()
+        write.append(mgr.last_write_s * 1e3)
+        timed_step()
+    restored, meta = mgr.restore(state)
+    npz = root / f"step_{meta['step']:08d}" / "arrays_h0.npz"
+    out = {"phase": "main_resume", "check": "d_ckpt_cost", "nvidia_smi": smi,
+           "batch_size": CKPT_COST_BS,
+           "params": sum(p.numel() for p in leaves(state["params"])),
+           "bytes_arrays": mgr.last_bytes, "bytes_file": os.path.getsize(npz),
+           "save_blocks_ms": blocked, "snapshot_ms": snapshot, "write_ms": write,
+           "step_ms_without_save": plain, "step_ms_after_save": after,
+           "step_ms_without_save_median": statistics.median(plain),
+           "step_ms_after_save_median": statistics.median(after),
+           "restored_step": restored["step"]}
+    emit(out)
+    if restored["step"] != meta["step"] or mgr.last_bytes <= 0:
+        fail(f"main_resume (d): restored step {restored['step']}, meta {meta}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_main_resume(torch, ops, smi: str) -> dict:
+    """(a) a SIGKILLed launcher run resumed from its newest checkpoint
+    against an unbroken one; (b) sharded delivery on one lane against host
+    delivery; (c) the lane-cursor resume; (d) the checkpoint's cost."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    walls, parts = {}, {}
+    t0 = time.perf_counter()
+    parts["a"] = crash_resume_check(smi)
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["bc"] = sharded_checks(torch, ops, smi)
+    walls["bc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["d"] = ckpt_cost_check(torch, smi)
+    walls["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for part, wall in walls.items():
+        emit({"phase": "main_resume", "check": "phase_wall", "part": part, "wall_s": wall})
+    return {"parts": parts, "launches_resume": parts["a"]["launches_total"],
+            "launches_sharded": parts["bc"]["launches_sharded"]}
+
+
 def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     import dataclasses
 
@@ -3634,7 +4050,8 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     }
     emit(out)
-    if report.result.steps < LM_STEPS or report.result.epochs < 2:
+    want_steps = int(train_args[train_args.index("--steps") + 1])
+    if report.result.steps < want_steps or report.result.epochs < 2:
         fail(f"{cfg.name} ran {report.result.steps} steps over {report.result.epochs} epochs")
     if not losses or not all(math.isfinite(x) for x in losses + aux):
         fail(f"non-finite loss on the {cfg.name} path: {losses}, aux {aux}")
@@ -4438,6 +4855,7 @@ def main() -> int:
                      pipe_out["figures"]["pipeline"], smi)
     cache_out = timed(torch, "main_cache", phase_main_cache, ops, main_out, smi)
     formats_out = timed(torch, "main_formats", phase_main_formats, ops, pipe_out, smi)
+    resume_out = timed(torch, "main_resume", phase_main_resume, ops, smi)
     lm_out = timed(torch, "main_lm", phase_main_lm, flash_ops, ops)
     rwkv_out = timed(torch, "main_rwkv", phase_main_rwkv, wkv_ops, wkv_ref, rms_ops, ops,
                      flash_ops)
@@ -4470,6 +4888,8 @@ def main() -> int:
         "launches_elastic": cache_out["elastic"]["ingest_norm_launches"],
         "launches_formats": formats_out["launches_total"],
         "launches_formats_by_part": formats_out["launches"],
+        "launches_resume": resume_out["launches_resume"],
+        "launches_sharded": resume_out["launches_sharded"],
         "launches_serve": serve_out["launches"]["ingest_norm"],
         **family["ingest_norm"],
         "max_abs_err": kern["max_abs_err"],

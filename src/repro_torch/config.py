@@ -20,10 +20,13 @@ fleet shedding (``shed_*``); the shared-memory transport
 slab knob's bounds), predicate pushdown (:class:`SamplerPredicate`,
 ``LoaderConfig.sampler``), and the serving read path (:class:`TenantPolicy`,
 :class:`ServeSpec`'s read-path fields, :class:`AutotuneConfig`'s latency
-objective and serve bounds).  Not yet ported, so without a field:
-``LoaderConfig.delivery`` and :class:`AutotuneConfig`'s ``skew_gate``
-(sharded delivery, ROADMAP §1 item 7).  ``replace()`` (from dataclasses)
-derives variants.
+objective and serve bounds); checkpointing (``TrainConfig.checkpoint_every``
+and ``keep_checkpoints``) and sharded delivery (:class:`DeliverySpec`,
+``LoaderConfig.delivery``, :class:`AutotuneConfig`'s ``skew_gate``), with
+the run-level :class:`RunConfig` and its :class:`ShapeConfig` and
+:class:`MeshConfig` blocks.  ``DeliverySpec.mesh`` holds a
+:class:`repro_torch.launch.mesh.Mesh`, opaque here, so this module imports
+no torch.  ``replace()`` (from dataclasses) derives variants.
 """
 from __future__ import annotations
 
@@ -385,6 +388,12 @@ class AutotuneConfig:
     max_hedge_delay_ms: int = 5_000
     min_coalesce_ms: int = 1
     max_coalesce_ms: int = 5_000
+    # sharded-delivery lane-skew gate: when stage_stats()["delivery"] reports
+    # lane_skew (max-min composed batches across lanes) at or above this many
+    # batches, upward probes are skipped: widening a pipeline whose lanes
+    # already diverge deepens the straggler imbalance; only downward
+    # refinement runs until the lanes re-converge.  0 disables the gate.
+    skew_gate: int = 0
     # shuffle-entropy floor (reorder="window" pipelines): upward probes of
     # the reorder_window knob are skipped while the delivered stream's
     # within-batch entropy sits below it.  0.0 disables the gate.
@@ -464,6 +473,38 @@ class PipelineConfig:
 
     def __bool__(self) -> bool:
         return self.enabled
+
+
+@dataclass(frozen=True)
+class DeliverySpec:
+    """How assembled batches reach the consumer
+    (:mod:`repro_torch.core.delivery`).
+
+    * ``host`` (default): one host-resident numpy batch a step; the device
+      prefetch ring moves it to the card.
+    * ``sharded``: one assembler lane per slice of ``mesh`` along ``axis``;
+      each lane collates its contiguous rows of the batch and copies them to
+      its device on its own CUDA stream, straight into its row slice of one
+      preallocated batch tensor, so the composed batch needs no copy.
+      Requires the staged pipeline with strict reorder.
+
+    ``mesh`` is a :class:`repro_torch.launch.mesh.Mesh` (opaque here);
+    ``coord_dir`` names a directory shared by co-located hosts so per-lane
+    resume cursors are pinned fleet-wide
+    (:class:`repro_torch.core.delivery.ShardCursorBoard`)."""
+
+    kind: str = "host"  # host | sharded
+    axis: str = "data"  # mesh axis the global batch dim shards over
+    mesh: Any = None  # repro_torch.launch.mesh.Mesh (required for kind="sharded")
+    coord_dir: str = ""  # multi-host cursor alignment ("" = single host)
+
+    @staticmethod
+    def host() -> "DeliverySpec":
+        return DeliverySpec()
+
+    @staticmethod
+    def sharded(mesh: Any, axis: str = "data", coord_dir: str = "") -> "DeliverySpec":
+        return DeliverySpec(kind="sharded", axis=axis, mesh=mesh, coord_dir=coord_dir)
 
 
 @dataclass(frozen=True)
@@ -559,6 +600,9 @@ class LoaderConfig:
     # (pipeline=<bool>, reorder=..., io_workers=..., ...) still construct the
     # nested form through the shim below; reads of the flat names delegate.
     pipeline: PipelineConfig = PipelineConfig()
+    # batch delivery contract (see DeliverySpec): host-resident batches
+    # (default) or device batches assembled per mesh lane
+    delivery: DeliverySpec = DeliverySpec()
     # columnar predicate pushdown (see SamplerPredicate): filters the epoch
     # stream at the sampler via dataset metadata, so rejected rows are never
     # fetched.  None = unfiltered.  Needs a dataset with predicate metadata
@@ -706,6 +750,47 @@ class TrainConfig:
     total_steps: int = 1000
     microbatches: int = 1  # gradient accumulation over leading-dim splits
     grad_compression: str = "none"  # none | bf16 | int8_ef
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig = TRAIN_4K
+    loader: LoaderConfig = LoaderConfig()
+    store: StoreConfig = StoreConfig()
+    train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = SINGLE_POD_MESH
+    serve: ServeSpec = ServeSpec()
 
 
 ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

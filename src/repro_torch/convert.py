@@ -12,10 +12,16 @@ flip them.  The LM keeps the reference's layout everywhere
 (:func:`lm_params_from_jax`, and :func:`to_jax` back), and so does the
 encoder-decoder: with stacked blocks or layers their attention weights are
 4-D too (``wq`` (L,d,H,hd), ``wo`` (L,H,hd,d)) and must not be flipped.
+
+:class:`Layout` holds the same leaf functions for the checkpoint files
+(:mod:`repro_torch.train.checkpoint`), which are in the reference's layout:
+:data:`RESNET_LAYOUT` flips every 4-D leaf (conv weights and their optimizer
+moments), and :func:`checkpoint_layout` picks it by family (``None``, the
+identity, for the LM and the encoder-decoder).
 """
 from __future__ import annotations
 
-from typing import Any, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +36,23 @@ def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
 
 def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
     return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+
+class Layout(NamedTuple):
+    """A family's leaf layout on disk: ``to_disk`` maps a port leaf (numpy)
+    to the reference's layout, ``from_disk`` maps it back."""
+
+    to_disk: Callable[[np.ndarray], np.ndarray]
+    from_disk: Callable[[np.ndarray], np.ndarray]
+
+
+RESNET_LAYOUT = Layout(_oihw_to_hwio, _hwio_to_oihw)
+
+
+def checkpoint_layout(cfg: Any) -> Optional[Layout]:
+    """The layout of ``cfg``'s family in a checkpoint file: the ResNet's
+    convs are HWIO there, every other family keeps the port's layout."""
+    return RESNET_LAYOUT if cfg.family == "resnet" else None
 
 
 def from_jax(tree: Any, device: Union[str, torch.device] = "cuda",

@@ -46,9 +46,11 @@ delay and coalesce window; with ``objective="latency"`` the read path feeds
 latency through the same hill climber.  The shm transport's usable slots a
 slab ride along the pipeline's knobs.
 
-A trimmed copy of the reference's controller: its lane-skew gate (ROADMAP
-§1 item 7) is not ported.  With that gate off the reference gives the same
-events as this controller, except where an
+With a ``skew_fn`` (the sharded delivery lanes' composed-batch
+divergence, wired by the loader when ``AutotuneConfig.skew_gate`` is set)
+upward probes are skipped while the lanes have diverged, as in the
+reference.  The reference gives the same events as this controller, except
+where an
 additive knob (the thread budget's split, the cache admission index) sits
 at its upper wall: the reference never probes it down from there (ROADMAP
 §3).  The module imports no ``torch``: the staged pipeline imports it, and
@@ -109,6 +111,7 @@ class TuneEvent:
     action: str  # probe | accept | revert | hold | restore | quiesce | rearm
     #             | reprobe | gate (up-move skipped: accelerator saturated)
     #             | lease (up-move skipped: a peer holds the up-probe token)
+    #             | skew (up-move skipped: delivery lanes diverged)
     #             | entropy (reorder-window up-move skipped: shuffle floor)
     #             | shed (local collapse: posted + multiplicative cut)
     #             | shed_peer (a peer's shed event honored: multiplicative cut)
@@ -138,6 +141,7 @@ class AutotuneController:
         store_stats_fn: Optional[Callable[[], Any]] = None,
         util_fn: Optional[Callable[[], Optional[float]]] = None,
         probe_lease: Optional[Any] = None,
+        skew_fn: Optional[Callable[[], Optional[float]]] = None,
         entropy_fn: Optional[Callable[[], Optional[float]]] = None,
         congestion: Optional[Any] = None,
     ) -> None:
@@ -158,6 +162,10 @@ class AutotuneController:
         # the trainer so the controller stops buying loader throughput the
         # training step can't eat (see cfg.util_gate)
         self.util_fn = util_fn
+        # sharded-delivery lane-skew signal (None = no signal): when the
+        # lanes' composed-batch counts diverge past cfg.skew_gate, upward
+        # probes are skipped (see _start_probe)
+        self.skew_fn = skew_fn
         # shuffle-entropy signal (None = no signal): below
         # cfg.min_shuffle_entropy, upward probes of the reorder_window knob
         # are skipped
@@ -701,7 +709,8 @@ class AutotuneController:
         draining the old setting's work) would never be left.  While the
         utilization gate is active, upward moves and binary trials are
         skipped (they would buy throughput nobody eats); downward moves
-        still run.  Reorder-window up-moves are skipped below the shuffle
+        still run, and likewise while the delivery lanes have diverged
+        (``skew_gate``).  Reorder-window up-moves are skipped below the shuffle
         entropy floor.  With a ``probe_lease``, upward moves and binary
         trials also need the fleet-wide up-probe token: a peer holding it
         means the shared NIC is already being probed, so this host holds or
@@ -709,6 +718,7 @@ class AutotuneController:
         if not self.knobs:
             return
         gated = self._util_gated()
+        skewed = self._skew_gated()
         order: List[Knob] = []
         if prefer is not None:
             order.append(prefer)
@@ -718,6 +728,7 @@ class AutotuneController:
             if k is not prefer:
                 order.append(k)
         skipped_for_gate = False
+        skipped_for_skew = False
         skipped_for_lease = False
         skipped_for_entropy = False
         for k in order:
@@ -737,6 +748,12 @@ class AutotuneController:
             if gated and up_move:
                 skipped_for_gate = True
                 continue
+            if skewed and up_move:
+                # the lanes have diverged: more width feeds the fast lanes
+                # and deepens the imbalance; only downward refinement runs
+                # until they re-converge
+                skipped_for_skew = True
+                continue
             if k.name == "reorder_window" and up_move and self._entropy_gated():
                 skipped_for_entropy = True
                 continue
@@ -754,13 +771,14 @@ class AutotuneController:
             self._phase = "settle"
             self._log("probe", k.name, applied, baseline)
             return
-        if skipped_for_gate or skipped_for_lease or skipped_for_entropy:
-            # accelerator-bound, entropy-floored, or a peer holds the
-            # up-probe token: not converged, so stay armed and re-check next
-            # window instead of quiescing.  An idle hold of the token is
-            # released so peers can use it.
+        if skipped_for_gate or skipped_for_skew or skipped_for_lease or skipped_for_entropy:
+            # accelerator-bound, lane-skewed, entropy-floored, or a peer
+            # holds the up-probe token: not converged, so stay armed and
+            # re-check next window instead of quiescing.  An idle hold of the
+            # token is released so peers can use it.
             self._release_lease()
             action = ("gate" if skipped_for_gate
+                      else "skew" if skipped_for_skew
                       else "lease" if skipped_for_lease else "entropy")
             self._log(action, "-", 0, baseline)
             self._phase = "baseline"
@@ -781,6 +799,15 @@ class AutotuneController:
         except Exception:
             return False
         return util is not None and util >= self.cfg.util_gate
+
+    def _skew_gated(self) -> bool:
+        if self.skew_fn is None or self.cfg.skew_gate <= 0:
+            return False
+        try:
+            skew = self.skew_fn()
+        except Exception:
+            return False
+        return skew is not None and skew >= self.cfg.skew_gate
 
     def _entropy_gated(self) -> bool:
         if self.entropy_fn is None or self.cfg.min_shuffle_entropy <= 0.0:

@@ -1,24 +1,25 @@
 """Loader construction — the one documented entry point.
 
 :func:`make_loader` is the front door the reference documents: give it a
+:class:`~repro_torch.config.RunConfig` or a
 :class:`~repro_torch.config.LoaderConfig` and a dataset, and it builds the
 :class:`~repro_torch.core.loader.ConcurrentDataLoader` (legacy or staged
 pipeline, per ``LoaderConfig.pipeline``; with its online autotuner, per
-``LoaderConfig.autotune``).  The raw constructor keeps working.
+``LoaderConfig.autotune``), resolving the mesh that
+``DeliverySpec(kind='sharded')`` needs: an explicit ``mesh=``, the spec's
+own, or one built from ``RunConfig.mesh``.  The raw constructor keeps
+working.
 
-:func:`make_read_path` is its serving mirror: give it a
-:class:`~repro_torch.config.ServeSpec` and a store, and it builds the
-multi-tenant :class:`~repro_torch.serve.readpath.ReadPath`.
-
-A trimmed copy of the reference's factory: both take their own config
-only.  A ``RunConfig`` and the ``mesh`` parameter (sharded delivery) wait
-for ROADMAP.md §1 item 7.
+:func:`make_read_path` is its serving mirror: give it a ``RunConfig`` (its
+``serve`` block) or a :class:`~repro_torch.config.ServeSpec` and a store,
+and it builds the multi-tenant :class:`~repro_torch.serve.readpath.ReadPath`.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Callable
 
-from repro_torch.config import LoaderConfig, ServeSpec
+from repro_torch.config import LoaderConfig, RunConfig, ServeSpec
 from repro_torch.core.loader import ConcurrentDataLoader
 from repro_torch.core.tracing import NULL_TRACER, Tracer
 from repro_torch.data.dataset import MapDataset, collate
@@ -28,25 +29,49 @@ def make_loader(
     cfg: Any,
     dataset: MapDataset,
     *,
+    mesh: Any = None,
     tracer: Tracer = NULL_TRACER,
     host_id: int = 0,
     num_hosts: int = 1,
     collate_fn: Callable = collate,
     worker_startup_cost_s: float = 0.0,
 ) -> ConcurrentDataLoader:
-    """Build a :class:`ConcurrentDataLoader` from a :class:`LoaderConfig`.
+    """Build a :class:`ConcurrentDataLoader` from a run or loader config.
 
-    Raises ``TypeError`` for any other config (a ``RunConfig`` comes with
-    sharded delivery, ROADMAP.md §1 item 7)."""
-    if not isinstance(cfg, LoaderConfig):
+    * ``cfg``: a :class:`RunConfig` (its ``loader`` and ``mesh`` blocks are
+      used) or a bare :class:`LoaderConfig`.
+    * ``mesh``: an explicit :class:`repro_torch.launch.mesh.Mesh` for
+      sharded delivery, overriding anything the config gives.  With a
+      ``RunConfig`` and no mesh anywhere, one is built from
+      ``RunConfig.mesh`` by :func:`repro_torch.launch.mesh.make_mesh` (over
+      the visible CUDA devices; only when the delivery spec asks for
+      sharding, so host delivery never imports torch here).
+
+    Raises ``ValueError`` when sharded delivery is asked for and no mesh is
+    resolvable, and ``TypeError`` for any other config."""
+    if isinstance(cfg, RunConfig):
+        lcfg = cfg.loader
+        if lcfg.delivery.kind == "sharded" and lcfg.delivery.mesh is None and mesh is None:
+            from repro_torch.launch.mesh import make_mesh
+
+            mesh = make_mesh(cfg.mesh.shape, cfg.mesh.axes)
+    elif isinstance(cfg, LoaderConfig):
+        lcfg = cfg
+    else:
         raise TypeError(
-            f"make_loader expects a LoaderConfig, got {type(cfg).__name__}; "
-            "RunConfig (with its mesh block) is not ported yet: "
-            "ROADMAP.md §1 item 7 (sharded delivery)"
+            f"make_loader expects a RunConfig or LoaderConfig, got {type(cfg).__name__}"
         )
+    if lcfg.delivery.kind == "sharded" and lcfg.delivery.mesh is None:
+        if mesh is None:
+            raise ValueError(
+                "DeliverySpec(kind='sharded') has no mesh: pass mesh=... to make_loader, "
+                "use DeliverySpec.sharded(mesh, ...), or construct from a RunConfig "
+                "whose mesh block describes one"
+            )
+        lcfg = replace(lcfg, delivery=replace(lcfg.delivery, mesh=mesh))
     return ConcurrentDataLoader(
         dataset,
-        cfg,
+        lcfg,
         host_id=host_id,
         num_hosts=num_hosts,
         collate_fn=collate_fn,
@@ -61,23 +86,26 @@ def make_read_path(
     *,
     tracer: Tracer = NULL_TRACER,
 ) -> Any:
-    """Build a :class:`repro_torch.serve.readpath.ReadPath` from a
-    :class:`ServeSpec`: the serving mirror of :func:`make_loader`.
+    """Build a :class:`repro_torch.serve.readpath.ReadPath` from a run or
+    serve config: the serving mirror of :func:`make_loader`.
 
-    ``store`` is any ``ObjectStore``-shaped store; a
-    :class:`repro_torch.data.cache.TieredCacheStore` also gets cache-only hit
-    serving and (with autotune enabled) its cache knobs tuned against the
-    latency target.  Raises ``TypeError`` for any other config (a
-    ``RunConfig`` comes with sharded delivery, ROADMAP.md §1 item 7).  The
-    import is lazy: ``repro_torch.serve`` imports the engine, and with it
-    torch, which ``repro_torch.core`` does not import.
-    """
-    if not isinstance(cfg, ServeSpec):
+    * ``cfg``: a :class:`RunConfig` (its ``serve`` block is used) or a bare
+      :class:`ServeSpec`; raises ``TypeError`` for any other.
+    * ``store``: any ``ObjectStore``-shaped store; a
+      :class:`repro_torch.data.cache.TieredCacheStore` also gets cache-only
+      hit serving and (with autotune enabled) its cache knobs tuned against
+      the latency target.
+
+    The import is lazy: ``repro_torch.serve`` imports the engine, and with
+    it torch, which ``repro_torch.core`` does not import."""
+    if isinstance(cfg, RunConfig):
+        spec = cfg.serve
+    elif isinstance(cfg, ServeSpec):
+        spec = cfg
+    else:
         raise TypeError(
-            f"make_read_path expects a ServeSpec, got {type(cfg).__name__}; "
-            "RunConfig (with its serve block) is not ported yet: "
-            "ROADMAP.md §1 item 7 (sharded delivery)"
+            f"make_read_path expects a RunConfig or ServeSpec, got {type(cfg).__name__}"
         )
     from repro_torch.serve.readpath import ReadPath  # lazy: keep core torch-free
 
-    return ReadPath(store, cfg, tracer=tracer)
+    return ReadPath(store, spec, tracer=tracer)

@@ -34,8 +34,14 @@ only).  :meth:`ConcurrentDataLoader.release_coordination` hands back the
 lease and the membership slot.  ``LoaderConfig.sampler`` (a
 :class:`~repro_torch.config.SamplerPredicate`) filters each epoch's stream
 through the dataset's ``predicate_mask`` (columnar pushdown), on the static
-and the elastic sampler alike.  The reference's sharded delivery has no
-config field in the port yet (ROADMAP §1 item 7).
+and the elastic sampler alike.  ``LoaderConfig.delivery`` sharded (staged
+pipeline, strict reorder) builds a :class:`~repro_torch.core.delivery.
+LanePlan` here (:attr:`ConcurrentDataLoader.delivery_plan`): its lanes
+collate and copy each batch's rows to the card, so the loader yields device
+batches (:attr:`~ConcurrentDataLoader.delivers_device_batches`), its
+``state_dict`` carries a lane-cursor block, and with
+``AutotuneConfig.skew_gate`` the controller stops probing upward while the
+lanes diverge.
 """
 from __future__ import annotations
 
@@ -150,6 +156,34 @@ class ConcurrentDataLoader:
                         f"min_fetch_workers + min_cpu_workers (= {floor}): "
                         "the io/cpu split needs at least one thread per stage"
                     )
+        spec = cfg.delivery
+        if spec.kind not in ("host", "sharded"):
+            raise ValueError(
+                f"unknown delivery kind {spec.kind!r}; known: 'host', 'sharded'"
+            )
+        self.delivery_plan = None
+        self._cursor_board = None
+        if spec.kind == "sharded":
+            if not pipe:
+                raise ValueError(
+                    "delivery='sharded' requires the staged pipeline "
+                    "(pipeline=PipelineConfig(enabled=True)): lane assembly "
+                    "consumes the pipeline's per-sample completion stream"
+                )
+            if pipe.reorder != "strict":
+                raise ValueError(
+                    "delivery='sharded' requires reorder='strict': per-lane "
+                    "cursors are only fleet-alignable when every host "
+                    "delivers in batch-id order"
+                )
+            from repro_torch.core.delivery import LanePlan, ShardCursorBoard
+
+            self.delivery_plan = LanePlan.build(spec, cfg.batch_size // max(num_hosts, 1))
+            # the lanes write one tensor on one device: refuse any other
+            # plan here, not at the first iter()
+            self.delivery_plan.compose_device()
+            if spec.coord_dir:
+                self._cursor_board = ShardCursorBoard(spec.coord_dir, num_hosts=num_hosts)
         self.dataset = dataset
         self.cfg = cfg
         self.host_id = host_id
@@ -209,6 +243,11 @@ class ConcurrentDataLoader:
                     "pipeline's dispatcher does not yet retry a "
                     "claim-starved sampler"
                 )
+            if spec.kind == "sharded":
+                raise ValueError(
+                    "elastic mode is incompatible with delivery='sharded': "
+                    "lane cursors assume a static host->shard mapping"
+                )
             self._elastic = ElasticSession(
                 cfg.elastic, member=f"host{host_id}-pid{os.getpid()}"
             )
@@ -259,6 +298,20 @@ class ConcurrentDataLoader:
                 congestion = CongestionBoard(
                     at.coord_dir, host=f"host{host_id}-pid{os.getpid()}"
                 )
+        skew_fn = None
+        if at.enabled and at.skew_gate > 0 and spec.kind == "sharded":
+            # lane-skew gate: the delivery stage's composed-batch divergence,
+            # so the controller stops probing upward while the lanes are
+            # imbalanced.  Weakref: the controller is owned BY the loader.
+            _self_ref = weakref.ref(self)
+
+            def skew_fn() -> Optional[float]:
+                loader = _self_ref()
+                if loader is None:
+                    return None
+                delivery = (loader.stage_stats() or {}).get("delivery")
+                return delivery.get("lane_skew") if delivery else None
+
         entropy_fn = None
         if (
             at.enabled
@@ -286,6 +339,7 @@ class ConcurrentDataLoader:
                 tracer=tracer,
                 store_stats_fn=_store_stats_fn(dataset),
                 probe_lease=probe_lease,
+                skew_fn=skew_fn,
                 entropy_fn=entropy_fn,
                 congestion=congestion,
             )
@@ -340,14 +394,80 @@ class ConcurrentDataLoader:
         self.sampler.set_epoch(epoch)
         self.dataset.set_epoch(epoch)
 
+    @property
+    def delivers_device_batches(self) -> bool:
+        """True when batches arrive already on the device (sharded
+        delivery): the device prefetch ring must not copy them again."""
+        return self.delivery_plan is not None
+
     def state_dict(self) -> Dict[str, Any]:
         """Consumer position: (epoch, batches yielded).  Prefetched-but-
-        unconsumed batches are NOT counted — a restart replays them."""
-        return {"epoch": self._epoch, "next_batch": self._consumed}
+        unconsumed batches are NOT counted — a restart replays them.
+        Sharded delivery adds the lane-cursor block (:meth:`cursor_state`)."""
+        return self.cursor_state(self._epoch, self._consumed)
+
+    def cursor_state(self, epoch: int, next_batch: int) -> Dict[str, Any]:
+        """The state of a consumer at ``(epoch, next_batch)``: the trainer's
+        checkpoint callback passes its own step, since the device prefetch
+        ring consumes batches ahead of the training step.
+
+        Sharded delivery adds a per-lane cursor block.  Strict composition
+        delivers lanes in lockstep (a batch exists only once every lane
+        wrote its rows), so each lane's cursor equals the consumer's;
+        recording them lets a restart check the mesh slicing still matches,
+        and is what the fleet board publishes per host.  With a board the
+        cursor is pinned to the fleet minimum."""
+        state: Dict[str, Any] = {"epoch": int(epoch), "next_batch": int(next_batch)}
+        plan = self.delivery_plan
+        if plan is not None:
+            if self._cursor_board is not None:
+                self._cursor_board.publish(self.host_id, epoch, next_batch)
+                aligned = self._cursor_board.aligned()
+                if aligned is not None and aligned < (epoch, next_batch):
+                    # resume from the newest batch boundary EVERY host has
+                    # delivered, so the restored global batch is consistent
+                    # fleet-wide without a gather
+                    epoch, next_batch = aligned
+                    state["epoch"], state["next_batch"] = int(epoch), int(next_batch)
+            from repro_torch.core.delivery import device_id
+
+            state["delivery"] = {
+                "kind": "sharded",
+                "axis": plan.axis,
+                "num_lanes": plan.num_lanes,
+                "lanes": [
+                    {"lane": i, "next_batch": int(next_batch),
+                     "devices": [device_id(d) for d in devs]}
+                    for i, devs in enumerate(plan.lanes)
+                ],
+            }
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self._epoch = int(state["epoch"])
         self._consumed = int(state["next_batch"])
+        delivery = state.get("delivery")
+        if delivery is not None:
+            plan = self.delivery_plan
+            if plan is None:
+                raise ValueError(
+                    "checkpoint carries sharded-delivery lane cursors but this "
+                    "loader delivers host batches; restore with "
+                    "delivery=DeliverySpec.sharded(...)"
+                )
+            if int(delivery["num_lanes"]) != plan.num_lanes:
+                raise ValueError(
+                    f"checkpoint has {delivery['num_lanes']} delivery lanes but the "
+                    f"current mesh slices into {plan.num_lanes}; lane cursors are only "
+                    "portable across identical data-axis slicings"
+                )
+            lanes = delivery.get("lanes", [])
+            if lanes:
+                # lanes are delivered in lockstep, but a checkpoint cut by a
+                # crashing writer may carry a torn cursor set: resume from
+                # the minimum so no lane skips data
+                self._consumed = min(self._consumed,
+                                     min(int(ln["next_batch"]) for ln in lanes))
         self.dataset.set_epoch(self._epoch)
         self.sampler.load_state_dict(
             {"epoch": self._epoch, "next_batch": self._consumed}

@@ -42,9 +42,14 @@ feeds the epoch-cadence cache controller.  A trimmed copy of the
 reference's pipeline, with its shared-memory transport
 (``PipelineConfig.transport="shm"``, :mod:`repro_torch.core.shm`: decoded
 samples come back as views into a slab the parent owns, and the slab's
-usable slots are an autotune knob); its sharded lanes (ROADMAP §1 item 7)
-are not ported and have no config field.  The module imports no
-``torch``: ``spawn`` re-imports it in every CPU worker process.
+usable slots are an autotune knob) and its sharded lanes
+(``LoaderConfig.delivery`` sharded, :mod:`repro_torch.core.delivery`: the
+consumer routes each completed sample to its mesh lane, whose thread
+collates and copies its rows to the card, and the composed batch comes back
+through the completion queue as a :class:`_Composed` token; strict reorder
+only).  The module imports no ``torch``: ``spawn`` re-imports it in every
+CPU worker process, and the delivery module imports torch in its lane
+threads only.
 """
 from __future__ import annotations
 
@@ -108,6 +113,18 @@ class _Failure:
 
     def __init__(self, exc: BaseException) -> None:
         self.exc = exc
+
+
+class _Composed:
+    """Completion-queue token for a fully composed device batch (sharded
+    delivery, :mod:`repro_torch.core.delivery`).  Defined here so the
+    pipeline's hot loop can type-check it without importing the delivery
+    module."""
+
+    __slots__ = ("batch_id",)
+
+    def __init__(self, batch_id: int) -> None:
+        self.batch_id = batch_id
 
 
 class _BoundedQ:
@@ -1315,9 +1332,21 @@ class _PipelineIter:
         self.done_q: "queue.Queue" = queue.Queue()
         # pinned host staging: only for the default collate (a custom
         # collate_fn owns its own batch layout)
+        staging_n = pipe.staging_buffers if loader.collate_fn is collate else 0
+        # sharded delivery: lane threads collate and copy each mesh slice of
+        # a batch to the card and push the composed batch back into done_q as
+        # a (_Composed, batch) token; each lane has its own staging pool
+        self._assembler = None
+        if loader.delivery_plan is not None:
+            from repro_torch.core.delivery import ShardedAssembler
+
+            self._assembler = ShardedAssembler(
+                loader.delivery_plan, loader.collate_fn, done_q=self.done_q,
+                stop=self._stop, tracer=self.tracer, staging_buffers=staging_n,
+            )
         self._staging = None
-        if pipe.staging_buffers > 0 and loader.collate_fn is collate:
-            self._staging = HostBatchPool(depth=pipe.staging_buffers)
+        if staging_n > 0 and self._assembler is None:
+            self._staging = HostBatchPool(depth=staging_n)
         self.io = _IOStage(
             dataset,
             mode="asyncio" if cfg.impl == "asyncio" else "threaded",
@@ -1389,8 +1418,9 @@ class _PipelineIter:
                 set_slab=_wset(lambda it, n: it._set_slab_slots(n)),
                 max_slab=self._shm_spec[1],
             )
-        if not self.strict:
+        if not self.strict and self._assembler is None:
             # the reorder-window knob exists only where the window does
+            # (sharded delivery requires strict reorder)
             extra_kw.update(
                 get_reorder=_wget(lambda it: it.window),
                 set_reorder=_wset(lambda it, n: it._set_reorder_window(n)),
@@ -1606,7 +1636,10 @@ class _PipelineIter:
                 self._bid_base = task.batch_id
                 self._group_consumed = task.batch_id
             n = len(task.indices)
-            if self.strict:
+            if self._assembler is not None:
+                self._assembler.begin_batch(task.batch_id, n)
+                self._batch_indices[task.batch_id] = tuple(task.indices)
+            elif self.strict:
                 self._slots[task.batch_id] = [None] * n
                 self._remaining[task.batch_id] = n
                 self._batch_indices[task.batch_id] = tuple(task.indices)
@@ -1630,7 +1663,12 @@ class _PipelineIter:
     # -- assembly ------------------------------------------------------------
     def _absorb(self, s: _Sample, item: Any) -> None:
         self._completed_samples += 1
-        if self.strict:
+        if self._assembler is not None:
+            # lane routing: the sample goes to its lane's collate and copy
+            # thread; the composed batch comes back through done_q as a
+            # _Composed token, landing in _ready
+            self._assembler.add(s.batch_id, s.pos, item)
+        elif self.strict:
             slots = self._slots[s.batch_id]
             slots[s.pos] = item
             self._remaining[s.batch_id] -= 1
@@ -1679,21 +1717,26 @@ class _PipelineIter:
             return self._pop_ready()
         return None
 
-    def _emit(self, items: List[Any]) -> Any:
-        # absolute batch id, the coordinate space of the per-sample spans
-        with self.tracer.span(
-            STAGE_COLLATE, batch_id=self._bid_base + self._emitted_batches
-        ):
-            if self._staging is not None:
-                batch = self._staging.collate(items)
-            else:
-                batch = self.loader.collate_fn(items)
-        # collate is one full pass over the batch either way (np.stack
-        # allocates+copies; staging copies into a reused buffer)
-        if isinstance(batch, dict):
-            self.tracer.count(BYTES_COPIED, shm_mod.item_nbytes(batch))
-        # collate copied every view out: hand the shm slots back for reuse
-        shm_mod.release_items(items)
+    def _emit(self, items: Any) -> Any:
+        if self._assembler is not None:
+            # sharded delivery: the lanes already collated and copied every
+            # row to the card; ``items`` is the composed device batch
+            batch = items
+        else:
+            # absolute batch id, the coordinate space of the per-sample spans
+            with self.tracer.span(
+                STAGE_COLLATE, batch_id=self._bid_base + self._emitted_batches
+            ):
+                if self._staging is not None:
+                    batch = self._staging.collate(items)
+                else:
+                    batch = self.loader.collate_fn(items)
+            # collate is one full pass over the batch either way (np.stack
+            # allocates+copies; staging copies into a reused buffer)
+            if isinstance(batch, dict):
+                self.tracer.count(BYTES_COPIED, shm_mod.item_nbytes(batch))
+            # collate copied every view out: hand the shm slots back for reuse
+            shm_mod.release_items(items)
         self._emitted_batches += 1
         # consumer cursor in absolute batch ids (resume starts past 0)
         consumed = self._bid_base + self._emitted_batches
@@ -1752,6 +1795,11 @@ class _PipelineIter:
             if isinstance(payload, _Failure):
                 self.shutdown()
                 raise payload.exc
+            if isinstance(s, _Composed):
+                # a lane finished a batch out of band: park it for the
+                # strict in-order pop above
+                self._ready[s.batch_id] = payload
+                continue
             self._absorb(s, payload)
 
     def _finish_epoch(self) -> None:
@@ -1826,6 +1874,10 @@ class _PipelineIter:
         if hedge is not None:
             out["hedges_issued"] = hedge.hedges_issued
             out["hedges_won"] = hedge.hedges_won
+        if self._assembler is not None:
+            # per-lane composed counts, collate and copy means: the lane-skew
+            # signal the autotuner reads
+            out["delivery"] = self._assembler.stats()
         return out
 
     # -- shutdown ------------------------------------------------------------
@@ -1841,6 +1893,8 @@ class _PipelineIter:
         except Exception:  # pragma: no cover - stats must never block exit
             pass
         self._stop.set()
+        if self._assembler is not None:
+            self._assembler.close()
         self.io.close()
         # join every CPU stage created this epoch (an executor-kind flip
         # leaves the paused one alive); the process POOL persists on the

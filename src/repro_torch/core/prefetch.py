@@ -23,6 +23,15 @@ the batch is ``record_stream``-ed on the consumer's stream, so the caching
 allocator does not hand its memory back to the side stream while the step
 still reads it.
 
+``transfer=False`` (sharded delivery, whose lanes already copied every
+batch to the card) turns the ring into pacing plus the epilogue: it copies
+nothing and records no ``batch_to_device`` span, ``ingest_fn`` still runs
+(on the side stream, each input tensor ``record_stream``-ed there since the
+lanes allocated it on the default stream), and a batch whose tensors are not
+on the ring's device raises instead of being copied.
+:attr:`DevicePrefetchRing.bytes_transferred` counts the host bytes the ring
+copied to the device.
+
 ``depth`` is adjustable live (:meth:`set_depth`): the in-flight window is
 gated by an :class:`AdjustableSemaphore`.
 """
@@ -56,6 +65,7 @@ class DevicePrefetchRing:
         *,
         depth: int = 2,
         max_depth: Optional[int] = None,
+        transfer: bool = True,
         tracer: Tracer = NULL_TRACER,
         ingest_fn: Optional[Any] = None,
         device: Union[str, torch.device] = "cuda",
@@ -64,6 +74,10 @@ class DevicePrefetchRing:
         self.it = it
         depth = max(1, depth)
         self.max_depth = max(depth, max_depth or depth)
+        # transfer=False: batches arrive on the device already (sharded
+        # delivery); the ring paces them and runs the epilogue
+        self.transfer = transfer
+        self.bytes_transferred = 0
         self.tracer = tracer
         # on-device ingest epilogue: a batch -> batch callable (see
         # repro_torch.kernels.ingest_norm.ops.make_ingest_fn) applied after the put
@@ -89,6 +103,9 @@ class DevicePrefetchRing:
     def _put_device(self, batch: Dict[str, np.ndarray]):
         if not isinstance(batch, dict):
             raise TypeError(f"the ring transfers dict batches, got {type(batch).__name__}")
+        if not self.transfer:
+            return self._on_device(batch)
+        self.bytes_transferred += sum(int(np.asarray(v).nbytes) for v in batch.values())
         # a StagedBatch: released to its pool once the copy has landed
         release = getattr(batch, "release_after", None)
         if not self._cuda:
@@ -121,6 +138,27 @@ class DevicePrefetchRing:
                 release(dev)
             if self.ingest_fn is not None:
                 # launches on the side stream, the current stream here
+                dev = self.ingest_fn(dev)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return dev, ready
+
+    def _on_device(self, batch: Dict[str, Any]):
+        """A batch already on the ring's device: no copy, the epilogue only."""
+        for k, v in batch.items():
+            where = v.device if isinstance(v, torch.Tensor) else type(v).__name__
+            if where != self.device:
+                raise ValueError(
+                    f"transfer=False: batch[{k!r}] is on {where}, not {self.device}; "
+                    "the ring copies nothing")
+        if not self._cuda:
+            dev = dict(batch)
+            return (self.ingest_fn(dev) if self.ingest_fn is not None else dev), None
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            dev = dict(batch)
+            if self.ingest_fn is not None:
+                for t in dev.values():
+                    t.record_stream(self._stream)
                 dev = self.ingest_fn(dev)
             ready = torch.cuda.Event()
             ready.record(self._stream)

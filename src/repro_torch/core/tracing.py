@@ -2,7 +2,8 @@
 
 Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
 ``run_training_batch``, the cache tiers' ``cache_get`` and the staged
-pipeline's ``stage_*`` lanes, the read path's ``serve_get``) with
+pipeline's ``stage_*`` lanes, sharded delivery's ``lane_*`` and
+``stage_compose`` lanes, the read path's ``serve_get``) with
 wall-clock start/end and thread id, like the log-entry instrumentation in
 the paper, plus named monotonic counters
 (``bytes_copied``).  Exports Chrome ``trace_event`` JSON
@@ -35,6 +36,12 @@ STAGE_FETCH = "stage_fetch"
 STAGE_DECODE = "stage_decode"
 STAGE_AUGMENT = "stage_augment"
 STAGE_COLLATE = "stage_collate"
+# sharded-delivery lanes (repro_torch.core.delivery): per lane, one collate
+# span and one host-to-device span a batch (tagged lane=i), and one compose
+# span a global batch
+LANE_COLLATE = "lane_collate"
+LANE_H2D = "lane_h2d"
+STAGE_COMPOSE = "stage_compose"
 # serving read path (repro_torch.serve.readpath): one span per ReadPath.get,
 # tagged with tenant, serving source (memory | disk | coalesced | fetch),
 # and whether a hedge fired

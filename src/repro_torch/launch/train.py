@@ -13,6 +13,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
         --device-ingest --items 256 --batch-size 8 --steps 64 --optimizer sgd --pipeline \
         --autotune
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
+        --device-ingest --items 32 --batch-size 8 --steps 12 --ckpt-dir /tmp/ck --ckpt-every 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
+        --device-ingest --items 32 --batch-size 8 --steps 12 --ckpt-dir /tmp/ck --ckpt-every 4 \
+        --resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
+        --device-ingest --items 32 --batch-size 8 --steps 6 --delivery sharded
 
 Wires the stack together: a synthetic dataset in an object store behind
 simulated S3 -> dataset -> ``make_loader`` (the paper's loader, or with
@@ -23,7 +30,16 @@ and prints the paper's Table-3 columns (throughput + accelerator busy
 stats) and, with ``--pipeline``, the per-stage stats at the end.
 ``--autotune`` moves the loader's knobs online between batches (and
 ``--thread-budget N`` co-tunes the pipeline's io/cpu split under N threads);
-``--hedge`` duplicates straggling GETs.  ``--cache-mb N`` puts an N MiB
+``--hedge`` duplicates straggling GETs.  ``--ckpt-dir D`` saves the train
+state every ``--ckpt-every`` steps (asynchronously, the reference's layout,
+the newest 3 kept) with the loader cursor of the trainer's step, and
+``--resume`` restores the newest complete checkpoint under D and its loader
+cursor, then trains on to ``--steps``: the resumed steps see the same
+batches, in the same order, as an unbroken run's.  ``--delivery sharded``
+turns the staged pipeline on with one delivery lane for each visible
+device along ``--delivery-axis`` (one lane on the CPU), whose threads copy
+each batch's rows to the card, so the device ring copies nothing
+(:mod:`repro_torch.core.delivery`; lanes on distinct cards are refused).  ``--cache-mb N`` puts an N MiB
 in-memory LRU cache tier (the paper's Varnish analogue) in front of the
 store; the launcher passes no tracer to it, as the reference's does.
 ``--arch resnet18-imagenet`` trains the paper's own model on synthetic
@@ -52,6 +68,7 @@ import torch
 from repro_torch.config import (
     AutotuneConfig,
     CacheConfig,
+    DeliverySpec,
     LoaderConfig,
     ModelConfig,
     PipelineConfig,
@@ -62,6 +79,7 @@ from repro_torch.config import (
 from repro_torch.core import make_loader
 from repro_torch.core.tracing import BATCH_TO_DEVICE, Tracer
 from repro_torch.core.utilization import UtilStats, accelerator_stats
+from repro_torch.convert import checkpoint_layout
 from repro_torch.data.dataset import ImageDataset, MapDataset, TokenDataset, build_token_store
 from repro_torch.data.imagenet_synth import build_synthetic_imagenet
 from repro_torch.data.store import InMemoryStore, build_store
@@ -72,7 +90,14 @@ from repro_torch.train.steps import (
     make_resnet_train_step,
     make_train_step,
 )
-from repro_torch.train.trainer import Callback, LoggingCallback, Trainer, TrainResult
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.trainer import (
+    Callback,
+    CheckpointCallback,
+    LoggingCallback,
+    Trainer,
+    TrainResult,
+)
 from repro_torch.tree import leaves
 
 
@@ -95,6 +120,8 @@ class RunReport:
     # the knob values the autotuner had set at the end of each epoch
     # (loader._tuned; empty dicts without --autotune)
     tuned: List[Dict[str, int]] = field(default_factory=list)
+    # with --resume: the step the run restored (None: it started fresh)
+    resumed_from: Optional[int] = None
 
 
 class EpochStages(Callback):
@@ -185,6 +212,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="resnet only: host stages stop at raw uint8 HWC and the "
                          "ingest_norm kernel runs cast+normalize on the device after "
                          "H2D (4x fewer host-side bytes per image)")
+    ap.add_argument("--delivery", choices=["host", "sharded"], default="host",
+                    help="batch delivery: 'host' (one host batch, the device ring "
+                         "copies it) or 'sharded' (per-mesh-slice assembler lanes "
+                         "copy their rows to the card; turns --pipeline on)")
+    ap.add_argument("--delivery-axis", default="data",
+                    help="mesh axis the batch dim is sharded over")
     ap.add_argument("--autotune", action="store_true",
                     help="online knob control (closed-loop io/cpu/queue/"
                          "outstanding tuning)")
@@ -197,6 +230,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compression", default="none", choices=["none", "bf16", "int8_ef"])
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -218,6 +254,15 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
                        microbatches=args.microbatches,
                        grad_compression=args.grad_compression, total_steps=args.steps)
     tracer = Tracer()
+    delivery = DeliverySpec.host()
+    if args.delivery == "sharded":
+        from repro_torch.launch.mesh import make_mesh
+
+        # one lane per visible card along the delivery axis (one on the CPU)
+        lanes = [device] if device.type == "cpu" else None
+        n = 1 if device.type == "cpu" else torch.cuda.device_count()
+        delivery = DeliverySpec.sharded(make_mesh((n,), (args.delivery_axis,), lanes),
+                                        axis=args.delivery_axis)
     loader = make_loader(
         LoaderConfig(
             impl=args.loader, batch_size=args.batch_size, num_workers=args.workers,
@@ -227,8 +272,9 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
                 enabled=args.autotune or args.thread_budget > 0,
                 thread_budget=args.thread_budget,
             ),
+            delivery=delivery,
             pipeline=PipelineConfig(
-                enabled=args.pipeline, reorder=args.reorder,
+                enabled=args.pipeline or args.delivery == "sharded", reorder=args.reorder,
                 reorder_window=args.reorder_window, io_workers=args.io_workers,
                 cpu_workers=args.cpu_workers, cpu_executor=args.cpu_executor,
                 transport=args.transport, staging_buffers=args.staging_buffers,
@@ -256,18 +302,32 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
 
         ingest_fn = make_ingest_fn()
     stages = EpochStages(loader)
-    trainer = Trainer(
-        step_fn, state,
-        callbacks=[LoggingCallback(log_every_n_steps=args.log_every,
-                                   sink=lambda s: print("  " + s, flush=True)), stages],
-        tracer=tracer, ingest_fn=ingest_fn, device=device,
-    )
+    callbacks: List[Callback] = [LoggingCallback(log_every_n_steps=args.log_every,
+                                                 sink=lambda s: print("  " + s, flush=True)),
+                                 stages]
+    manager = None
+    if args.ckpt_dir:
+        manager = CheckpointManager(args.ckpt_dir, keep=3, layout=checkpoint_layout(cfg))
+        callbacks.append(CheckpointCallback(manager, args.ckpt_every, loader=loader))
+    trainer = Trainer(step_fn, state, callbacks=callbacks, tracer=tracer,
+                      ingest_fn=ingest_fn, device=device)
+    start_epoch, resumed_from = 0, None
+    if manager is not None and args.resume and manager.latest_step() is not None:
+        trainer.state, meta = manager.restore(trainer.state)
+        trainer.global_step = resumed_from = int(meta.get("step", 0))
+        if "loader" in meta.get("extra", {}):
+            loader.load_state_dict(meta["extra"]["loader"])
+            start_epoch = loader.state_dict()["epoch"]
+        print(f"resumed from step {trainer.global_step}", flush=True)
     t0 = time.monotonic()
     try:
-        result = trainer.fit(loader, epochs=args.epochs, max_steps=args.steps)
+        result = trainer.fit(loader, epochs=args.epochs, max_steps=args.steps,
+                             start_epoch=start_epoch)
     finally:
         loader.close()
     t1 = time.monotonic()
+    if manager is not None:
+        manager.wait()
 
     util = accelerator_stats(tracer, t0, t1)
     items_per_s = result.steps * args.batch_size / result.wall_s
@@ -289,7 +349,7 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
               f"knobs {stages.tuned[-1] if stages.tuned else {}}", flush=True)
     return RunReport(cfg, result, util, tracer, trainer.state, items_per_s,
                      len(h2d), sum(s.duration for s in h2d), stages.stats,
-                     loader, stages.tuned)
+                     loader, stages.tuned, resumed_from)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

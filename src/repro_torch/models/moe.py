@@ -15,8 +15,10 @@ As in the reference, a token's output depends on the other tokens of its
 group, through capacity: a pooled decode or a chunked prefill can drop
 an assignment that a batch-1 decode or a single pass keeps.
 
-On one device the reference's sharding constraints are the identity and
-its data-parallel extent is 1, so the group count is never rounded up.
+The reference's sharding constraints are the identity here (one card);
+its rounding of the group count up to a multiple of the data-parallel
+extent is kept: :func:`repro_torch.models.sharding.dp_extent` reads the
+activation mesh (1 without one, where nothing is rounded).
 Where the reference leaves out-of-range indices to JAX (``one_hot`` of a
 slot past capacity is a zero row; the gather route scatters dropped
 assignments out of bounds with ``mode="drop"`` and gathers them with
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import Params, dense_init, pdtype
+from repro_torch.models.sharding import dp_extent
 
 DEFAULT_GROUP_SIZE = 4_096
 CAPACITY_FACTOR = 1.25
@@ -155,8 +158,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     N = B * S
     flat = x.reshape(N, d)
+    R = dp_extent()
     gsz = min(group_size, N)
     G = -(-N // gsz)
+    if G > 1 and R > 1:
+        G = -(-G // R) * R  # round G up to a multiple of the DP extent
     gsz = -(-N // G)
     if G * gsz != N:
         flat = torch.cat([flat, flat.new_zeros((G * gsz - N, d))])

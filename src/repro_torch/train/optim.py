@@ -12,12 +12,16 @@ Unlike the reference's pure functions, ``update`` works **in place**: it
 overwrites the parameter and moment tensors under ``torch.no_grad()`` (the
 parameters stay autograd leaves) and returns the same trees.  Adafactor
 (factored second moments over the last two dims, no momentum, update
-clipping and relative step size) follows ``repro/train/optim.py:88-144``.
+clipping and relative step size) follows ``repro/train/optim.py:88-144``;
+``make_optimizer(cfg, view=hwio_view)`` factors the ResNet's OIHW conv
+weights over the dims the reference factors in its HWIO layout (input and
+output channels), so its moments have the reference's shapes and values.
+AdamW and SGD are elementwise and need no view.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,15 +97,25 @@ def make_adamw(cfg: TrainConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
-def make_adafactor(cfg: TrainConfig) -> Optimizer:
+def hwio_view(t: torch.Tensor) -> torch.Tensor:
+    """A 4-D conv weight, OIHW in the port, as the reference's HWIO (a view);
+    any other leaf as it is."""
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def make_adafactor(cfg: TrainConfig, view: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                   = None) -> Optimizer:
     """Factored Adafactor (Shazeer & Stern): row/col second moments for >=2-D
-    tensors (factored over the last two dims), full for 1-D.  No momentum."""
+    tensors (factored over the last two dims of each leaf's ``view``, the
+    leaf itself by default), full for 1-D.  No momentum."""
     sched = make_schedule(cfg)
     eps1, eps2 = 1e-30, 1e-3
     wd = cfg.weight_decay
+    view = view or (lambda t: t)
 
     def init(params):
         def st(p):
+            p = view(p)
             if p.dim() >= 2:
                 return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
@@ -120,7 +134,7 @@ def make_adafactor(cfg: TrainConfig) -> Optimizer:
         # one {"vr","vc"} or {"v"} dict per parameter, in leaf order
         slots = _slot_dicts(state["v"], params)
         for g, v, p in zip(grads, slots, leaves(params)):
-            g = g.float()
+            g, p = view(g).float(), view(p)  # p: a view, updated in place
             g2 = g * g + eps1
             if p.dim() >= 2:
                 v["vr"].mul_(beta2).add_((1 - beta2) * g2.mean(-1))
@@ -173,11 +187,15 @@ def make_sgd(cfg: TrainConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
-def make_optimizer(cfg: TrainConfig) -> Optimizer:
+def make_optimizer(cfg: TrainConfig,
+                   view: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> Optimizer:
+    """``view``: each leaf in the reference's layout, for the one optimizer
+    whose state depends on it (Adafactor's factored dims; ``hwio_view``
+    for the ResNet)."""
     if cfg.optimizer == "adamw":
         return make_adamw(cfg)
     if cfg.optimizer == "adafactor":
-        return make_adafactor(cfg)
+        return make_adafactor(cfg, view)
     if cfg.optimizer == "sgd":
         return make_sgd(cfg)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

@@ -32,7 +32,7 @@ import torch
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models import encdec, resnet, transformer
 from repro_torch.train import compression
-from repro_torch.train.optim import global_norm, make_optimizer
+from repro_torch.train.optim import global_norm, hwio_view, make_optimizer
 from repro_torch.tree import leaves
 
 
@@ -147,13 +147,13 @@ def init_resnet_train_state(cfg: ModelConfig, tcfg: TrainConfig, generator: torc
     return {
         "params": params,
         "bn": bn,
-        "opt": make_optimizer(tcfg).init(params),
+        "opt": make_optimizer(tcfg, view=hwio_view).init(params),
         "step": 0,
     }
 
 
 def make_resnet_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
-    opt = make_optimizer(tcfg)
+    opt = make_optimizer(tcfg, view=hwio_view)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]

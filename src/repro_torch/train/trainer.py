@@ -6,7 +6,9 @@ frequency/cost).  Both share the train step, the ConcurrentDataLoader and the
 device prefetch ring, and record the paper's span lanes so Table-3 style
 stats come out of the same tracer.  Metrics are read with ``.item()``, which
 waits for the step's device work, so each ``run_training_batch`` span covers
-it.
+it.  :class:`CheckpointCallback` saves the train state every N steps
+through a :class:`~repro_torch.train.checkpoint.CheckpointManager`, with
+the loader cursor of the trainer's own step.
 """
 from __future__ import annotations
 
@@ -53,6 +55,39 @@ class LoggingCallback(Callback):
             self.sink(line)
 
 
+class CheckpointCallback(Callback):
+    """Save ``trainer.state`` every ``every_steps`` steps (asynchronously
+    unless ``blocking``), with the loader's cursor in the checkpoint's
+    ``extra["loader"]``.
+
+    The cursor comes from the TRAINER's step, not from
+    ``loader.state_dict()``: the device prefetch ring consumes batches ahead
+    of the step, so the loader's own cursor would skip the in-flight batches
+    on restart.  One step is one batch.  Under sharded delivery the cursor
+    also carries the loader's lane-cursor block, at the same position
+    (:meth:`~repro_torch.core.loader.ConcurrentDataLoader.cursor_state`);
+    the reference's callback keeps only ``epoch`` and ``next_batch``, which
+    is what a host-delivery loader gives here too."""
+
+    def __init__(self, manager, every_steps: int, loader=None, blocking: bool = False):
+        self.manager = manager
+        self.every = every_steps
+        self.loader = loader
+        self.blocking = blocking
+
+    def on_train_batch_end(self, trainer, metrics, idx) -> None:
+        if self.every and trainer.global_step % self.every == 0:
+            extra = {}
+            if self.loader is not None:
+                n = len(self.loader)
+                epoch, next_batch = trainer.global_step // n, trainer.global_step % n
+                cursor = getattr(self.loader, "cursor_state", None)
+                extra = {"loader": cursor(epoch, next_batch) if callable(cursor)
+                         else {"epoch": epoch, "next_batch": next_batch}}
+            self.manager.save(trainer.global_step, trainer.state, extra_meta=extra,
+                              blocking=self.blocking)
+
+
 @dataclass
 class TrainResult:
     steps: int
@@ -79,8 +114,12 @@ def _make_ring(loader, depth: int, tracer: Tracer, ingest_fn, device) -> DeviceP
     max_depth = depth
     if auto is not None:
         max_depth = max(depth, auto.cfg.max_device_prefetch)
-    ring = DevicePrefetchRing(iter(loader), depth=depth, max_depth=max_depth,
-                              tracer=tracer, ingest_fn=ingest_fn, device=device)
+    ring = DevicePrefetchRing(
+        iter(loader), depth=depth, max_depth=max_depth,
+        # sharded delivery hands over batches already on the card: the ring
+        # only paces them and runs the epilogue
+        transfer=not getattr(loader, "delivers_device_batches", False),
+        tracer=tracer, ingest_fn=ingest_fn, device=device)
     if auto is not None:
         # iter(loader) above re-bound the loader knobs; the ring knob rides
         # along for this epoch and is dropped at the next re-bind

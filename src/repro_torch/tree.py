@@ -37,6 +37,18 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over ``tree``, each leaf named by its
+    :func:`flatten` path; the result has ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def unbind(tree: Any) -> List[Any]:
     """A tree of tensors stacked on a leading axis -> one tree per index
     (views; one unbind per leaf)."""

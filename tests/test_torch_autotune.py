@@ -898,8 +898,9 @@ def test_build_knobs_functions_match_the_reference():
 # config: the ported fields, the flat-kwarg shim, the budget floor
 # ---------------------------------------------------------------------------
 
-# the reference's AutotuneConfig fields of features the port lacks
-UNPORTED = {"skew_gate"}  # item 7
+# the reference's AutotuneConfig fields of features the port lacks: none
+# since sharded delivery brought the lane-skew gate
+UNPORTED: set = set()
 
 
 def test_autotune_config_keeps_the_reference_fields_and_defaults():

@@ -170,22 +170,27 @@ def test_shared_flags_take_the_reference_defaults_and_choices(monkeypatch, launc
     assert launch.parse_args([]).arch == "granite-8b"
     if launcher == "train":
         assert {"--cache-mb", "--optimizer", "--store", "--pipeline",
-                "--transport"} <= set(shared)
-        # the reference's flags the port lacks come with later items
-        assert set(ref) - set(port) == {"--delivery", "--delivery-axis",
-                                        "--ckpt-dir", "--ckpt-every", "--resume"}
-    else:
-        assert set(ref) <= set(port)
+                "--transport", "--delivery", "--delivery-axis", "--ckpt-dir",
+                "--ckpt-every", "--resume"} <= set(shared)
+        # checkpointing and sharded delivery: the reference's defaults
+        assert {f: port[f] for f in ("--delivery", "--delivery-axis", "--ckpt-dir",
+                                     "--ckpt-every", "--resume")} == {
+            "--delivery": ("host", ["host", "sharded"]), "--delivery-axis": ("data", None),
+            "--ckpt-dir": ("", None), "--ckpt-every": (25, None), "--resume": (False, None)}
+    # every flag of the reference's launcher is ported
+    assert set(ref) <= set(port)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ckpt-dir", "ckpt"],
-    ["--delivery", "sharded"],
-    ["--delivery-axis=data"],
+    ["--ckpt-every", "four"],
+    ["--delivery", "mesh"],
+    ["--delivery-axis"],
 ])
 def test_unported_launcher_flags_are_unknown(flags):
-    """The reference's flags for features the port lacks are not added just
-    to raise: argparse refuses them as unknown arguments."""
+    """Every reference flag is ported now (checkpointing and sharded
+    delivery were the last); what argparse refuses is what the
+    reference's refuses: a value outside a flag's type or choices, or a
+    flag without its value."""
     with pytest.raises(SystemExit):
         launch.parse_args(ARGS + flags)
 
@@ -354,3 +359,64 @@ def test_lm_launcher_matches_jax_trainer(monkeypatch):
     assert len(report.tracer.spans(RUN_TRAINING_BATCH)) == LM_STEPS
     with pytest.raises(SystemExit, match="device-ingest"):
         launch.run(LM_ARGS + ["--device-ingest"])
+
+
+@pytest.mark.parametrize("axis", ["data", "batch"])
+def test_delivery_flags_build_the_reference_loader_config(monkeypatch, axis):
+    """``--delivery sharded --delivery-axis A`` builds what the reference's
+    launcher builds: sharded delivery over a one-lane mesh on axis A (one
+    visible device: the CPU here) with the staged pipeline on, even without
+    ``--pipeline``."""
+    import sys
+
+    from repro.launch import train as jax_launch
+
+    argv = ["--arch", "resnet18-imagenet", "--items", "8", "--batch-size", "4", "--store",
+            "memory", "--workers", "2", "--fetchers", "2", "--delivery", "sharded",
+            "--delivery-axis", axis]
+    port = _loader_config(monkeypatch, launch, lambda: launch.run(argv + ["--device", "cpu"]))
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    ref = _loader_config(monkeypatch, jax_launch, jax_launch.main)
+    for cfg in (port, ref):
+        assert cfg.delivery.kind == "sharded" and cfg.delivery.axis == axis
+        assert cfg.pipeline.enabled and cfg.pipeline.reorder == "strict"
+        assert dict(cfg.delivery.mesh.shape) == {axis: 1}
+    assert [str(d) for d in port.delivery.mesh.devices.flat] == ["cpu"]
+    assert dataclasses.asdict(port.pipeline) == dataclasses.asdict(ref.pipeline)
+
+
+def test_resnet_checkpoint_from_the_launcher_is_the_references_layout(tmp_path):
+    """The launcher's ``--ckpt-dir`` on the ResNet path writes the
+    reference's file: the reference's ``CheckpointManager`` restores it into
+    its own train state (convs HWIO, SGD momentum, BatchNorm statistics),
+    and ``--resume`` from it gives the unbroken run's losses."""
+    import jax
+
+    from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from repro.train.steps import init_resnet_train_state as jax_init_state
+
+    register_arch(ARCH, resnet18_imagenet.full,
+                  lambda: replace(resnet18_imagenet.smoke(), num_classes=1000))
+    unbroken = launch.run(ARGS)
+    ckpt = str(tmp_path / "ckpt")
+    first = launch.run(ARGS + ["--ckpt-dir", ckpt, "--ckpt-every", "3"])
+    jcfg = jax_replace(jax_get_arch("resnet18-imagenet", smoke=True), num_classes=1000)
+    jt = JaxTrainConfig(optimizer="sgd", learning_rate=LR, total_steps=STEPS)
+    restored, meta = JaxCheckpointManager(ckpt).restore(
+        jax_init_state(jcfg, jt, jax.random.PRNGKey(0)))
+    assert meta["step"] == STEPS and meta["extra"]["loader"] == {"epoch": 1, "next_batch": 2}
+    want = resnet_to_jax({k: v for k, v in first.state.items() if k != "step"})
+    got = jax.device_get(restored)
+    np.testing.assert_array_equal(got["params"]["stem"]["conv/w"],
+                                  want["params"]["stem"]["conv/w"])
+    np.testing.assert_array_equal(got["opt"]["m"]["fc"]["w"], want["opt"]["m"]["fc"]["w"])
+    np.testing.assert_array_equal(got["bn"]["stem"]["bn"]["mean"], want["bn"]["stem"]["bn"]["mean"])
+    assert int(got["step"]) == STEPS
+
+    import shutil
+
+    shutil.rmtree(tmp_path / "ckpt" / f"step_{STEPS:08d}")
+    resumed = launch.run(ARGS + ["--ckpt-dir", ckpt, "--ckpt-every", "3", "--resume"])
+    assert resumed.resumed_from == 3
+    np.testing.assert_array_equal([h["loss"] for h in resumed.result.history],
+                                  [h["loss"] for h in unbroken.result.history][3:])

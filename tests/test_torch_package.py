@@ -52,6 +52,21 @@ def test_sources_never_import_jax_or_repro(path):
     assert not _FORBIDDEN.findall(text), path
 
 
+CHECKPOINT_AND_DELIVERY = ["train/checkpoint.py", "train/fault_tolerance.py", "launch/mesh.py",
+                           "models/sharding.py", "core/delivery.py", "examples/train_lm.py",
+                           "examples/elastic_restart.py"]
+
+
+def test_the_source_scan_covers_checkpointing_and_delivery():
+    """The scan above walks every source of the package; the modules of
+    checkpointing, fault tolerance and sharded delivery, and the example
+    twins, are among them and import neither jax nor repro."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert set(CHECKPOINT_AND_DELIVERY) <= scanned
+    for rel in CHECKPOINT_AND_DELIVERY:
+        assert not _FORBIDDEN.findall((PORT / rel).read_text()), rel
+
+
 _IMPORT_ONE = r"""
 import importlib, sys
 sys.modules["jax"] = None  # any import of jax now raises
@@ -79,7 +94,14 @@ print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
                                     "repro_torch.models.counting",
                                     "repro_torch.configs.whisper_large_v3",
                                     "repro_torch.configs.internvl2_26b",
-                                    "repro_torch.tools.budget_split_probe"])
+                                    "repro_torch.tools.budget_split_probe",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.train.fault_tolerance",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.models.sharding",
+                                    "repro_torch.core.delivery",
+                                    "repro_torch.examples.train_lm",
+                                    "repro_torch.examples.elastic_restart"])
 def test_slice_module_imports_alone_without_jax_or_repro(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, str(ROOT / "src"), module],
@@ -103,7 +125,10 @@ print("torch" in sys.modules)
                                     "repro_torch.data.cache", "repro_torch.data.store",
                                     "repro_torch.data.dataset",
                                     "repro_torch.data.imagenet_synth",
-                                    "repro_torch.data.columnar", "repro_torch.data.shards"])
+                                    "repro_torch.data.columnar", "repro_torch.data.shards",
+                                    "repro_torch.core.delivery",
+                                    "repro_torch.models.sharding",
+                                    "repro_torch.train.fault_tolerance"])
 def test_loader_module_imports_without_torch(module):
     """A spawned CPU worker of the staged pipeline imports these modules
     (and unpickles the dataset), and a spawned elastic member or cache

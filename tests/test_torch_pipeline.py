@@ -492,7 +492,8 @@ def test_bad_cpu_executor_rejected(dataset):
 def test_config_and_factory_carry_only_ported_options(dataset):
     """``PipelineConfig`` has the reference's fields (the shared-memory
     transport's ``transport`` and slab sizes included), with its defaults,
-    ``make_loader`` has no ``mesh`` parameter, and the reference's
+    ``make_loader`` the reference's parameters (``mesh`` too, since sharded
+    delivery was ported) and takes a ``RunConfig``, and the reference's
     validation of the ported fields holds."""
     import dataclasses
     import inspect
@@ -507,12 +508,13 @@ def test_config_and_factory_carry_only_ported_options(dataset):
     assert {f.name: f.default for f in dataclasses.fields(PipelineConfig)} == {
         k: ref[k] for k in ported}
     assert bool(pipe()) and not PipelineConfig()
-    assert list(inspect.signature(make_loader).parameters) == [
-        "cfg", "dataset", "tracer", "host_id", "num_hosts", "collate_fn",
-        "worker_startup_cost_s"]
+    from repro.core import make_loader as jax_make_loader
+    from repro_torch.config import ModelConfig, RunConfig
 
-    class RunConfig:  # the reference's run-level config, which the port lacks
-        loader = LoaderConfig()
+    assert list(inspect.signature(make_loader).parameters) == list(
+        inspect.signature(jax_make_loader).parameters) == [
+        "cfg", "dataset", "mesh", "tracer", "host_id", "num_hosts", "collate_fn",
+        "worker_startup_cost_s"]
 
     with pytest.raises(ValueError, match="vanilla"):
         ConcurrentDataLoader(dataset, LoaderConfig(impl="vanilla", pipeline=pipe()))
@@ -522,8 +524,15 @@ def test_config_and_factory_carry_only_ported_options(dataset):
         ConcurrentDataLoader(dataset, LoaderConfig(pipeline=pipe(stage_queue_depth=0)))
     with pytest.raises(ValueError, match="cpu_workers"):
         ConcurrentDataLoader(dataset, LoaderConfig(pipeline=pipe(cpu_workers=-1)))
-    with pytest.raises(TypeError, match="item 7"):
-        make_loader(RunConfig(), dataset)
+    run = make_loader(RunConfig(model=ModelConfig(), loader=LoaderConfig(pipeline=pipe())),
+                      dataset)
+    assert isinstance(run, ConcurrentDataLoader) and run.delivery_plan is None
+
+    class RunShaped:  # a run-level config that is no RunConfig
+        loader = LoaderConfig()
+
+    with pytest.raises(TypeError, match="RunConfig or LoaderConfig"):
+        make_loader(RunShaped(), dataset)
     assert isinstance(make_loader(LoaderConfig(pipeline=pipe()), dataset), ConcurrentDataLoader)
 
 

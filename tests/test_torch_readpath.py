@@ -1,12 +1,12 @@
 """Twins of ``tests/test_readpath.py`` on the port: the serving read path
 (``repro_torch.serve.readpath``: single-flight coalescing, tenant fairness,
 SLO hedging), the autotuner's latency objective and ``make_read_path``.
-The same cases and assertions with the imports pointed at ``repro_torch``,
-except two that wait for sharded delivery (ROADMAP §1 item 7): the port has
-no lane-skew gate and no ``RunConfig``, and their twins say so.  Beyond the
-twins, against the reference itself: the latency controller's events on the
-same request stream, a request sequence's sources and tenant accounting on
-a fake clock, and the token bucket's waits."""
+The same cases and assertions with the imports pointed at ``repro_torch``
+(the lane-skew gate and ``RunConfig`` came with sharded delivery).  Beyond
+the twins, against the reference itself: the latency controller's events on
+the same request stream (and the skew gate's, gated or not), a request
+sequence's sources and tenant accounting on a fake clock, and the token
+bucket's waits."""
 import threading
 import time
 from dataclasses import replace
@@ -294,7 +294,7 @@ class TestHedging:
 
 
 # ---------------------------------------------------------------------------
-# latency-objective autotune (+ the skew gate, which waits for item 7)
+# latency-objective autotune (+ the sharded-delivery skew gate)
 # ---------------------------------------------------------------------------
 
 
@@ -352,25 +352,50 @@ class TestLatencyObjective:
         rp.close()
         assert any(e.action == "probe" for e in rp.autotuner.events)
 
-    def test_skew_gate_waits_for_sharded_delivery(self):
-        """Twin of ``test_skew_gate_blocks_up_probes_until_converged``: the
-        lane-skew gate comes with sharded delivery (ROADMAP §1 item 7), so
-        the port has no ``skew_gate`` field and no ``skew_fn`` signal, and
-        the same knob profile probes from its first windows."""
-        with pytest.raises(TypeError):
-            AutotuneConfig(skew_gate=2)
-        cfg = AutotuneConfig(enabled=True, interval_batches=1, min_window_s=0.0,
-                             warmup_windows=0, reprobe_windows=0)
+    def test_skew_gate_blocks_up_probes_until_converged(self):
+        cfg = AutotuneConfig(
+            enabled=True, interval_batches=1, min_window_s=0.0,
+            warmup_windows=0, skew_gate=2, reprobe_windows=0,
+        )
         state = {"k": 8}
-        with pytest.raises(TypeError):
-            AutotuneController(cfg, [_mk_knob(state)], skew_fn=lambda: 5.0)
-        c = AutotuneController(cfg, [_mk_knob(state)])
+        skew = {"v": 5.0}
+        c = AutotuneController(cfg, [_mk_knob(state)], skew_fn=lambda: skew["v"])
         now = 0.0
         for _ in range(6):
             now += 1.0
             c.on_batch(10, now=now)
+        # lanes diverged: every up-probe was skipped and logged
+        assert state["k"] == 8
+        assert any(e.action == "skew" for e in c.events)
+        assert not any(e.action == "probe" for e in c.events)
+        skew["v"] = 0.0  # lanes re-converged: probing resumes
+        for _ in range(6):
+            now += 1.0
+            c.on_batch(10, now=now)
         assert any(e.action == "probe" for e in c.events)
-        assert not any(e.action == "skew" for e in c.events)
+
+    def test_skew_gate_waits_for_sharded_delivery(self):
+        """The skew gate acts only where there are lanes to diverge and a
+        gate to read them: with ``skew_gate`` 0 (the default) or without a
+        ``skew_fn`` (host delivery wires none) a diverged signal changes
+        nothing, and the controller's events equal the reference's, the
+        gated run's too."""
+        trails = []
+        for gate, fn in ((0, lambda: 5.0), (2, None), (2, lambda: 5.0)):
+            for cfg_cls, ctrl_cls, knob_cls in ((AutotuneConfig, AutotuneController, Knob),
+                                                (JaxAutotuneConfig, JaxController, JaxKnob)):
+                cfg = cfg_cls(enabled=True, interval_batches=1, min_window_s=0.0,
+                              warmup_windows=0, reprobe_windows=0, skew_gate=gate)
+                state = {"k": 8}
+                c = ctrl_cls(cfg, [_mk_knob(state, knob_cls=knob_cls)], skew_fn=fn)
+                now = 0.0
+                for _ in range(6):
+                    now += 1.0
+                    c.on_batch(10, now=now)
+                trails.append([(e.action, e.knob, e.value) for e in c.events])
+        assert trails[0] == trails[1] == trails[2] == trails[3]
+        assert any(a == "probe" for a, _, _ in trails[0])
+        assert trails[4] == trails[5] and all(a == "skew" for a, _, _ in trails[4])
 
 
 def test_latency_controller_events_equal_the_references():
@@ -403,19 +428,36 @@ class TestFactory:
         assert rp.get("k").data == bytes(1000)
         rp.close()
 
+    def test_from_run_config(self):
+        from repro_torch.config import ModelConfig, RunConfig
+
+        cfg = RunConfig(model=ModelConfig(),
+                        serve=ServeSpec(coalesce_window_s=0.123))
+        rp = make_read_path(cfg, _filled_store(["k"]))
+        assert rp.spec.coalesce_window_s == 0.123
+        rp.close()
+
     def test_run_config_waits_for_sharded_delivery(self):
-        """Twin of ``test_from_run_config``: ``RunConfig`` comes with sharded
-        delivery (ROADMAP §1 item 7), so the port's config has none and
-        ``make_read_path`` refuses a run-shaped config, naming the item."""
-        import repro_torch.config as config
+        """A ``RunConfig`` (which came with sharded delivery) hands the read
+        path its ``serve`` block, whatever its loader's delivery: a run
+        configured for sharded delivery, with no mesh anywhere, still builds
+        its read path (only ``make_loader`` needs the mesh), and a
+        run-shaped object that is no ``RunConfig`` is refused."""
+        from repro_torch.config import DeliverySpec, LoaderConfig, ModelConfig, RunConfig
 
-        assert not hasattr(config, "RunConfig")
+        cfg = RunConfig(model=ModelConfig(),
+                        loader=LoaderConfig(delivery=DeliverySpec(kind="sharded")),
+                        serve=ServeSpec(coalesce_window_s=0.25))
+        rp = make_read_path(cfg, _filled_store(["k"]))
+        assert rp.spec is cfg.serve
+        assert rp.get("k").data == bytes(1000)
+        rp.close()
 
-        class RunConfig:  # the reference's run-level config, which the port lacks
+        class RunShaped:
             serve = ServeSpec(coalesce_window_s=0.123)
 
-        with pytest.raises(TypeError, match="item 7"):
-            make_read_path(RunConfig(), _filled_store(["k"]))
+        with pytest.raises(TypeError, match="RunConfig or ServeSpec"):
+            make_read_path(RunShaped(), _filled_store(["k"]))
 
     def test_rejects_other_configs(self):
         with pytest.raises(TypeError, match="make_read_path"):

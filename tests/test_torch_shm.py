@@ -15,7 +15,7 @@ except where the reference's test depends on the machine's scheduling:
   how far decode runs ahead of collate).
 
 The reference's 4-device leg (``test_shm_transport_with_sharded_delivery_4dev``)
-waits for sharded delivery (ROADMAP §1 item 7).  Beyond the twins: the
+has its twin in ``tests/test_torch_delivery.py``.  Beyond the twins: the
 port's shm epoch equals the reference's shm epoch byte for byte, a loader
 leaves no segment behind after ``close``, the slab knob exists only with
 the shm transport and a respawned worker honours its cap, and both packages

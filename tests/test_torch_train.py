@@ -1,6 +1,7 @@
 """Optimizers and the ResNet train step in the port against the JAX reference:
-three steps each of SGD and AdamW from the same weights, handed to the port
-through ``convert``."""
+three steps each of SGD, AdamW and Adafactor from the same weights, handed to
+the port through ``convert`` (Adafactor factors each OIHW conv weight as the
+reference factors its HWIO one, through ``optim.hwio_view``)."""
 import numpy as np
 import pytest
 
@@ -15,7 +16,7 @@ from repro.train.steps import make_resnet_train_step as jax_make_step  # noqa: E
 from repro_torch.config import TrainConfig, get_arch  # noqa: E402
 from repro_torch.convert import resnet_state_from_jax, resnet_to_jax  # noqa: E402
 from repro_torch.models.resnet import init_resnet  # noqa: E402
-from repro_torch.train.optim import make_optimizer, make_schedule  # noqa: E402
+from repro_torch.train.optim import hwio_view, make_optimizer, make_schedule  # noqa: E402
 from repro_torch.train.steps import init_resnet_train_state, make_resnet_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, raw_train_loop  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
@@ -36,7 +37,7 @@ def test_schedule_matches_jax(schedule):
         np.testing.assert_allclose(got(step), float(want(jnp.asarray(step))), rtol=1e-6)
 
 
-@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw", "adafactor"])
 def test_three_steps_match_jax(optimizer):
     jcfg = jax_get_arch("resnet18-imagenet", smoke=True)
     cfg = get_arch("resnet18-imagenet", smoke=True)
@@ -48,7 +49,8 @@ def test_three_steps_match_jax(optimizer):
     jstate = {"params": np_params, "bn": np_bn,
               "opt": joptim.make_optimizer(jt).init(np_params), "step": jnp.zeros((), jnp.int32)}
     params, bn = resnet_state_from_jax(np_params, np_bn, "cpu")
-    state = {"params": params, "bn": bn, "opt": make_optimizer(tcfg).init(params), "step": 0}
+    state = {"params": params, "bn": bn, "opt": make_optimizer(tcfg, view=hwio_view).init(params),
+             "step": 0}
 
     rng = np.random.default_rng(3)
     image = rng.standard_normal((4, 3, 32, 32), dtype=np.float32)
