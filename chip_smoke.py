@@ -132,6 +132,25 @@ Phases, each printing one JSON line:
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
    kernel) over 4 loader batches against the plain attention's.
+7b. main_roofline — the dry run's op counter (``launch/op_cost.py``) on
+   the main paths, on fake CPU tensors counted for the card
+   (``kernels.cost.for_card``: no allocation, no launch), against the
+   times main and main_lm measured (nothing timed twice): (a) the
+   ResNet-18 train step at batch 64 on the f32 batch ``isolated_step_ms``
+   times, main's TF32 flags: FLOPs by compute class, bytes, achieved
+   TFLOP/s, the roofline bound and its share of ``isolated_step_ms``,
+   ``step_mfu`` (model FLOPs, 3 x the counted forward, over peak x step
+   time) and ``step_hfu`` (counted FLOPs over class peak x step time); its
+   ``ingest_norm`` epilogue counted apart (one launch, gated); (b)
+   granite-8b-4l's train step at main_lm's shape: counted FLOPs over 6 N D
+   (gated in [1.0, 2.5]), the live-bytes tracker's peak against
+   ``max_memory_allocated()`` around one step on the card from a fresh
+   state (gated in [0.75, 1.33]), ``step_mfu`` (6 N D) and ``step_hfu``
+   from main_lm's median step after the first; (c) main_lm's flash eval
+   over one batch counted: ``flash_attention`` once a layer at
+   phase_flash's FLOPs (gated).  The card's peaks come from
+   ``launch/roofline.py`` and each kernel's bound from its ``ops.cost``,
+   as every phase's.
 8. kernels/rwkv6_wkv and kernels/rmsnorm — each new kernel against its
    plain version at the reference tests' cases and the path's shape, with
    timings (rmsnorm with the library yardstick ``F.rms_norm``; rwkv6_wkv
@@ -165,15 +184,16 @@ Phases, each printing one JSON line:
    models on the card against the CPU (fp32, TF32 off), loss and aux loss.
 12. main_mla — minicpm3-4b at full width (depth 62 cut to 4) trained from
    simulated S3 through the launcher as main_lm (8 steps over 16
-   sequences since main_resume joined the script), then served whole (62
-   layers) through ``launch/serve.py`` at the reference launcher's
-   defaults, with main_serve's (a), (b), (c) and (e), and the absorbed
+   sequences since main_resume joined the script), then served at full
+   width with its depth cut from 62 to 16 (for the time budget) through
+   ``launch/serve.py`` at the reference launcher's defaults, with main_serve's (a), (b), (c) and (e), and the absorbed
    MLA decode against the expanded one (``MLA_ABSORB_MAX_S = 0``) on the
    engine's pooled cache.
 13. main_moe — granite-moe-3b-a800m at full width (32 cut to 4) trained
    the same way (8 steps over 16 sequences) (aux loss positive), gather against einsum dispatch on one
    full-width layer at the training shape (fp32, within 2e-5), then
-   granite-moe-3b-a800m served whole with (a) and (b), and
+   granite-moe-3b-a800m served at full width, its depth cut from 32 to 8
+   (for the time budget), with (a) and (b), and
    qwen2-moe-a2.7b served whole (15.15 B parameters) with (a), its init
    and serving peaks against the card's memory, finite logits, and pooled
    against batch-1 decode printed, not gated (its decode capacity of 4
@@ -227,7 +247,8 @@ again around (d); for main_mla, main_moe and main_hybrid, around each
 launcher run, and for main_hybrid around its flash eval (k); for
 main_encdec around its training steps, its launcher run and each flash
 eval, (k) and (v); rmsnorm, which no model calls, counts its own phase's
-checked calls).  Each main
+checked calls; main_roofline launches no kernel: a fake launch moves no
+count).  Each main
 phase prints its wall time (``phase_wall``).
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check or exception exits non-zero without the last line.  Imports
@@ -235,6 +256,7 @@ nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -249,15 +271,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# Device-memory bandwidth and dense bf16 tensor-core peak by card (NVIDIA
-# data sheets), for the bytes and operations bounds.  The first key found in
-# the card's name wins ("NVIDIA H100 80GB HBM3" is the SXM part).
-BANDWIDTH = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12)]
-PEAK_BF16 = [("H200", 989.4e12), ("H100 NVL", 835.5e12), ("H100 PCIe", 756.5e12),
-             ("H100", 989.4e12)]
-# fp32 on the CUDA cores (no tensor cores), for the WKV kernel's bound
-PEAK_FP32 = [("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12), ("H100", 67e12)]
 
 MAIN_BS = 64
 MAIN_BATCH = (MAIN_BS, 224, 224, 3)
@@ -367,9 +380,11 @@ RWKV_SERVE_REQUESTS, RWKV_SERVE_SLOTS = 8, 4
 
 # The MLA and MoE families.  Training: minicpm3-4b (depth 62 -> 4) and
 # granite-moe-3b-a800m (32 -> 4) at full width with main_lm's loader,
-# sequences, batch, microbatches and steps.  Serving: minicpm3-4b,
-# granite-moe-3b-a800m and qwen2-moe-a2.7b whole, through launch/serve.py at
-# the reference launcher's defaults, held as main_serve's granite-8b.
+# sequences, batch, microbatches and steps.  Serving: qwen2-moe-a2.7b whole,
+# minicpm3-4b and granite-moe-3b-a800m at full width with their depth cut
+# from 62 to 16 and from 32 to 8 to keep the script inside its time limit,
+# through launch/serve.py at the reference launcher's defaults, held as
+# main_serve's granite-8b.
 MLA_ARCH, MOE_ARCH, QWEN_ARCH = "minicpm3-4b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"
 MLA_TRAIN_ARCH, MOE_TRAIN_ARCH, FAMILY_LAYERS = "minicpm3-4b-4l", "granite-moe-3b-a800m-4l", 4
 # Their training runs 8 steps over 16 sequences (4 batches an epoch, so the
@@ -384,8 +399,12 @@ MLA_REDUCED = {"num_layers": "62 -> 4, as main_lm",
                "items": "16 packed sequences of 4097 tokens", "steps": FAMILY_STEPS}
 MOE_REDUCED = {"num_layers": "32 -> 4, as main_lm",
                "items": "16 packed sequences of 4097 tokens", "steps": FAMILY_STEPS}
-MLA_SERVE_ARGS = ["--arch", MLA_ARCH, "--full", "--device", "cuda"]
-MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--full", "--device", "cuda"]
+MLA_SERVE_ARCH, MLA_SERVE_LAYERS = "minicpm3-4b-16l", 16
+MOE_SERVE_ARCH, MOE_SERVE_LAYERS = "granite-moe-3b-a800m-8l", 8
+MLA_SERVE_ARGS = ["--arch", MLA_SERVE_ARCH, "--full", "--device", "cuda"]
+MOE_SERVE_ARGS = ["--arch", MOE_SERVE_ARCH, "--full", "--device", "cuda"]
+MLA_SERVE_REDUCED = {"num_layers": "62 -> 16, for the time budget"}
+MOE_SERVE_REDUCED = {"num_layers": "32 -> 8, for the time budget"}
 QWEN_SERVE_ARGS = ["--arch", QWEN_ARCH, "--full", "--device", "cuda"]
 # gather against einsum dispatch on one full-width granite-moe layer at the
 # training shape (a microbatch: 2 x 4096 tokens), fp32 with TF32 off, within
@@ -462,24 +481,18 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def lookup(table, name: str):
-    """The card's entry in ``table``, or None for a card the table does not
-    know: no other card's number is quoted for it."""
-    for key, value in table:
-        if key in name:
-            return value
-    return None
+def kernel_bounds(card, cost) -> dict:
+    """A kernel's registered cost (its ``ops.cost``) on this card
+    (``roofline.card_peaks``; None for a card the table does not know): the
+    least time in ms and what bounds it, and the bytes and operations
+    bounds apart."""
+    from repro_torch.launch.roofline import bound_ms
 
-
-def bound_ms(nbytes: float, flops: float, bw, peak):
-    """(least time in ms, what bounds it): the larger of ``nbytes`` over the
-    memory rate and ``flops`` over the peak; None where a rate this bound
-    needs is unknown for the card."""
-    t_bytes = nbytes / bw * 1e3 if bw else None
-    t_ops = 0.0 if not flops else (flops / peak * 1e3 if peak else None)
-    if t_bytes is None or t_ops is None:
-        return None, "operations" if flops else "bytes"
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    bound, by = bound_ms(cost.bytes, cost.flops, card, cost.compute_class)
+    return {"bound_ms": bound, "bound_by": by, "bound_bytes": cost.bytes, "flops": cost.flops,
+            "bytes_bound_ms": cost.bytes / card.hbm_bytes_per_s * 1e3 if card else None,
+            "ops_bound_ms": (cost.flops / card.peak_flops[cost.compute_class] * 1e3
+                             if card else None)}
 
 
 def device_ms(fn, runs: int = 20, per_run: int = 10, warmup: int = 3) -> float:
@@ -548,7 +561,7 @@ def ptxas_of(log: str, pattern: str) -> list:
     return [e for e in ptxas_summary(log) if re.search(pattern, e["entry"])]
 
 
-def phase_kernels(torch, ops, ref, bw) -> dict:
+def phase_kernels(torch, ops, ref, card) -> dict:
     from repro_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
 
     gen = torch.Generator().manual_seed(0)
@@ -585,7 +598,8 @@ def phase_kernels(torch, ops, ref, bw) -> dict:
     kernel_cold_ms = cold_ms(kernel, scratch)
     del scratch
     kernel_call_ms, plain_call_ms = call_ms(kernel), call_ms(plain)
-    nbytes = B * H * W * C * (1 + 4)  # u8 in, f32 out, each touched once
+    bounds = kernel_bounds(card, ops.cost(MAIN_BATCH, torch.float32))  # u8 in, f32 out
+    nbytes = bounds["bound_bytes"]
     main_err = next(c["max_abs_err"] for c in cases
                     if c["shape"] == list(MAIN_BATCH) and c["dtype"] == str(torch.float32))
     log = ops.build().log
@@ -595,7 +609,7 @@ def phase_kernels(torch, ops, ref, bw) -> dict:
            "max_abs_err": main_err,
            "kernel_ms": kernel_ms, "kernel_cold_ms": kernel_cold_ms, "plain_ms": plain_ms,
            "kernel_call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
-           "bound_ms": bound_ms(nbytes, 0, bw, None)[0], "bound_bytes": nbytes,
+           "bound_ms": bounds["bound_ms"], "bound_bytes": nbytes,
            "cold_gb_per_s": nbytes / kernel_cold_ms / 1e6,
            "ptxas": {"f32 C=3 vector": ptxas_of(log, r"ingest_norm_kernelIfLi3ELb1E"),
                      "f32 C=3 scalar": ptxas_of(log, r"ingest_norm_kernelIfLi3ELb0E"),
@@ -628,7 +642,7 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def phase_flash(torch, ops, ref, bw, peak) -> dict:
+def phase_flash(torch, ops, ref, card) -> dict:
     """flash_attention against its plain version at the LM path's shape and
     at ragged, small ones, every head dim the wrapper takes, each case on
     the route the wrapper gives it; device times of the bf16 kernel, the
@@ -698,11 +712,10 @@ def phase_flash(torch, ops, ref, bw, peak) -> dict:
     fp32_kernel_ms = device_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True),
                                runs=3, per_run=1, warmup=1)
     del q32, k32, v32
-    B, Hq, S, D = FLASH_Q
-    Hkv = FLASH_KV[1]
-    flops = 2.0 * B * Hq * S * S * D  # q k^T and p v over the causal triangle
-    nbytes = B * (2 * Hq * S + 2 * Hkv * S) * D * 2  # q, o and k, v in bf16, once each
-    bound, bound_by = bound_ms(nbytes, flops, bw, peak)
+    D = FLASH_Q[3]
+    # q k^T and p v over the causal triangle; q, o and k, v in bf16, once each
+    bounds = kernel_bounds(card, ops.cost(FLASH_Q, FLASH_KV, torch.bfloat16))
+    flops = bounds["flops"]
     lib = ops.build_tensor_core()
     out = {"phase": "kernels/flash_attention", "kernel": "flash_attention",
            "q": list(FLASH_Q), "kv": list(FLASH_KV), "dtype": "bfloat16", "causal": True,
@@ -718,9 +731,7 @@ def phase_flash(torch, ops, ref, bw, peak) -> dict:
            "tensor_core_ptxas": ptxas_summary(lib.log),
            "tensor_core_dynamic_smem_bytes": {
                d: lib.lib.flash_attention_sm90_smem_bytes(d) for d in ops.TENSOR_CORE_HEAD_DIMS},
-           "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bound_bytes": nbytes,
-           "bytes_bound_ms": nbytes / bw * 1e3 if bw else None,
-           "ops_bound_ms": flops / peak * 1e3 if peak else None, "peak_bf16_flops": peak}
+           **bounds, "peak_bf16_flops": card.peak_flops["bf16"] if card else None}
     emit(out)
     return out
 
@@ -3166,6 +3177,7 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     devices = sorted({str(p.device.type) for p in leaves(params)})
     ends = sorted(sp.t1 for sp in report.tracer.spans("run_training_batch"))
     steady = (len(ends) - 1) * LM_BS / (ends[-1] - ends[0]) if len(ends) > 1 else None
+    steps = sorted(report.tracer.spans("run_training_batch"), key=lambda sp: sp.t1)
     n_params = sum(p.numel() for p in leaves(params))
     diffs = [abs(a - b) for a, b in zip(loss_flash, loss_ref)]
     out = {
@@ -3178,6 +3190,8 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
         "items_per_s_after_first_step": steady,
         "tokens_per_s_after_first_step": steady * LM_SEQ if steady else None,
         "first_step_ms": 1e3 * report.tracer.spans("run_training_batch")[0].duration,
+        "step_ms_after_first_median": (1e3 * statistics.median(sp.duration for sp in steps[1:])
+                                       if len(steps) > 1 else None),
         "spans": span_stats(report.tracer),
         "util_zero_pct": report.util.util_zero_pct, "util_pos_avg": report.util.util_pos_avg,
         "busy_fraction": report.util.busy_fraction,
@@ -3205,6 +3219,162 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     if flash_launches != report.cfg.num_layers * LM_EVAL_BATCHES:
         fail(f"flash_attention launched {flash_launches} times, not "
              f"{report.cfg.num_layers} layers x {LM_EVAL_BATCHES} eval batches")
+    return out
+
+
+
+def roofline_row(card, cost, step_ms: float, model_flops: float) -> dict:
+    """A counted step against its measured time: FLOPs by class, bytes,
+    achieved TFLOP/s, the roofline's terms and bound, the bound's share of
+    the step, ``step_mfu`` (model FLOPs over peak x step time) and
+    ``step_hfu`` (every counted FLOP, recompute included, over class peak x
+    step time)."""
+    from repro_torch.launch.roofline import Roofline, step_hfu, step_mfu
+
+    roof = Roofline(cost.flops_by_class, cost.traffic_bytes, cost.wire_bytes, model_flops, 1,
+                    card)
+    step_s = step_ms / 1e3
+    return {"flops_by_class": cost.flops_by_class, "flops": cost.flops,
+            "bytes": cost.traffic_bytes, "ops": cost.ops, "kernels": cost.kernels,
+            "flags": cost.flags, "step_ms": step_ms, "model_flops": model_flops,
+            "achieved_tflops": cost.flops / step_ms / 1e9,
+            "t_compute_ms": roof.t_compute * 1e3,
+            "t_compute_by_class_ms": {c: t * 1e3 for c, t in roof.t_compute_by_class.items()},
+            "t_memory_ms": roof.t_memory * 1e3, "bound_ms": roof.bound_time * 1e3,
+            "bound_by": roof.dominant, "bound_share_of_step": roof.bound_time * 1e3 / step_ms,
+            "step_mfu": step_mfu(model_flops, cost.flops_by_class, step_s, card),
+            "step_hfu": step_hfu(cost.flops_by_class, step_s, card),
+            "top_flops": cost.top_flops[:5], "top_bytes": cost.top_bytes[:5]}
+
+
+def measured_step_peak(torch, cfg, tcfg) -> dict:
+    """One train step of ``cfg`` on the card from a fresh state drawn there
+    and a random batch at main_lm's shape: ``max_memory_allocated()`` over
+    the step after ``reset_peak_memory_stats()``, with what was allocated
+    before it (the state, the batch and anything left on the card)."""
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(5)
+    state = init_train_state(cfg, tcfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (LM_BS, LM_SEQ + 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+    del toks
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, metrics = make_train_step(cfg, tcfg)(state, batch)
+    loss = metrics["loss"].item()
+    out = {"measured_peak_bytes": torch.cuda.max_memory_allocated(),
+           "allocated_before_bytes": before, "one_step_loss": loss}
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_main_roofline(torch, ingest_ops, flash_ops, main_out: dict, lm_out: dict,
+                        flash_out: dict, card, smi: str) -> dict:
+    """The main paths' steps counted by the dry run's op counter on fake
+    CPU tensors under ``for_card`` (no allocation, no launch: each kernel
+    wrapper counts its kernel) against the times main and main_lm measured:
+    (a) the ResNet-18 train step at batch 64 on an f32 batch, main's flags,
+    against ``isolated_step_ms``, which times that step on such a batch
+    (model FLOPs 3 x its counted forward); the ``ingest_norm`` epilogue
+    counted apart (one launch at its registered bytes); (b) granite-8b-4l's
+    train step at main_lm's shape: counted FLOPs over 6 N D (gated in
+    [1.0, 2.5]), the live-bytes tracker's peak against
+    ``max_memory_allocated()`` around one step on the card (gated in
+    [0.75, 1.33]), and step_mfu (6 N D) and step_hfu from main_lm's median
+    step after the first; (c) main_lm's flash eval pass over one batch:
+    ``flash_attention`` counted once a layer at phase_flash's FLOPs
+    (gated)."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.kernels.cost import for_card
+    from repro_torch.launch import op_cost
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import resnet
+    from repro_torch.models.counting import count_active_params
+    from repro_torch.train.steps import make_eval_step, make_resnet_train_step, make_train_step
+
+    # main's flags, stated: cuDNN convolutions in TF32, matmuls in fp32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = make_mesh((1, 1), ("data", "model"), ["cpu"])
+
+    # (a) the ResNet path's step on the batch isolated_step_ms times, and
+    # its ingest epilogue apart
+    cfg = get_arch("resnet18-imagenet")
+    tcfg = TrainConfig(optimizer="sgd")
+    step, ingest = make_resnet_train_step(cfg, tcfg), ingest_ops.make_ingest_fn()
+    B, H, W, C = MAIN_BATCH
+    mode = op_cost.fake_mode()
+    state = S.state_specs(cfg, tcfg, one, mode=mode)
+    with mode, for_card():
+        batch = {"image": torch.empty((B, C, H, W)),
+                 "label": torch.zeros(B, dtype=torch.int64)}
+        res = op_cost.count(step, state, batch)[1]
+        with torch.no_grad():
+            fwd = op_cost.count(lambda st, b: resnet.resnet_loss(
+                st["params"], st["bn"], b, cfg, train=True), state, batch)[1]
+        raw = {"image": torch.empty(MAIN_BATCH, dtype=torch.uint8),
+               "label": torch.zeros(B, dtype=torch.int64)}
+        epi = op_cost.count(ingest, raw)[1]
+    a = {"arch": cfg.name, "batch": MAIN_BS, "image_dtype": "float32",
+         "forward_flops": fwd.flops, "flops_over_3fwd": res.flops / (3 * fwd.flops),
+         **roofline_row(card, res, main_out["isolated_step_ms"], 3 * fwd.flops),
+         "ingest": {"kernels": epi.kernels, "bytes": epi.traffic_bytes,
+                    "flops": epi.flops}}
+
+    # (b) granite-8b-4l at main_lm's shape: the count, and one step on the card
+    cfg = get_arch(LM_ARCH)  # registered by main_lm
+    tcfg = TrainConfig(optimizer="adamw", microbatches=2)
+    shape = ShapeConfig("main_lm", LM_SEQ, LM_BS, "train")
+    mode = op_cost.fake_mode()
+    state = S.state_specs(cfg, tcfg, one, mode=mode)
+    batch = S.input_specs(cfg, shape, one, mode=mode)
+    with mode, for_card():
+        lm = op_cost.count(make_train_step(cfg, tcfg), state, batch)[1]
+    del state, batch
+    six_nd = 6.0 * count_active_params(cfg) * LM_BS * LM_SEQ
+    card_step = measured_step_peak(torch, cfg, tcfg)
+    b = {"arch": cfg.name, "batch": LM_BS, "seq": LM_SEQ, "microbatches": 2,
+         "optimizer": "adamw", "model_flops_6nd": six_nd, "flops_over_6nd": lm.flops / six_nd,
+         "predicted_peak_bytes": lm.peak_live_bytes, **card_step,
+         "peak_ratio": lm.peak_live_bytes / card_step["measured_peak_bytes"],
+         "adopted_bytes": lm.start_live_bytes,
+         **roofline_row(card, lm, lm_out["step_ms_after_first_median"], six_nd)}
+
+    # (c) main_lm's flash eval pass over one batch
+    pallas = dataclasses.replace(cfg, attention_impl="pallas")
+    mode = op_cost.fake_mode()
+    params = S.param_specs_only(cfg, one, dtype=None, mode=mode)
+    batch = S.input_specs(cfg, shape, one, mode=mode)
+    with mode, for_card():
+        ev = op_cost.count(make_eval_step(pallas), params, batch)[1]
+    calls, flash_flops, flash_bytes = ev.per_op.get("kernel:flash_attention", (0, 0.0, 0.0))
+    c = {"arch": cfg.name, "batch": LM_BS, "seq": LM_SEQ, "num_layers": cfg.num_layers,
+         "kernels": ev.kernels, "flash_flops_per_call": flash_flops / max(calls, 1),
+         "phase_flash_flops": flash_out["flops"], "flash_bytes_per_call":
+         flash_bytes / max(calls, 1), "flops": ev.flops, "bytes": ev.traffic_bytes}
+    out = {"phase": "main_roofline", "nvidia_smi": smi,
+           "card": dataclasses.asdict(card) if card else None,
+           "a_resnet_step": a, "b_lm_step": b, "c_flash_eval": c}
+    emit(out)
+    if a["kernels"] != {} or a["ingest"]["kernels"] != {"ingest_norm": 1}:
+        fail(f"the ResNet step counted kernels {a['kernels']}, its epilogue "
+             f"{a['ingest']['kernels']}, not none and one ingest_norm")
+    if not 1.0 <= b["flops_over_6nd"] <= 2.5:
+        fail(f"granite-8b-4l's counted FLOPs are {b['flops_over_6nd']:.3f} x 6ND")
+    if not 0.75 <= b["peak_ratio"] <= 1.33:
+        fail(f"predicted peak {lm.peak_live_bytes} against measured "
+             f"{card_step['measured_peak_bytes']}")
+    if c["kernels"] != {"flash_attention": cfg.num_layers} or \
+            c["flash_flops_per_call"] != flash_out["flops"]:
+        fail(f"flash eval counted {c['kernels']} at {c['flash_flops_per_call']} FLOPs a call")
     return out
 
 
@@ -3237,7 +3407,7 @@ def wkv_check(torch, ops, ref, args, tol, label) -> dict:
     return case
 
 
-def phase_wkv(torch, ops, ref, bw, peak_f32) -> dict:
+def phase_wkv(torch, ops, ref, card) -> dict:
     """rwkv6_wkv against its plain version at tests/test_kernels.py's cases
     (2e-4, 5e-4 with a nonzero s0), at every head dim with S off the staged
     tile, and at the path's shape; device times of the kernel and of the
@@ -3267,25 +3437,21 @@ def phase_wkv(torch, ops, ref, bw, peak_f32) -> dict:
     plain_ms = device_ms(lambda: ref.wkv_plain(r, k, v, w, u, zeros), runs=3,
                          per_run=1, warmup=1)
     # r, k, v, w, y (B,S,H,D), s0 and sT (B,H,D,D) and u (H,D) in fp32, each
-    # once; 5 D^2 flops a token and head (D fmas for y, a multiply and an fma
-    # for S), at the fp32 CUDA-core peak
-    nbytes = 4 * (5 * B * S * H * D + 2 * B * H * D * D + H * D)
-    flops = 5.0 * D * D * B * S * H
-    bound, bound_by = bound_ms(nbytes, flops, bw, peak_f32)
+    # once; 5 D^2 flops a token and head, at the fp32 CUDA-core peak
+    bounds = kernel_bounds(card, ops.cost(B, S, H, D))
+    nbytes = bounds["bound_bytes"]
     out = {"phase": "kernels/rwkv6_wkv", "kernel": "rwkv6_wkv", "shape": list(WKV_SHAPE),
            "dtype": "float32", "max_abs_err": main_case["max_abs_err_y"], "cases": cases,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": bound, "bound_by": bound_by, "bound_bytes": nbytes, "flops": flops,
-           "bytes_bound_ms": nbytes / bw * 1e3 if bw else None,
-           "ops_bound_ms": flops / peak_f32 * 1e3 if peak_f32 else None,
-           "peak_fp32_flops": peak_f32, "kernel_gb_per_s": nbytes / kernel_ms / 1e6,
+           **bounds, "peak_fp32_flops": card.peak_flops["fp32"] if card else None,
+           "kernel_gb_per_s": nbytes / kernel_ms / 1e6,
            "layout": ops.LAYOUT[D], "ptxas": ptxas_of(ops.build().log, r"wkv_kernel"),
            "occupancy": [ops.occupancy(d) for d in ops.HEAD_DIMS]}
     emit(out)
     return out
 
 
-def phase_rmsnorm(torch, ops, ref, bw) -> dict:
+def phase_rmsnorm(torch, ops, ref, card) -> dict:
     """rmsnorm against its plain version at tests/test_kernels.py's shapes
     and dtypes (TOL: 1e-5 f32, 2e-2 bf16), the row-masking case, and the LM
     residual stream's shape; device times of the kernel, the plain version
@@ -3332,9 +3498,10 @@ def phase_rmsnorm(torch, ops, ref, bw) -> dict:
     scale_bf16 = scale.bfloat16()
     library_bf16_scale_ms = device_ms(lambda: F.rms_norm(x, (d,), weight=scale_bf16, eps=1e-6))
     kernel32_ms = device_ms(lambda: ops.rmsnorm(x32, scale))
-    n = RMS_SHAPE[0]
-    nbytes = n * d * 2 * 2 + d * 4  # bf16 x read and y written once, fp32 scale
-    nbytes32 = n * d * 4 * 2 + d * 4
+    # bf16 (or fp32) x read and y written once, fp32 scale
+    bounds = kernel_bounds(card, ops.cost(RMS_SHAPE, torch.bfloat16, torch.float32))
+    nbytes = bounds["bound_bytes"]
+    bounds32 = kernel_bounds(card, ops.cost(RMS_SHAPE, torch.float32, torch.float32))
     out = {"phase": "kernels/rmsnorm", "kernel": "rmsnorm", "shape": list(RMS_SHAPE),
            "x_dtype": "bfloat16", "scale_dtype": "float32",
            "max_abs_err": main_case["max_abs_err"], "max_abs_err_fp32": main32["max_abs_err"],
@@ -3342,8 +3509,8 @@ def phase_rmsnorm(torch, ops, ref, bw) -> dict:
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": "F.rms_norm(x, (d,), weight=scale, eps=1e-6)",
            "library_bf16_scale_ms": library_bf16_scale_ms, "kernel_fp32_ms": kernel32_ms,
-           "bound_ms": bound_ms(nbytes, 0, bw, None)[0], "bound_by": "bytes",
-           "bound_bytes": nbytes, "bound_fp32_ms": bound_ms(nbytes32, 0, bw, None)[0],
+           "bound_ms": bounds["bound_ms"], "bound_by": "bytes",
+           "bound_bytes": nbytes, "bound_fp32_ms": bounds32["bound_ms"],
            "kernel_gb_per_s": nbytes / kernel_ms / 1e6,
            "note": "no model path calls rmsnorm (apply_norm is plain, as in the reference); "
                    "launches counts this phase's checked calls"}
@@ -4068,11 +4235,13 @@ def add_launches(*runs) -> dict:
 
 def phase_main_mla(torch, counted, smi: str) -> dict:
     """The MLA family, minicpm3-4b: trained at full width (4 layers), then
-    served whole through the launcher: (a) figures; (b) pooled against
+    served at full width, depth MLA_SERVE_LAYERS, through the launcher:
+    (a) figures; (b) pooled against
     batch-1 decode; (c) a decode step against a cacheless forward; the
     absorbed decode against the expanded one (MLA_ABSORB_MAX_S = 0) on the
     engine's pooled cache at its per-slot positions; (e) chunked against
     single-pass prefill of SERVE_LONG tokens."""
+    from repro_torch.config import register_arch, replace
     from repro_torch.configs import minicpm3_4b
     from repro_torch.models import layers, transformer
 
@@ -4080,7 +4249,11 @@ def phase_main_mla(torch, counted, smi: str) -> dict:
                                  MLA_REDUCED, "main_mla")
     del report
     torch.cuda.empty_cache()
-    report, args, path = serve_path(torch, counted, MLA_SERVE_ARGS, smi, "main_mla")
+    register_arch(MLA_SERVE_ARCH,
+                  lambda: replace(minicpm3_4b.full(), num_layers=MLA_SERVE_LAYERS),
+                  minicpm3_4b.smoke)
+    report, args, path = serve_path(torch, counted, MLA_SERVE_ARGS, smi, "main_mla",
+                                    reduced=MLA_SERVE_REDUCED)
     cfg, eng, done = report.cfg, report.engine, sorted(report.done, key=lambda r: r.uid)
     params = eng.params
     serve_profile(torch, report, args.max_len, "main_mla")
@@ -4201,13 +4374,14 @@ class DropWatch:
 def phase_main_moe(torch, counted, smi: str) -> dict:
     """The MoE family: granite-moe-3b-a800m trained at full width (4 layers,
     the config's einsum dispatch; aux loss positive), gather against einsum
-    on one full-width layer, then granite-moe-3b-a800m served whole (pooled
-    held to batch-1: its decode capacity, max(int(8 * 8 / 40 * 1.25), 8) =
-    8, never drops) and qwen2-moe-a2.7b served whole (15.15 B parameters;
+    on one full-width layer, then granite-moe-3b-a800m served at full width,
+    depth MOE_SERVE_LAYERS (pooled held to batch-1: its decode capacity,
+    max(int(8 * 8 / 40 * 1.25), 8) = 8, never drops) and qwen2-moe-a2.7b served whole (15.15 B parameters;
     pooled against batch-1 printed, not gated: its decode capacity is
     max(int(8 * 4 / 60 * 1.25), 4) = 4, so a pooled tick can drop an
     assignment that batch-1 keeps, as in the reference; the ticks where a
     live slot lost one are counted)."""
+    from repro_torch.config import register_arch, replace
     from repro_torch.configs import granite_moe_3b_a800m
     from repro_torch.launch import serve
     from repro_torch.models import moe, transformer
@@ -4223,7 +4397,11 @@ def phase_main_moe(torch, counted, smi: str) -> dict:
     if not route["ok"]:
         fail(f"gather against einsum dispatch on the card: {route}")
 
-    report, args, granite = serve_path(torch, counted, MOE_SERVE_ARGS, smi, "main_moe")
+    register_arch(MOE_SERVE_ARCH,
+                  lambda: replace(granite_moe_3b_a800m.full(), num_layers=MOE_SERVE_LAYERS),
+                  granite_moe_3b_a800m.smoke)
+    report, args, granite = serve_path(torch, counted, MOE_SERVE_ARGS, smi, "main_moe",
+                                       reduced=MOE_SERVE_REDUCED)
     done = sorted(report.done, key=lambda r: r.uid)
     serve_profile(torch, report, args.max_len, "main_moe")
     gpooled, _ = pooled_and_cacheless(torch, report.cfg, report.engine.params, done,
@@ -4630,7 +4808,7 @@ def flash_eval(torch, counted, cfg, weights, batches, phase: str, layers: int, b
     return out
 
 
-def flash_at_model_shape(torch, cfg, flash_ops, flash_ref, bw, peak) -> dict:
+def flash_at_model_shape(torch, cfg, flash_ops, flash_ref, card) -> dict:
     """The flash kernel alone at the encoder-decoder's decoder shape, q, k, v
     (ENCDEC_BS, H, ENCDEC_TEXT, 64) bf16, causal (the D = 64 tensor-core
     route): against its plain version, timed beside it and SDPA."""
@@ -4645,10 +4823,9 @@ def flash_at_model_shape(torch, cfg, flash_ops, flash_ref, bw, peak) -> dict:
     diff = (got.float() - want).abs()
     err = diff.max().item()
     close = bool(torch.all(diff <= 2e-2 + 2e-2 * want.abs()).item())  # phase_flash's bf16 limit
-    S, D = ENCDEC_TEXT, a.head_dim
-    flops = 2.0 * ENCDEC_BS * a.num_heads * S * S * D  # q k^T and p v over the causal triangle
-    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
-    bound, bound_by = bound_ms(nbytes, flops, bw, peak)
+    D = a.head_dim
+    # q k^T and p v over the causal triangle; q, k, v read once, out written once
+    bounds = kernel_bounds(card, flash_ops.cost(q.shape, k.shape, q.dtype))
     out = {"phase": "main_encdec", "check": "k_flash_shape", "shape": list(q.shape),
            "dtype": "bfloat16", "route": flash_ops.route(q.dtype, D), "max_abs_err": err,
            "tolerance": "2e-2 + 2e-2 * |plain|", "close": close,
@@ -4656,7 +4833,7 @@ def flash_at_model_shape(torch, cfg, flash_ops, flash_ref, bw, peak) -> dict:
            "plain_ms": device_ms(lambda: flash_ref.attention_ref(q, k, v, causal=True)),
            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True)),
-           "bound_ms": bound, "bound_by": bound_by, "flops": flops, "bound_bytes": nbytes}
+           **{key: bounds[key] for key in ("bound_ms", "bound_by", "flops", "bound_bytes")}}
     emit(out)
     if not close:
         fail(f"flash at the encoder-decoder's shape: max abs err {err}")
@@ -4693,7 +4870,7 @@ def encdec_cacheless(torch, cfg, params, done, max_len: int) -> list:
     return diffs
 
 
-def phase_main_encdec(torch, counted, smi: str, flash_ops, flash_ref, bw, peak) -> dict:
+def phase_main_encdec(torch, counted, smi: str, flash_ops, flash_ref, card) -> dict:
     """The encoder-decoder, whisper-large-v3 whole: (t) trained through
     ``make_train_step``; (k) the flash kernel on its decoder's cacheless
     self-attention through ``make_eval_step``, and alone at that shape; (a)
@@ -4721,7 +4898,7 @@ def phase_main_encdec(torch, counted, smi: str, flash_ops, flash_ref, bw, peak) 
                        cfg.num_layers, ENCDEC_EVAL_TOL,
                        batch=[ENCDEC_BS, ENCDEC_TEXT], encoder_frames=cfg.encoder_seq_len,
                        decoder_layers=cfg.num_layers)
-    shape = flash_at_model_shape(torch, cfg, flash_ops, flash_ref, bw, peak)
+    shape = flash_at_model_shape(torch, cfg, flash_ops, flash_ref, card)
     del state, params, batches
     torch.cuda.empty_cache()
 
@@ -4819,12 +4996,16 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    bw, peak = lookup(BANDWIDTH, name), lookup(PEAK_BF16, name)
-    peak_f32 = lookup(PEAK_FP32, name)
+    from repro_torch.launch.roofline import card_peaks
+
+    card = card_peaks(name)  # NVIDIA's data-sheet rates; None for a card it does not know
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0], "bandwidth_bytes_per_s": bw,
-          "peak_bf16_flops": peak, "peak_fp32_flops": peak_f32})
+          "python": sys.version.split()[0],
+          "bandwidth_bytes_per_s": card.hbm_bytes_per_s if card else None,
+          "peak_bf16_flops": card.peak_flops["bf16"] if card else None,
+          "peak_fp32_flops": card.peak_flops["fp32"] if card else None,
+          "card_peaks": dataclasses.asdict(card) if card else None})
 
     # 2. build
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -4840,10 +5021,10 @@ def main() -> int:
                "rmsnorm": rms_ops.build})
 
     # 3.-10.
-    kern = phase_kernels(torch, ops, ref, bw)
-    flash = phase_flash(torch, flash_ops, flash_ref, bw, peak)
-    wkv = phase_wkv(torch, wkv_ops, wkv_ref, bw, peak_f32)
-    rms = phase_rmsnorm(torch, rms_ops, rms_ref, bw)
+    kern = phase_kernels(torch, ops, ref, card)
+    flash = phase_flash(torch, flash_ops, flash_ref, card)
+    wkv = phase_wkv(torch, wkv_ops, wkv_ref, card)
+    rms = phase_rmsnorm(torch, rms_ops, rms_ref, card)
     torch.cuda.empty_cache()
     phase_model(torch)
     phase_model_lm(torch)
@@ -4857,6 +5038,8 @@ def main() -> int:
     formats_out = timed(torch, "main_formats", phase_main_formats, ops, pipe_out, smi)
     resume_out = timed(torch, "main_resume", phase_main_resume, ops, smi)
     lm_out = timed(torch, "main_lm", phase_main_lm, flash_ops, ops)
+    timed(torch, "main_roofline", phase_main_roofline, ops, flash_ops, main_out, lm_out, flash,
+          card, smi)
     rwkv_out = timed(torch, "main_rwkv", phase_main_rwkv, wkv_ops, wkv_ref, rms_ops, ops,
                      flash_ops)
     counted = {"ingest_norm": ops.ingest_norm, "flash_attention": flash_ops.flash_attention,
@@ -4866,7 +5049,7 @@ def main() -> int:
     moe_out = timed(torch, "main_moe", phase_main_moe, counted, smi)
     hybrid_out = timed(torch, "main_hybrid", phase_main_hybrid, counted, smi)
     encdec_out = timed(torch, "main_encdec", phase_main_encdec, counted, smi, flash_ops,
-                       flash_ref, bw, peak)
+                       flash_ref, card)
     family = {name: {"launches_mla": mla_out["launches"][name],
                      "launches_moe": moe_out["launches"][name],
                      "launches_hybrid": hybrid_out["launches"][name],

@@ -24,7 +24,8 @@ objective and serve bounds); checkpointing (``TrainConfig.checkpoint_every``
 and ``keep_checkpoints``) and sharded delivery (:class:`DeliverySpec`,
 ``LoaderConfig.delivery``, :class:`AutotuneConfig`'s ``skew_gate``), with
 the run-level :class:`RunConfig` and its :class:`ShapeConfig` and
-:class:`MeshConfig` blocks.  ``DeliverySpec.mesh`` holds a
+:class:`MeshConfig` blocks, and the reference's shape set (``SHAPES``,
+:func:`arch_shapes`) the dry run sweeps.  ``DeliverySpec.mesh`` holds a
 :class:`repro_torch.launch.mesh.Mesh`, opaque here, so this module imports
 no torch.  ``replace()`` (from dataclasses) derives variants.
 """
@@ -763,6 +764,13 @@ class ShapeConfig:
 
 
 TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
 
 
 @dataclass(frozen=True)
@@ -816,3 +824,16 @@ def list_archs() -> List[str]:
     import repro_torch.configs  # noqa: F401  triggers registration
 
     return sorted(ARCH_REGISTRY)
+
+
+def arch_shapes(cfg: ModelConfig) -> List[ShapeConfig]:
+    """Which of the four assigned shapes apply to this architecture:
+    long_500k only where attention is sub-quadratic (the rwkv and hybrid
+    families); the ResNet, the paper's own model, trains at its own image
+    shapes and takes train_4k only, as in the reference."""
+    if cfg.family == "resnet":
+        return [TRAIN_4K]
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.family in ("rwkv", "hybrid"):
+        shapes.append(LONG_500K)
+    return shapes

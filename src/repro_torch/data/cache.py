@@ -640,9 +640,14 @@ class DiskTierCache:
         except FileNotFoundError:
             with self._lock:
                 entry = self._index.get(fname)
-                if entry is not None and entry.final:
+                if (entry is not None and entry.final
+                        and not os.path.exists(self._path(fname))):
                     # vanished mid-read (external delete / crash leftover):
-                    # repair the byte accounting instead of leaking it
+                    # repair the byte accounting instead of leaking it.  The
+                    # file is looked for again under the lock: between the
+                    # failed open and here the key may have been evicted and
+                    # written anew, and dropping that entry would leave its
+                    # file on disk outside the accounting
                     del self._index[fname]
                     self._used -= entry.size
                 self._misses += 1

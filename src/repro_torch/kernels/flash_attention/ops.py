@@ -21,6 +21,10 @@ no VJP, and ``jax.grad`` through it fails): with grad enabled, an input that
 requires grad is refused on both devices rather than differentiated through
 the plain version.
 
+A fake tensor that stands for the card (:mod:`repro_torch.kernels.cost`)
+gets a fake output and reports :func:`cost` to the op counter; nothing
+launches.
+
 What the reference's wrapper does by padding, the kernels do with bounds
 masks: GQA reads kv head ``h // (Hq // Hkv)`` in place of ``repeat``, and
 ragged S and T need no padding.  As in the reference (``ops.py:36-41``),
@@ -35,6 +39,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import Built, load_cuda_library
+from repro_torch.kernels.cost import KernelCost, record, stands_for_card
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"  # CUDA cores
@@ -81,6 +86,20 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
+
+
+def cost(q_shape, kv_shape, dtype: torch.dtype, causal: bool = True) -> KernelCost:
+    """A launch at q (B,Hq,S,D), k and v (B,Hkv,T,D): q k^T and p v, 4 D
+    flops a (query, key) pair, over the causal triangle (S T - S^2/2 pairs
+    a head) or the whole S T; q, k, v read once and the output written
+    once; on the tensor cores (bf16) or the CUDA cores (fp32), as
+    :func:`route` sends it."""
+    B, Hq, S, D = q_shape
+    Hkv, T = kv_shape[1], kv_shape[2]
+    pairs = S * T - S * S / 2 if causal else S * T
+    flops = 4.0 * B * Hq * D * pairs
+    nbytes = B * (2 * Hq * S + 2 * Hkv * T) * D * dtype.itemsize
+    return KernelCost(flops, nbytes, "bf16" if route(dtype, D) == "tensor_core" else "fp32")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -146,9 +165,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B,Hq,S,D), k/v (B,Hkv,T,D) -> (B,Hq,S,D) in ``q.dtype``."""
     _check(q, k, v, causal)
-    if q.device.type == "cpu":
+    card = stands_for_card(q)
+    if q.device.type == "cpu" and not card:
         return attention_ref(q, k, v, causal)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not card:
         raise ValueError(f"flash_attention runs on 'cuda' or 'cpu' tensors, got {q.device}")
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -158,6 +178,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the output is laid out (B,S,Hq,D), as the model consumes it, and
     # returned as the (B,Hq,S,D) view
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if card:
+        return record("flash_attention", cost(q.shape, k.shape, q.dtype, causal), out)
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, T, D)
     with torch.cuda.device(q.device):

@@ -10,12 +10,17 @@ The kernel takes a vector path (16-byte loads and stores) or a scalar one,
 chosen by shape in :func:`path_for`, never on a failure: a failed build or
 launch raises.
 
+A fake tensor that stands for the card (:mod:`repro_torch.kernels.cost`)
+gets a fake output and reports :func:`cost` to the op counter; nothing
+launches.
+
 ``make_ingest_fn`` packages it as the batch-level epilogue the training loop
 hands to :class:`repro_torch.core.prefetch.DevicePrefetchRing`.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import Built, load_cuda_library
+from repro_torch.kernels.cost import KernelCost, record, stands_for_card
 from repro_torch.kernels.ingest_norm.ref import ingest_norm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ingest_norm.cu"
@@ -79,6 +85,12 @@ def occupancy(C: int, out_dtype: torch.dtype, path: str) -> dict:
             "warps_per_sm": n * -(-threads.value // 32)}
 
 
+def cost(shape: Sequence[int], out_dtype: torch.dtype = torch.float32) -> KernelCost:
+    """A launch on (B,H,W,C) u8: the input read once and the (B,C,H,W)
+    output written once; no operation the bound counts."""
+    return KernelCost(0.0, math.prod(shape) * (1 + out_dtype.itemsize), "fp32")
+
+
 def _affine(mean: Any, std: Any, C: int):
     """scale = 1/(255*std), bias = -mean/std, in float32 as the TPU kernel's
     wrapper computes them."""
@@ -101,12 +113,13 @@ def ingest_norm(
         raise ValueError(f"img must be 4-D uint8 (B,H,W,C), got {img.dtype} {tuple(img.shape)}")
     if out_dtype not in _OUT_CODES:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if img.device.type == "cpu":
+    card = stands_for_card(img)
+    if img.device.type == "cpu" and not card:
         return ingest_norm_ref(
             img, torch.as_tensor(mean, dtype=torch.float32),
             torch.as_tensor(std, dtype=torch.float32), out_dtype,
         )
-    if img.device.type != "cuda":
+    if img.device.type != "cuda" and not card:
         raise ValueError(f"ingest_norm runs on 'cuda' or 'cpu' tensors, got {img.device}")
     B, H, W, C = img.shape
     if not img.is_contiguous():
@@ -115,8 +128,10 @@ def ingest_norm(
         raise ValueError(f"ingest_norm kernel takes 1..{MAX_C} channels, got {C}")
     if B * -(-H * W // RUN_PIXELS) > MAX_BLOCKS:
         raise ValueError(f"{tuple(img.shape)} needs more blocks than the kernel's grid takes")
-    scale, bias = _affine(mean, std, C)
     out = torch.empty((B, C, H, W), dtype=out_dtype, device=img.device)
+    if card:
+        return record("ingest_norm", cost(img.shape, out_dtype), out)
+    scale, bias = _affine(mean, std, C)
     if img.numel() == 0:
         return out
     vector = int(path_for(img.shape, out_dtype, img.data_ptr()) == "vector")

@@ -10,6 +10,10 @@ use) or raises; it takes the plain version
 the CPU.  ``rmsnorm.launches`` counts kernel launches.  The reference pads
 the rows to its block; the kernel masks them.
 
+A fake tensor that stands for the card (:mod:`repro_torch.kernels.cost`)
+gets a fake output and reports :func:`cost` to the op counter; nothing
+launches.
+
 No model calls it, as in the reference: ``apply_norm`` computes the same
 function in plain PyTorch.  Like the reference's Pallas kernel (no VJP), it
 is forward-only: with grad enabled, an input that requires grad is refused
@@ -18,11 +22,13 @@ on both devices.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels.build import Built, load_cuda_library
+from repro_torch.kernels.cost import KernelCost, record, stands_for_card
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
@@ -46,6 +52,14 @@ def build() -> Built:
     return built
 
 
+def cost(shape, x_dtype: torch.dtype, scale_dtype: torch.dtype) -> KernelCost:
+    """A launch on x (..., d): x read and y written once, the scale read
+    once; no operation the bound counts."""
+    d = shape[-1]
+    return KernelCost(0.0, math.prod(shape) * x_dtype.itemsize * 2 + d * scale_dtype.itemsize,
+                      "fp32")
+
+
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
     for name, t in (("x", x), ("scale", scale)):
         if not isinstance(t, torch.Tensor):
@@ -67,6 +81,8 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x (..., d), scale (d,) -> x * rsqrt(mean(x^2) + eps) * scale in x.dtype."""
     _check(x, scale)
+    if stands_for_card(x):
+        return record("rmsnorm", cost(x.shape, x.dtype, scale.dtype), torch.empty_like(x))
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     if x.device.type != "cuda":

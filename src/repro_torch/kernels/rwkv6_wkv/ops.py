@@ -15,6 +15,10 @@ loads a nonzero s0 into its state registers (no analytic fold).  It has no
 chunks, so it takes no ``chunk`` argument.  A lane holds C columns of the
 state and 1/G of their rows, one (G, C) for each head dim (:data:`LAYOUT`).
 
+A fake tensor that stands for the card (:mod:`repro_torch.kernels.cost`)
+gets fake outputs and reports :func:`cost` to the op counter; nothing
+launches.
+
 The kernel is forward-only, as the reference's Pallas kernel is (it defines
 no VJP, and ``jax.grad`` through it fails): with grad enabled, an input that
 requires grad is refused on both devices.
@@ -28,6 +32,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import Built, load_cuda_library
+from repro_torch.kernels.cost import KernelCost, record, stands_for_card
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
@@ -65,6 +70,15 @@ def occupancy(D: int) -> dict:
         raise RuntimeError(f"wkv occupancy of D={D}, G={G}, C={C}: error {n}")
     return {"D": D, "G": G, "C": C, "threads": threads.value, "dynamic_smem_bytes": smem.value,
             "blocks_per_sm": n, "warps_per_sm": n * -(-threads.value // 32)}
+
+
+def cost(B: int, S: int, H: int, D: int) -> KernelCost:
+    """A launch at r, k, v, w (B,S,H,D): 5 D^2 flops a token and head (D
+    fmas for y, a multiply and an fma for S) on the fp32 CUDA cores; r, k,
+    v, w, y (B,S,H,D), s0 and sT (B,H,D,D) and u (H,D) in fp32, each moved
+    once."""
+    flops = 5.0 * D * D * B * S * H
+    return KernelCost(flops, 4 * (5 * B * S * H * D + 2 * B * H * D * D + H * D), "fp32")
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -109,6 +123,11 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """r,k,v,w (B,S,H,D), u (H,D), s0 (B,H,D,D), fp32 -> y (B,S,H,D), sT (B,H,D,D)."""
     _check(r, k, v, w, u, s0)
+    if stands_for_card(r):
+        B, S, H, D = r.shape
+        y = torch.empty((B, S, H, D), dtype=torch.float32, device=r.device)
+        sT = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+        return record("rwkv6_wkv", cost(B, S, H, D), (y, sT))
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u, s0)
     if r.device.type != "cuda":

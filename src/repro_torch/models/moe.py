@@ -115,6 +115,10 @@ def _route_einsum(p: Params, xg: torch.Tensor, m: MoEConfig,
     """Dense one-hot dispatch (GShard / Switch): (G, g, Ep, C) dispatch and
     combine tensors, two einsums around the experts."""
     top_w, top_e, within, keep, onehot, probs = _router_assignments(p, xg, m, capacity)
+    # The aux loss comes before the experts: a checkpointed block's
+    # recompute stops after the last tensor the backward saved, so an aux
+    # loss computed last would rerun the combine in every backward.
+    aux = _aux_loss(onehot, probs, m.num_experts)
     oh = F.one_hot(top_e, phys_experts(m)).float()  # (G, g, K, Ep)
     # a slot past capacity is a zero row, as jax.nn.one_hot gives
     slot_oh = (within.long()[..., None]
@@ -123,7 +127,7 @@ def _route_einsum(p: Params, xg: torch.Tensor, m: MoEConfig,
     combine = torch.einsum("Ggke,Ggkc->Ggec", oh * (top_w * keep)[..., None], slot_oh)
     xin = torch.einsum("Ggec,Ggd->Gecd", dispatch.to(xg.dtype), xg)
     yg = torch.einsum("Ggec,Gecd->Ggd", combine.to(xg.dtype), _expert_ffn(p, xin))
-    return yg, _aux_loss(onehot, probs, m.num_experts)
+    return yg, aux
 
 
 def _route_gather(p: Params, xg: torch.Tensor, m: MoEConfig,
@@ -134,6 +138,7 @@ def _route_gather(p: Params, xg: torch.Tensor, m: MoEConfig,
     G, g, d = xg.shape
     K, Ep, C = m.top_k, phys_experts(m), capacity
     top_w, top_e, within, keep, onehot, probs = _router_assignments(p, xg, m, capacity)
+    aux = _aux_loss(onehot, probs, m.num_experts)  # first, as in _route_einsum
     goff = (torch.arange(G, device=xg.device) * (Ep * C))[:, None, None]
     dst = torch.where(keep, goff + top_e * C + within.long(),
                       torch.full_like(top_e, G * Ep * C)).reshape(-1)  # (G*g*K,)
@@ -143,7 +148,7 @@ def _route_gather(p: Params, xg: torch.Tensor, m: MoEConfig,
     picked = torch.cat([xout, xout.new_zeros((1, d))])[dst].reshape(G, g, K, d)
     w = (top_w * keep).to(xg.dtype)
     yg = torch.einsum("Ggkd,Ggk->Ggd", picked, w)
-    return yg, _aux_loss(onehot, probs, m.num_experts)
+    return yg, aux
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -302,6 +302,35 @@ def test_disk_tier_vanished_file_counts_miss_and_repairs_accounting(tmp_path):
     assert d.put("k", b"payload") and d.get("k") == b"payload"
 
 
+def test_disk_tier_miss_keeps_an_entry_rewritten_after_the_failed_open(tmp_path, monkeypatch):
+    """A reader's open fails because the key was evicted; before the reader
+    takes the lock the key is written anew. Its repair must keep the new
+    entry, or the new file stays on disk outside the accounting and the
+    tier holds more than its capacity."""
+    import repro_torch.data.cache as cache_mod
+
+    d = DiskTierCache(str(tmp_path), capacity_bytes=1 << 20)
+    d.put("k", b"payload")
+    fname = os.listdir(str(tmp_path))[0]
+    real_open = open
+
+    def open_after_evict(path, *a, **kw):
+        if os.path.basename(path) == fname:
+            # the open saw the evicted key; the write that follows lands
+            # before this reader reaches the lock
+            raise FileNotFoundError(path)
+        return real_open(path, *a, **kw)
+
+    monkeypatch.setattr(cache_mod, "open", open_after_evict, raising=False)
+    assert d.get("k") is None
+    monkeypatch.undo()
+    assert fname in d._index and d.used_bytes == len(b"payload")
+    on_disk = sum(os.path.getsize(os.path.join(str(tmp_path), f))
+                  for f in os.listdir(str(tmp_path)))
+    assert on_disk == d.used_bytes
+    assert d.get("k") == b"payload"
+
+
 # ---------------------------------------------------------------------------
 # tiered facade
 # ---------------------------------------------------------------------------

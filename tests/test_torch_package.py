@@ -57,6 +57,20 @@ CHECKPOINT_AND_DELIVERY = ["train/checkpoint.py", "train/fault_tolerance.py", "l
                            "examples/elastic_restart.py"]
 
 
+DRY_RUN = ["launch/roofline.py", "launch/op_cost.py", "launch/specs.py", "launch/dryrun.py",
+           "kernels/cost.py"]
+
+
+def test_the_source_scan_covers_the_dry_run():
+    """The modules of the dry run (the roofline, the op-level cost counter,
+    the specs, the sweep) and the kernels' registered costs are scanned
+    too, and import neither jax nor repro."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert set(DRY_RUN) <= scanned
+    for rel in DRY_RUN:
+        assert not _FORBIDDEN.findall((PORT / rel).read_text()), rel
+
+
 def test_the_source_scan_covers_checkpointing_and_delivery():
     """The scan above walks every source of the package; the modules of
     checkpointing, fault tolerance and sharded delivery, and the example
@@ -101,7 +115,12 @@ print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
                                     "repro_torch.models.sharding",
                                     "repro_torch.core.delivery",
                                     "repro_torch.examples.train_lm",
-                                    "repro_torch.examples.elastic_restart"])
+                                    "repro_torch.examples.elastic_restart",
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.launch.op_cost",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.kernels.cost"])
 def test_slice_module_imports_alone_without_jax_or_repro(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, str(ROOT / "src"), module],
