@@ -128,6 +128,28 @@ Phases, each printing one JSON line:
    ResNet-18 AdamW state's checkpoint: bytes, the time
    ``save(blocking=False)`` blocks, the background write, the step right
    after a save against steps without one (figures, not gates).
+6g. main_dp — data parallelism over a process group, one process a rank,
+   each rank a child running the launcher (TF32 off): (a) two ranks on the
+   one card over gloo (``--device cuda:0``; NCCL takes one rank a card),
+   full-width ResNet-18 at global batch 64 (32 a rank), SGD,
+   ``--device-ingest``, ``--delivery sharded``, one epoch of 16 steps from
+   main's simulated S3 store, at ``--lr`` DP_LR with no warmup (the
+   parameters move), against one process at the same seed, items and
+   global batch: per-step losses within DP_TOL (relative; 16 steps amplify
+   the card's rounding).  Before it, the first step alone (one batch, all
+   three processes at once): loss, gradient norm and the update of the
+   parameters and of BatchNorm's running statistics (the 2-norm of the
+   difference over that of the one process's update) within
+   DP_FIRST_TOL.  Both: every rank's parameters bit-equal (a checksum
+   all-reduced as a min and a max), each rank's ``ingest_norm`` launches
+   equal to the batches its lane moved; prints items/s of the 16-step
+   runs, the gradient all-reduce's ms a step (gloo, through the host,
+   timed alone by CUDA events), each rank's busy share and lane times and
+   the lane skew across ranks (``chip_dp_faults.py`` shows these gates
+   failing on planted faults).  (b) NCCL at world size
+   1, 4 steps, after the same run with no process group in one process,
+   deterministic algorithms on: bit-equal losses, one gradient all-reduce
+   a step.
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
    trained from simulated S3 through the launcher, then its forward loss
    through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
@@ -240,7 +262,7 @@ Launch counts are set to 0 just before each main path and read just after
 each launcher run and each training run of (b) and (c); for main_formats, around
 its launcher run (a), each device stream of (b) and the training run of (c);
 for main_resume, inside each child of (a) (the killed run's count dies with
-it) and around each device stream of (b);
+it) and around each device stream of (b); for main_dp, inside each child;
 for main_rwkv, before and
 after its eval walk; for main_serve, around its launcher run, and flash's
 again around (d); for main_mla, main_moe and main_hybrid, around each
@@ -3129,6 +3151,359 @@ def phase_main_resume(torch, ops, smi: str) -> dict:
             "launches_sharded": parts["bc"]["launches_sharded"]}
 
 
+# main_dp: data parallelism over a process group, one process a rank.
+# (a) two ranks on the one card over gloo (NCCL takes one rank a card),
+# --device cuda:0, full-width ResNet-18 at global batch 64 (32 a rank), SGD
+# at a learning rate that moves the parameters (no warmup), --device-ingest,
+# --delivery sharded, from main's simulated S3 store, for one step of one
+# batch and for one epoch of 16 steps, against one process at the same
+# seed, items and global batch (one lane); TF32 off in every child.  (b) NCCL at world size 1, 4 steps, after the
+# same run with no process group in one process, deterministic algorithms
+# on: bit-equal losses.
+DP_STEPS, DP_RANKS = 16, 2
+DP_LR = 0.05
+DP_ARGS = with_values(MAIN_ARGS, steps=DP_STEPS, log_every=1) + [
+    "--delivery", "sharded", "--seed", "0", "--lr", str(DP_LR), "--warmup-steps", "0"]
+# (a)'s first step: one batch, one step from the seed's weights, where no
+# training dynamics amplify the card's rounding: the loss, the gradient
+# norm, and the update of the parameters and of BatchNorm's running
+# statistics (2-norm of the difference over 2-norm of the one process's
+# update) within these relative tolerances
+DP_FIRST_ARGS = with_values(DP_ARGS, items=MAIN_BS, steps=1)
+DP_FIRST_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "params": 2e-2, "bn": 1e-3}
+# (a)'s 16 steps: each step's loss within this relative tolerance of the
+# one process's (16 SGD steps amplify the card's rounding, and one process
+# run twice differs too)
+DP_TOL = 5e-3
+DP_NCCL_ITEMS, DP_NCCL_STEPS = 256, 4
+DP_NCCL_ARGS = with_values(DP_ARGS, items=DP_NCCL_ITEMS, steps=DP_NCCL_STEPS)
+DP_RENDEZVOUS = ROOT / "build" / "chip_smoke_dp_rendezvous"
+DP_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+if sys.argv[2] == "nccl":
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+from repro_torch.kernels.ingest_norm import ops
+from repro_torch.launch import train
+from repro_torch.tree import flatten
+
+
+def one(args, state_out=""):
+    ops.ingest_norm.launches = 0
+    report = train.run(args)
+    lanes = [ln for st in report.stages for ln in (st.get("delivery") or {}).get("lanes", [])]
+    if state_out and report.data_parallel.get("rank", 0) == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    flatten({"params": report.state["params"], "bn": report.state["bn"]}).items()},
+                   state_out)
+    return {"losses": [h["loss"] for h in report.result.history],
+            "grad_norms": [h["grad_norm"] for h in report.result.history],
+            "steps": report.result.steps, "items_per_s": report.items_per_s,
+            "wall_s": report.result.wall_s, "launches": ops.ingest_norm.launches,
+            "lane_batches": sum(ln["composed"] for ln in lanes),
+            "lane_h2d_mean_ms": [1e3 * ln["h2d_mean_s"] for ln in lanes],
+            "lane_collate_mean_ms": [1e3 * ln["collate_mean_s"] for ln in lanes],
+            "ring_copies": report.batches_transferred,
+            "busy_fraction": report.util.busy_fraction,
+            "data_parallel": report.data_parallel}
+
+
+if sys.argv[2] == "nccl":
+    # no process group, then an NCCL group of one, in this one process
+    rec = {"plain": one(sys.argv[4:])}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    rec["group"] = one(sys.argv[4:] + ["--dist-backend", "nccl", "--dist-init", sys.argv[3]])
+else:
+    rec = {"run": one(sys.argv[4:], sys.argv[3])}
+print("DP_CHILD " + json.dumps(rec), flush=True)
+"""
+
+
+def dp_child(mode: str, args: list, env: dict = None, source: str = DP_CHILD):
+    """A DP_CHILD process, TF32 off: ``run`` trains once with ``args[1:]``
+    (a rank when ``env`` holds torchrun's variables) and, when ``args[0]``
+    names a file, saves the final parameters and BatchNorm statistics there
+    (rank 0's under a group); ``nccl`` trains with no process group and then
+    in an NCCL group of one at ``args[0]``'s rendezvous, with deterministic
+    algorithms (cuDNN's search off)."""
+    full = dict(os.environ, **(env or {}))
+    if mode == "nccl":
+        full["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    return subprocess.Popen([sys.executable, "-c", source, str(SRC), mode, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=full, start_new_session=True)
+
+
+def dp_report(procs: list, label: str, timeout: float = 300) -> list:
+    """Each child's DP_CHILD record; kills every child still running when
+    one fails or the deadline passes."""
+    deadline = time.monotonic() + timeout
+    recs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            lines = [ln for ln in out.splitlines() if ln.startswith("DP_CHILD ")]
+            if p.returncode != 0 or not lines:
+                fail(f"main_dp {label}: exit {p.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+            recs.append(json.loads(lines[-1][len("DP_CHILD "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    return recs
+
+
+def rendezvous_url() -> str:
+    DP_RENDEZVOUS.parent.mkdir(parents=True, exist_ok=True)
+    if DP_RENDEZVOUS.exists():
+        DP_RENDEZVOUS.unlink()
+    return f"file://{DP_RENDEZVOUS}"
+
+
+def dp_state_path(label: str) -> Path:
+    path = ROOT / "build" / f"chip_smoke_dp_state_{label}.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def dp_one_process(label: str, args: list) -> "subprocess.Popen":
+    """One process, one lane, the whole global batch; its final state is
+    saved at ``dp_state_path(label)``."""
+    return dp_child("run", [str(dp_state_path(label)), *args])
+
+
+def dp_two_ranks(label: str, args: list, source: str = DP_CHILD) -> list:
+    """DP_RANKS gloo ranks sharing cuda:0, rank 0's final state saved at
+    ``dp_state_path(label)``."""
+    rank_args = with_values(args, device="cuda:0") + [
+        "--dist-backend", "gloo", "--dist-init", rendezvous_url()]
+    # the host's cores split over the ranks' intra-op threads (two ranks of
+    # PyTorch's default width oversubscribe the host's cores)
+    threads = str(max((os.cpu_count() or DP_RANKS) // DP_RANKS, 1))
+    return [dp_child("run", [str(dp_state_path(label)), *rank_args],
+                     {"RANK": str(r), "WORLD_SIZE": str(DP_RANKS), "LOCAL_RANK": str(r),
+                      "OMP_NUM_THREADS": threads}, source)
+            for r in range(DP_RANKS)]
+
+
+def dp_runs(procs: list, label: str) -> list:
+    return [r["run"] for r in dp_report(procs, label)]
+
+
+def dp_state_gap(label: str, ref: str) -> dict:
+    """How far run ``label``'s saved final state lies from run ``ref``'s,
+    over how far ``ref`` moved it from the seed's initial state (global
+    2-norms in float64, parameters and BatchNorm's running statistics
+    apart)."""
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import resnet
+    from repro_torch.tree import flatten
+
+    params0, bn0 = resnet.init_resnet(get_arch("resnet18-imagenet", smoke=False),
+                                      torch.Generator().manual_seed(0), "cpu")
+    init = flatten({"params": params0, "bn": bn0})
+    one = torch.load(dp_state_path(ref))
+    other = torch.load(dp_state_path(label))
+    if set(one) != set(other) or set(one) != set(init):
+        fail("main_dp (a): state keys differ between the runs and the initial state")
+    out = {}
+    for part in ("params", "bn"):
+        keys = [k for k in one if k.startswith(part + "/")]
+        gap = sum(float((other[k].double() - one[k].double()).square().sum()) for k in keys)
+        moved = sum(float((one[k].double() - init[k].double()).square().sum()) for k in keys)
+        out[part] = {"gap": math.sqrt(gap), "moved": math.sqrt(moved),
+                     "rel": math.sqrt(gap / moved) if moved else float("inf")}
+    return out
+
+
+def rel_diffs(a: list, b: list) -> list:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def dp_compare(one: dict, ranks: list, gap: dict) -> dict:
+    """A two-rank run against the one process: the largest relative
+    difference of the losses and of the gradient norms over the steps, and
+    the state's (``dp_state_gap``)."""
+    lead = ranks[0]
+    return {"loss": max(rel_diffs(lead["losses"], one["losses"]), default=float("inf")),
+            "grad_norm": max(rel_diffs(lead["grad_norms"], one["grad_norms"]),
+                             default=float("inf")),
+            "params": gap["params"]["rel"], "bn": gap["bn"]["rel"]}
+
+
+def dp_gate(first: dict, run: dict) -> list:
+    """(a)'s gates on the two-rank runs against the one process (``first``:
+    the first step's, ``run``: the 16 steps'; each {"one", "ranks", "gap"}):
+    each a failure message, none when they pass."""
+    bad = []
+    for part, rec, steps in (("first step", first, 1), ("run", run, DP_STEPS)):
+        one, ranks = rec["one"], rec["ranks"]
+        lead = ranks[0]
+        dp = lead["data_parallel"]
+        for label, r in [("one process", one)] + [(f"rank {i}", x) for i, x in enumerate(ranks)]:
+            if r["steps"] != steps or len(r["losses"]) != steps:
+                bad.append(f"{part}, {label}: {r['steps']} steps")
+            if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+                bad.append(f"{part}, {label}: a non-finite loss or gradient norm")
+            if r["launches"] == 0 or r["launches"] != r["lane_batches"] or r["ring_copies"]:
+                bad.append(f"{part}, {label}: ingest_norm launched {r['launches']} times for "
+                           f"{r['lane_batches']} batches its lane moved ({r['ring_copies']} "
+                           "ring copies)")
+        if dp["backend"] != "gloo" or dp["world_size"] != DP_RANKS:
+            bad.append(f"{part}: a group of {dp['world_size']} over {dp['backend']}")
+        if (any(x["losses"] != lead["losses"] for x in ranks)
+                or dp["checksum_min"] != dp["checksum_max"]):
+            bad.append(f"{part}: the ranks differ: checksums {dp['checksum_min']}, "
+                       f"{dp['checksum_max']}")
+        if dp["grad_allreduce_calls"] != steps:
+            bad.append(f"{part}: {dp['grad_allreduce_calls']} gradient all-reduces for "
+                       f"{steps} steps")
+    diff = dp_compare(first["one"], first["ranks"], first["gap"])
+    for key, tol in DP_FIRST_TOL.items():
+        if not diff[key] <= tol:
+            bad.append(f"first step: {key} {diff[key]} from the one process's (relative) > {tol}")
+    loss = dp_compare(run["one"], run["ranks"], run["gap"])["loss"]
+    if not loss <= DP_TOL:
+        bad.append(f"run: losses {loss} from the one process's (relative) > {DP_TOL}: "
+                   f"{run['ranks'][0]['losses']} against {run['one']['losses']}")
+    return bad
+
+
+def dp_first_step(label: str, source: str = DP_CHILD, one: dict = None) -> dict:
+    """(a)'s first step: the one process (unless given) and the two ranks,
+    all at once (one step each; nothing here is timed)."""
+    procs = ([] if one is not None else [dp_one_process("one_first", DP_FIRST_ARGS)])
+    recs = dp_runs(procs + dp_two_ranks(label + "_first", DP_FIRST_ARGS, source),
+                   f"(a) first step, {label}")
+    one = one if one is not None else recs.pop(0)
+    return {"one": one, "ranks": recs, "gap": dp_state_gap(label + "_first", "one_first")}
+
+
+def dp_run(label: str, source: str = DP_CHILD, one: dict = None) -> dict:
+    """(a)'s 16 steps: the one process (unless given), then the two ranks."""
+    if one is None:
+        one, = dp_runs([dp_one_process("one", DP_ARGS)], "(a) one process")
+    ranks = dp_runs(dp_two_ranks(label, DP_ARGS, source), f"(a) {label}")
+    return {"one": one, "ranks": ranks, "gap": dp_state_gap(label, "one")}
+
+
+def two_ranks_check(smi: str) -> dict:
+    """(a) Two gloo ranks sharing cuda:0 against one process, SGD at a
+    learning rate that moves the parameters.  First step (one batch):
+    loss, gradient norm and the update of the parameters and BatchNorm's
+    running statistics within DP_FIRST_TOL.  16 steps: each loss within
+    DP_TOL.  Both: every rank's parameters bit-equal (checksums
+    all-reduced as a min and a max), each rank's ingest_norm launches
+    equal to the batches its lane moved (the ring copies nothing).  Prints
+    items/s of both 16-step runs, the gradient all-reduce's ms a step (gloo
+    through the host), the lane skew across ranks and the 16 steps' gaps
+    (not gated beyond the losses)."""
+    t0 = time.perf_counter()
+    first = dp_first_step("ranks")
+    run = dp_run("ranks")
+    bad = dp_gate(first, run)
+    one, ranks = run["one"], run["ranks"]
+    lead = ranks[0]
+    dp = lead["data_parallel"]
+    composed = dp["composed_ranks"]
+    out = {
+        "phase": "main_dp", "check": "a_two_ranks_one_card", "nvidia_smi": smi,
+        "args": DP_ARGS, "ranks": DP_RANKS, "backend": dp["backend"],
+        "device": "cuda:0 (every rank)", "cudnn_allow_tf32": False, "matmul_allow_tf32": False,
+        "global_batch": MAIN_BS, "rows_a_rank": MAIN_BS // DP_RANKS,
+        "intra_op_threads_a_rank": int(max((os.cpu_count() or DP_RANKS) // DP_RANKS, 1)),
+        "host_cpu_count": os.cpu_count(),
+        "first_step": dp_compare(first["one"], first["ranks"], first["gap"]),
+        "first_step_tolerance_rel": DP_FIRST_TOL,
+        "first_step_grad_norms": [first["one"]["grad_norms"], first["ranks"][0]["grad_norms"]],
+        "run": dp_compare(one, ranks, run["gap"]), "run_tolerance_rel_loss": DP_TOL,
+        "state_gap": run["gap"],
+        "losses_one_process": one["losses"], "losses_two_ranks": lead["losses"],
+        "grad_norms_one_process": one["grad_norms"], "grad_norms_two_ranks": lead["grad_norms"],
+        "losses_equal_on_every_rank": all(r["losses"] == lead["losses"] for r in ranks),
+        "checksum_min": dp["checksum_min"], "checksum_max": dp["checksum_max"],
+        "params_bit_equal": dp["checksum_min"] == dp["checksum_max"],
+        "items_per_s_one_process": one["items_per_s"],
+        "items_per_s_two_ranks": lead["items_per_s"],
+        "wall_s_one_process": one["wall_s"], "wall_s_two_ranks": lead["wall_s"],
+        "grad_allreduce_ms_per_step_gloo_through_host": dp["grad_allreduce_ms_per_step"],
+        "grad_allreduce_calls": dp["grad_allreduce_calls"],
+        "grad_allreduce_bytes": dp["grad_allreduce_bytes"],
+        "busy_ranks": dp["busy_ranks"], "busy_one_process": one["busy_fraction"],
+        "lane_batches_ranks": composed, "lane_skew": max(composed) - min(composed),
+        "lane_h2d_mean_ms_ranks": [r["lane_h2d_mean_ms"] for r in ranks],
+        "lane_collate_mean_ms_ranks": [r["lane_collate_mean_ms"] for r in ranks],
+        "lane_h2d_mean_ms_one_process": one["lane_h2d_mean_ms"],
+        "launches_ranks": [r["launches"] for r in ranks], "launches_one_process": one["launches"],
+        "launches_first_step": [first["one"]["launches"]] + [r["launches"] for r in first["ranks"]],
+        "failures": bad, "wall_s": time.perf_counter() - t0,
+    }
+    emit(out)
+    if bad:
+        fail("main_dp (a): " + "; ".join(bad))
+    return out
+
+
+def nccl_check(smi: str) -> dict:
+    """(b) NCCL at world size 1 on the card after the same run with no
+    process group, in one process with deterministic algorithms: bit-equal
+    losses (the second run's batches come from blocks the first run freed);
+    the group's gradient all-reduce ran once a step."""
+    t0 = time.perf_counter()
+    rec, = dp_report([dp_child("nccl", [rendezvous_url(), *DP_NCCL_ARGS])], "nccl")
+    plain, group = rec["plain"], rec["group"]
+    dp = group["data_parallel"]
+    out = {"phase": "main_dp", "check": "b_nccl_world_one", "nvidia_smi": smi,
+           "args": DP_NCCL_ARGS, "backend": dp.get("backend"), "world_size": dp.get("world_size"),
+           "losses_no_group": plain["losses"], "losses_nccl": group["losses"],
+           "bit_equal": plain["losses"] == group["losses"],
+           "grad_allreduce_calls": dp.get("grad_allreduce_calls"),
+           "grad_allreduce_ms_per_step_nccl_one_rank": dp.get("grad_allreduce_ms_per_step"),
+           "items_per_s_no_group": plain["items_per_s"], "items_per_s_nccl": group["items_per_s"],
+           "launches": [plain["launches"], group["launches"]],
+           "lane_batches": [plain["lane_batches"], group["lane_batches"]],
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    if dp.get("backend") != "nccl" or dp.get("world_size") != 1:
+        fail(f"main_dp (b): the group was {dp}")
+    if plain["data_parallel"] or len(plain["losses"]) != DP_NCCL_STEPS:
+        fail(f"main_dp (b): the run without a group reported {plain['data_parallel']}, "
+             f"{len(plain['losses'])} steps")
+    if not out["bit_equal"] or not all(math.isfinite(x) for x in plain["losses"]):
+        fail(f"main_dp (b): NCCL losses {group['losses']} against {plain['losses']}")
+    if dp["grad_allreduce_calls"] != DP_NCCL_STEPS:
+        fail(f"main_dp (b): {dp['grad_allreduce_calls']} gradient all-reduces")
+    for r in (plain, group):
+        if r["launches"] == 0 or r["launches"] != r["lane_batches"]:
+            fail(f"main_dp (b): ingest_norm launched {r['launches']} times for "
+                 f"{r['lane_batches']} batches")
+    return out
+
+
+def phase_main_dp(torch, smi: str) -> dict:
+    """(a) two gloo ranks sharing the card against one process; (b) NCCL at
+    world size 1 against no process group."""
+    torch.cuda.empty_cache()
+    try:
+        a = two_ranks_check(smi)
+    finally:
+        for path in ROOT.glob("build/chip_smoke_dp_state_*.pt"):
+            path.unlink()
+    b = nccl_check(smi)
+    launches = {"two_ranks": a["launches_ranks"], "one_process": a["launches_one_process"],
+                "first_step": a["launches_first_step"], "nccl_world_one": b["launches"]}
+    return {"a": a, "b": b, "launches": launches,
+            "launches_total": (sum(a["launches_ranks"]) + a["launches_one_process"]
+                               + sum(a["launches_first_step"]) + sum(b["launches"]))}
+
+
 def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     import dataclasses
 
@@ -5037,6 +5412,7 @@ def main() -> int:
     cache_out = timed(torch, "main_cache", phase_main_cache, ops, main_out, smi)
     formats_out = timed(torch, "main_formats", phase_main_formats, ops, pipe_out, smi)
     resume_out = timed(torch, "main_resume", phase_main_resume, ops, smi)
+    dp_out = timed(torch, "main_dp", phase_main_dp, smi)
     lm_out = timed(torch, "main_lm", phase_main_lm, flash_ops, ops)
     timed(torch, "main_roofline", phase_main_roofline, ops, flash_ops, main_out, lm_out, flash,
           card, smi)
@@ -5073,6 +5449,8 @@ def main() -> int:
         "launches_formats_by_part": formats_out["launches"],
         "launches_resume": resume_out["launches_resume"],
         "launches_sharded": resume_out["launches_sharded"],
+        "launches_dp": dp_out["launches_total"],
+        "launches_dp_by_run": dp_out["launches"],
         "launches_serve": serve_out["launches"]["ingest_norm"],
         **family["ingest_norm"],
         "max_abs_err": kern["max_abs_err"],

@@ -21,14 +21,25 @@ batch back to the pipeline's completion queue as a
 :class:`~repro_torch.core.pipeline._Composed` token, so strict in-order
 delivery holds end to end.  Composing copies nothing.
 
-The batch's tensors are allocated by the lane thread on the device's
-default stream, the training step's, so the caching allocator never hands
-their blocks to a lane while the step reads them; a consumer on another
-stream marks them with ``record_stream`` (the device prefetch ring does).
+The batch's tensors are allocated on the stream of the lane that gets there
+first.  When the loader yields the batch (:meth:`ShardedAssembler.hand_off`)
+every tensor is ``record_stream``-ed on the current stream of the thread
+that takes it, so whatever that consumer does with it, the caching
+allocator hands the block back to the lanes only once the work that stream
+had queued when the batch was freed is done; a consumer that moves the
+batch on to other streams marks it there too (the device prefetch ring
+does, for its epilogue's stream and the training step's).  A block
+allocated on the training step's stream instead could come straight from
+the step's freed temporaries while its queued kernels still read them, and
+a lane's copy on its own stream would overwrite them.
 Lanes on one device write disjoint rows of one tensor there; one process
 cannot build one tensor across cards, so a plan whose lanes lie on
-distinct devices is refused (:meth:`LanePlan.compose_device`; ROADMAP §3).
-On the CPU the rows are plain copies.
+distinct devices of one process is refused (:meth:`LanePlan.compose_device`).
+A global batch that spans processes is composed one process a card: over
+a process group (:mod:`repro_torch.launch.dist`) whose world size is the
+plan's ``global_mult``, each rank composes its own rows on its own card,
+and the ranks' rows in rank order are the global batch (the data-parallel
+step reduces over them).  On the CPU the rows are plain copies.
 
 Multi-host alignment reuses the coord layer: each host publishes its cursor
 to a :class:`ShardCursorBoard` (an append log under the shared coord dir),
@@ -39,6 +50,7 @@ The module imports no torch at import (the loader builds a
 """
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -71,15 +83,18 @@ class LanePlan:
     A lane is one coordinate along ``axis`` restricted to this process's
     devices; its device list is every such device with that coordinate (the
     batch is replicated over the other axes).  A ``torch.device`` belongs to
-    process 0; a device object with a ``process_index`` (the reference
-    tests' fake meshes) belongs to that process."""
+    this process; a device object with a ``process_index`` (another rank's
+    element of a process mesh, or the reference tests' fake meshes) belongs
+    to that process."""
 
-    def __init__(self, mesh: Any, axis: str, lanes: List[List[Any]], host_rows: int) -> None:
+    def __init__(self, mesh: Any, axis: str, lanes: List[List[Any]], host_rows: int,
+                 process_index: int = 0) -> None:
         self.mesh = mesh
         self.axis = axis
         self.lanes = lanes
         self.num_lanes = len(lanes)
         self.host_rows = host_rows
+        self.process_index = process_index
         self.axis_size = int(mesh.shape[axis])
         # rows of the composed global batch per host row: a process-local
         # mesh composes exactly the host batch
@@ -99,10 +114,14 @@ class LanePlan:
                 f"delivery axis {spec.axis!r} is not a mesh axis {tuple(mesh.axis_names)}"
             )
         ax = list(mesh.axis_names).index(spec.axis)
-        pid = 0 if process_index is None else process_index
+        if process_index is None:
+            from repro_torch.launch import dist
+
+            process_index = dist.rank()
+        pid = process_index
         groups: Dict[int, List[Any]] = {}
         for coords, d in np.ndenumerate(mesh.devices):
-            if getattr(d, "process_index", 0) == pid:
+            if getattr(d, "process_index", pid) == pid:
                 groups.setdefault(int(coords[ax]), []).append(d)
         if not groups:
             raise ValueError("mesh has no devices addressable from this process")
@@ -119,7 +138,7 @@ class LanePlan:
                 f"{len(lanes)} local slices of mesh axis {spec.axis!r}; pick batch_size "
                 "so every lane gets an equal shard"
             )
-        return LanePlan(mesh, spec.axis, lanes, host_rows)
+        return LanePlan(mesh, spec.axis, lanes, host_rows, pid)
 
     def sharding_for(self, ndim: int) -> NamedSharding:
         """Batch-dim sharding over ``axis``, replicated elsewhere."""
@@ -129,18 +148,26 @@ class LanePlan:
         return host_rows * self.global_mult
 
     def compose_device(self) -> Any:
-        """The one device every lane writes its rows on.  Raises
-        ``ValueError`` for lanes on distinct devices or a global batch that
-        spans processes: composing one tensor across cards or hosts needs a
-        process group, which is open work (ROADMAP §3)."""
+        """The one device this process's lanes write their rows on.  Raises
+        ``ValueError`` for lanes on distinct devices of this process (one
+        process composes one tensor on one device: run one process a card),
+        and for a global batch that spans processes when no process group
+        of ``global_mult`` ranks is up to hold the other rows."""
         devices = {_device_key(d): d for lane in self.lanes for d in lane}
-        if len(devices) != 1 or self.global_mult != 1:
+        if len(devices) != 1:
             raise ValueError(
-                f"sharded delivery composes one tensor on one device; this plan's "
-                f"{self.num_lanes} lanes span {len(devices)} devices and "
-                f"{self.global_mult} processes.  Multi-card composition is open work "
-                "(ROADMAP §3, with item 4.7): use a mesh whose lanes share one device"
-            )
+                f"sharded delivery composes one tensor on one device a process; this plan's "
+                f"{self.num_lanes} lanes span {len(devices)} devices of one process: run one "
+                "process a card (repro_torch.launch.dist) or use a mesh whose lanes share "
+                "one device")
+        if self.global_mult != 1:
+            from repro_torch.launch import dist
+
+            if dist.world_size() != self.global_mult:
+                raise ValueError(
+                    f"this plan's global batch spans {self.global_mult} processes, but the "
+                    f"process group has {dist.world_size()} rank(s): start one process a card "
+                    "in a group of that size (repro_torch.launch.dist.init_process_group)")
         return next(iter(devices.values()))
 
 
@@ -192,7 +219,7 @@ class ShardedAssembler:
         self.device = torch.device(plan.compose_device())
         self._cuda = self.device.type == "cuda"
         # one CUDA stream a lane: lanes' copies overlap one another and the
-        # training step on the default stream
+        # training step's stream
         self._streams = ([torch.cuda.Stream(self.device) for _ in range(plan.num_lanes)]
                          if self._cuda else [None] * plan.num_lanes)
         # pinned staging (repro_torch.core.staging): each lane collates into
@@ -241,19 +268,33 @@ class ShardedAssembler:
             a.lane_slots[lane] = None  # the lane thread owns these now
             self._lane_qs[lane].put((batch_id, items))
 
+    def hand_off(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The composed ``batch``, each CUDA tensor marked as used by the
+        calling thread's current stream (the lanes allocated it on theirs);
+        called as the loader yields it."""
+        if self._cuda:
+            import torch
+
+            stream = torch.cuda.current_stream(self.device)
+            for t in batch.values():
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(stream)
+        return batch
+
     # -- lane threads ---------------------------------------------------------
-    def _outputs(self, a: _Assembly, sub: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """The batch's tensors, allocated by the first lane to get here (on
-        the current stream of a lane thread: the device's default one)."""
+    def _outputs(self, a: _Assembly, sub: Dict[str, np.ndarray], stream: Any) -> Dict[str, Any]:
+        """This process's rows of the batch (the whole batch in one process),
+        allocated by the first lane to get here, on that lane's stream."""
         import torch
 
         with self._lock:
             if a.out is None:
-                rows = self.plan.global_rows(a.host_rows)
-                a.out = {k: torch.empty((rows, *v.shape[1:]),
-                                        dtype=torch.from_numpy(v[:0]).dtype,
-                                        device=self.device)
-                         for k, v in sub.items()}
+                rows = a.host_rows
+                with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                    a.out = {k: torch.empty((rows, *v.shape[1:]),
+                                            dtype=torch.from_numpy(v[:0]).dtype,
+                                            device=self.device)
+                             for k, v in sub.items()}
             return a.out
 
     def _lane_main(self, lane: int) -> None:
@@ -278,7 +319,7 @@ class ShardedAssembler:
                 release_items(items)
                 with self._lock:
                     a = self._batches[batch_id]
-                out = self._outputs(a, sub)
+                out = self._outputs(a, sub, stream)
                 rows = slice(lane * a.per, (lane + 1) * a.per)
                 t1b = time.monotonic()
                 if self._cuda:

@@ -17,7 +17,7 @@ and it builds the multi-tenant :class:`~repro_torch.serve.readpath.ReadPath`.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.config import LoaderConfig, RunConfig, ServeSpec
 from repro_torch.core.loader import ConcurrentDataLoader
@@ -31,8 +31,8 @@ def make_loader(
     *,
     mesh: Any = None,
     tracer: Tracer = NULL_TRACER,
-    host_id: int = 0,
-    num_hosts: int = 1,
+    host_id: Optional[int] = None,
+    num_hosts: Optional[int] = None,
     collate_fn: Callable = collate,
     worker_startup_cost_s: float = 0.0,
 ) -> ConcurrentDataLoader:
@@ -44,8 +44,12 @@ def make_loader(
       sharded delivery, overriding anything the config gives.  With a
       ``RunConfig`` and no mesh anywhere, one is built from
       ``RunConfig.mesh`` by :func:`repro_torch.launch.mesh.make_mesh` (over
-      the visible CUDA devices; only when the delivery spec asks for
-      sharding, so host delivery never imports torch here).
+      the process group's ranks when one is up, else the visible CUDA
+      devices; only when the delivery spec asks for sharding, so host
+      delivery never imports torch here).
+    * ``host_id`` / ``num_hosts``: the slice of every global batch this
+      process loads; by default the process group's rank and world size
+      (host 0 of 1 without a group).
 
     Raises ``ValueError`` when sharded delivery is asked for and no mesh is
     resolvable, and ``TypeError`` for any other config."""

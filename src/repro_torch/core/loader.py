@@ -41,7 +41,10 @@ collate and copy each batch's rows to the card, so the loader yields device
 batches (:attr:`~ConcurrentDataLoader.delivers_device_batches`), its
 ``state_dict`` carries a lane-cursor block, and with
 ``AutotuneConfig.skew_gate`` the controller stops probing upward while the
-lanes diverge.
+lanes diverge.  Under a process group (one process a card) each rank loads,
+and composes, only its contiguous slice of every global batch
+(:func:`~repro_torch.core.sampler.shard_plan`): ``host_id`` and
+``num_hosts`` default to the group's rank and world size.
 """
 from __future__ import annotations
 
@@ -102,12 +105,21 @@ class ConcurrentDataLoader:
         dataset: MapDataset,
         cfg: LoaderConfig,
         *,
-        host_id: int = 0,
-        num_hosts: int = 1,
+        host_id: Optional[int] = None,
+        num_hosts: Optional[int] = None,
         collate_fn: Callable = collate,
         tracer: Tracer = NULL_TRACER,
         worker_startup_cost_s: float = 0.0,
     ) -> None:
+        if host_id is None and num_hosts is None:
+            # one process a card: under a process group this rank loads its
+            # contiguous slice of every global batch (host r of W); one host
+            # without a group
+            from repro_torch.launch import dist
+
+            host_id, num_hosts = dist.rank(), dist.world_size()
+        host_id = 0 if host_id is None else host_id
+        num_hosts = 1 if num_hosts is None else num_hosts
         pipe = cfg.pipeline
         if cfg.impl not in ("vanilla", "threaded", "asyncio"):
             raise ValueError(f"unknown loader impl {cfg.impl!r}")
@@ -178,10 +190,15 @@ class ConcurrentDataLoader:
                 )
             from repro_torch.core.delivery import LanePlan, ShardCursorBoard
 
-            self.delivery_plan = LanePlan.build(spec, cfg.batch_size // max(num_hosts, 1))
-            # the lanes write one tensor on one device: refuse any other
-            # plan here, not at the first iter()
-            self.delivery_plan.compose_device()
+            if cfg.batch_size % max(num_hosts, 1):
+                raise ValueError(
+                    f"global batch of {cfg.batch_size} rows does not split over "
+                    f"{num_hosts} hosts")
+            plan = LanePlan.build(spec, cfg.batch_size // max(num_hosts, 1))
+            self.delivery_plan = plan
+            # the lanes write one tensor on one device a process: refuse any
+            # other plan here, not at the first iter()
+            plan.compose_device()
             if spec.coord_dir:
                 self._cursor_board = ShardCursorBoard(spec.coord_dir, num_hosts=num_hosts)
         self.dataset = dataset
@@ -416,7 +433,11 @@ class ConcurrentDataLoader:
         wrote its rows), so each lane's cursor equals the consumer's;
         recording them lets a restart check the mesh slicing still matches,
         and is what the fleet board publishes per host.  With a board the
-        cursor is pinned to the fleet minimum."""
+        cursor is pinned to the fleet minimum.  Under a process group whose
+        ranks span the plan (one process a card) the block holds every
+        rank's lane, gathered in rank order: the block the reference's one
+        process writes for the same mesh.  That gather is a collective, so
+        every rank calls this at the same step."""
         state: Dict[str, Any] = {"epoch": int(epoch), "next_batch": int(next_batch)}
         plan = self.delivery_plan
         if plan is not None:
@@ -431,15 +452,22 @@ class ConcurrentDataLoader:
                     state["epoch"], state["next_batch"] = int(epoch), int(next_batch)
             from repro_torch.core.delivery import device_id
 
+            base = plan.process_index * plan.num_lanes
+            lanes = [{"lane": base + i, "next_batch": int(next_batch),
+                      "devices": [device_id(d) for d in devs]}
+                     for i, devs in enumerate(plan.lanes)]
+            if plan.global_mult > 1:
+                # one process a card: every rank's lanes, in rank order, are
+                # the block the reference's one process writes for the mesh
+                # (a collective: every rank calls this at the same step)
+                from repro_torch.launch import dist
+
+                lanes = [ln for part in dist.all_gather_object(lanes) for ln in part]
             state["delivery"] = {
                 "kind": "sharded",
                 "axis": plan.axis,
-                "num_lanes": plan.num_lanes,
-                "lanes": [
-                    {"lane": i, "next_batch": int(next_batch),
-                     "devices": [device_id(d) for d in devs]}
-                    for i, devs in enumerate(plan.lanes)
-                ],
+                "num_lanes": len(lanes),
+                "lanes": lanes,
             }
         return state
 
@@ -455,10 +483,11 @@ class ConcurrentDataLoader:
                     "loader delivers host batches; restore with "
                     "delivery=DeliverySpec.sharded(...)"
                 )
-            if int(delivery["num_lanes"]) != plan.num_lanes:
+            total = plan.num_lanes * plan.global_mult
+            if int(delivery["num_lanes"]) != total:
                 raise ValueError(
                     f"checkpoint has {delivery['num_lanes']} delivery lanes but the "
-                    f"current mesh slices into {plan.num_lanes}; lane cursors are only "
+                    f"current mesh slices into {total}; lane cursors are only "
                     "portable across identical data-axis slicings"
                 )
             lanes = delivery.get("lanes", [])

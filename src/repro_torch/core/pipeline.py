@@ -1721,7 +1721,7 @@ class _PipelineIter:
         if self._assembler is not None:
             # sharded delivery: the lanes already collated and copied every
             # row to the card; ``items`` is the composed device batch
-            batch = items
+            batch = self._assembler.hand_off(items)
         else:
             # absolute batch id, the coordinate space of the per-sample spans
             with self.tracer.span(

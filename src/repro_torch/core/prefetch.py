@@ -27,7 +27,7 @@ still reads it.
 batch to the card) turns the ring into pacing plus the epilogue: it copies
 nothing and records no ``batch_to_device`` span, ``ingest_fn`` still runs
 (on the side stream, each input tensor ``record_stream``-ed there since the
-lanes allocated it on the default stream), and a batch whose tensors are not
+lanes allocated it on their own streams), and a batch whose tensors are not
 on the ring's device raises instead of being copied.
 :attr:`DevicePrefetchRing.bytes_transferred` counts the host bytes the ring
 copied to the device.

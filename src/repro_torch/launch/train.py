@@ -20,6 +20,13 @@
         --resume
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-imagenet --device cpu \
         --device-ingest --items 32 --batch-size 8 --steps 6 --delivery sharded
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch resnet18-imagenet --device cpu --dist-backend gloo --delivery sharded \
+        --device-ingest --items 32 --batch-size 8 --steps 6 --optimizer sgd
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch resnet18-imagenet --full --device cuda:0 --dist-backend gloo \
+        --delivery sharded --device-ingest --items 1024 --batch-size 64 --steps 16 \
+        --optimizer sgd
 
 Wires the stack together: a synthetic dataset in an object store behind
 simulated S3 -> dataset -> ``make_loader`` (the paper's loader, or with
@@ -55,6 +62,22 @@ carry (the reference's launcher fails there with a ``KeyError``); it trains
 through ``train.steps.make_train_step``.
 ``--smoke`` (default) uses the reduced config; ``--full`` the real widths.
 ``--device`` defaults to ``cuda`` and raises when no card is present.
+
+Under torchrun (``WORLD_SIZE`` in the environment) the launcher trains data
+parallel, one process a card, in one process group
+(:mod:`repro_torch.launch.dist`; ``--dist-backend nccl`` (default) or
+``gloo``, rendezvous at ``--dist-init``, default ``env://``).  ``--device
+cuda`` is each rank's ``cuda:LOCAL_RANK``; ``--device cuda:0`` puts every
+rank on card 0 (over gloo: NCCL takes one rank a card).  The global
+``--batch-size`` is split over the ranks (it must divide); each rank
+loads its contiguous slice of every global batch, and with ``--delivery
+sharded`` the mesh is the group's, one lane a rank.  The step reduces
+gradients and metrics over the group and BatchNorm takes the global
+batch's statistics, so W ranks compute what the reference computes on a
+W-device mesh.  Rank 0 prints, and writes the checkpoint; its last lines
+add each rank's busy share, the gradient all-reduce's ms a step and
+whether every rank's parameters hold the same bits.  Without torchrun's
+environment the launcher runs in one process, as before.
 """
 from __future__ import annotations
 
@@ -84,6 +107,7 @@ from repro_torch.data.dataset import ImageDataset, MapDataset, TokenDataset, bui
 from repro_torch.data.imagenet_synth import build_synthetic_imagenet
 from repro_torch.data.store import InMemoryStore, build_store
 from repro_torch.device import resolve_device
+from repro_torch.launch import dist
 from repro_torch.train.steps import (
     init_resnet_train_state,
     init_train_state,
@@ -122,6 +146,10 @@ class RunReport:
     tuned: List[Dict[str, int]] = field(default_factory=list)
     # with --resume: the step the run restored (None: it started fresh)
     resumed_from: Optional[int] = None
+    # under a process group: rank, world_size, backend, each rank's busy
+    # share and composed batches, the gradient all-reduce's calls, ms a
+    # step and bytes, and the (min, max) of the ranks' parameter checksums
+    data_parallel: Dict[str, Any] = field(default_factory=dict)
 
 
 class EpochStages(Callback):
@@ -228,6 +256,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--optimizer", default="adamw",
                     help="adamw, adafactor or sgd (another name raises at make_optimizer)")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup-steps", type=int, default=TrainConfig.warmup_steps,
+                    help="steps of the learning rate's linear warmup")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compression", default="none", choices=["none", "bf16", "int8_ef"])
     ap.add_argument("--ckpt-dir", default="")
@@ -235,13 +265,57 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-backend", choices=list(dist.BACKENDS), default="nccl",
+                    help="process group backend under torchrun (one process a card)")
+    ap.add_argument("--dist-init", default="env://",
+                    help="process group rendezvous under torchrun: env:// or file://<path>")
     return ap.parse_args(argv)
 
 
 def run(argv: Optional[List[str]] = None) -> RunReport:
+    """Train as the flags say; under torchrun's environment, as one rank of a
+    data-parallel process group that this call starts and tears down."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    if not dist.env_world_size() or dist.is_initialized():
+        return _run(args, dist.device() or resolve_device(args.device))
+    device = dist.init_process_group(args.dist_backend, args.dist_init, args.device)
+    try:
+        return _run(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _say(*lines: str) -> None:
+    """Print on rank 0 (every process without a group)."""
+    if dist.rank() == 0:
+        for line in lines:
+            print(line, flush=True)
+
+
+def _data_parallel_report(trainer: Trainer, step_fn, util: UtilStats,
+                          stages: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """What a data-parallel run reports, gathered from every rank (each
+    gather is a collective: every rank calls this at the end)."""
+    reduce = step_fn.grad_reduce
+    composed = sum(ln["composed"] for st in stages
+                   for ln in (st.get("delivery") or {}).get("lanes", []))
+    lo, hi = dist.checksum_range({k: v for k, v in trainer.state.items() if k != "step"})
+    return {
+        "rank": dist.rank(), "world_size": dist.world_size(), "backend": dist.backend(),
+        "busy_ranks": dist.all_gather_object(util.busy_fraction),
+        "composed_ranks": dist.all_gather_object(composed),
+        "grad_allreduce_calls": reduce.calls,
+        "grad_allreduce_ms_per_step": 1e3 * reduce.seconds / max(reduce.calls, 1),
+        "grad_allreduce_bytes": reduce.bytes // max(reduce.calls, 1),
+        "checksum_min": lo, "checksum_max": hi,
+    }
+
+
+def _run(args: argparse.Namespace, device: torch.device) -> RunReport:
     cfg = get_arch(args.arch, smoke=args.smoke)
+    world = dist.world_size()
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not split over {world} ranks")
     if args.device_ingest and cfg.family != "resnet":
         raise SystemExit("--device-ingest requires an image (resnet) arch")
     if cfg.family == "encdec":
@@ -251,6 +325,7 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
             "batches that hold 'frames' (B, encoder_seq_len, frontend_dim or d_model) "
             "beside 'tokens' and 'targets'")
     tcfg = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
+                       warmup_steps=args.warmup_steps,
                        microbatches=args.microbatches,
                        grad_compression=args.grad_compression, total_steps=args.steps)
     tracer = Tracer()
@@ -258,11 +333,15 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
     if args.delivery == "sharded":
         from repro_torch.launch.mesh import make_mesh
 
-        # one lane per visible card along the delivery axis (one on the CPU)
-        lanes = [device] if device.type == "cpu" else None
-        n = 1 if device.type == "cpu" else torch.cuda.device_count()
-        delivery = DeliverySpec.sharded(make_mesh((n,), (args.delivery_axis,), lanes),
-                                        axis=args.delivery_axis)
+        if dist.is_initialized():
+            # the group's mesh: one lane a rank, each on its own device
+            mesh = make_mesh((world,), (args.delivery_axis,))
+        else:
+            # one lane per visible card along the delivery axis (one on the CPU)
+            lanes = [device] if device.type == "cpu" else None
+            n = 1 if device.type == "cpu" else torch.cuda.device_count()
+            mesh = make_mesh((n,), (args.delivery_axis,), lanes)
+        delivery = DeliverySpec.sharded(mesh, axis=args.delivery_axis)
     loader = make_loader(
         LoaderConfig(
             impl=args.loader, batch_size=args.batch_size, num_workers=args.workers,
@@ -293,8 +372,9 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
                                  device)
         step_fn = make_train_step(cfg, tcfg)
     n_params = sum(p.numel() for p in leaves(state["params"]))
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M loader={args.loader} "
-          f"pipeline={args.pipeline} store={args.store} device={device}", flush=True)
+    _say(f"arch={cfg.name} params={n_params/1e6:.1f}M loader={args.loader} "
+         f"pipeline={args.pipeline} store={args.store} device={device}"
+         + (f" ranks={world} backend={dist.backend()}" if dist.is_initialized() else ""))
 
     ingest_fn = None
     if args.device_ingest:
@@ -318,7 +398,7 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
         if "loader" in meta.get("extra", {}):
             loader.load_state_dict(meta["extra"]["loader"])
             start_epoch = loader.state_dict()["epoch"]
-        print(f"resumed from step {trainer.global_step}", flush=True)
+        _say(f"resumed from step {trainer.global_step}")
     t0 = time.monotonic()
     try:
         result = trainer.fit(loader, epochs=args.epochs, max_steps=args.steps,
@@ -332,24 +412,30 @@ def run(argv: Optional[List[str]] = None) -> RunReport:
     util = accelerator_stats(tracer, t0, t1)
     items_per_s = result.steps * args.batch_size / result.wall_s
     h2d = tracer.spans(BATCH_TO_DEVICE)
-    print(
+    dp = (_data_parallel_report(trainer, step_fn, util, stages.stats)
+          if dist.is_initialized() else {})
+    busy = (" busy_ranks=" + ",".join(f"{100 * b:.1f}%" for b in dp["busy_ranks"])
+            if dp else "")
+    _say(
         f"\nsteps={result.steps} wall={result.wall_s:.1f}s "
         f"items/s={items_per_s:.1f} "
-        f"loss={result.last_metrics.get('loss', float('nan')):.4f}"
-    )
-    print(
+        f"loss={result.last_metrics.get('loss', float('nan')):.4f}",
         f"accelerator: util_zero={util.util_zero_pct:.1f}% "
-        f"util_pos_avg={util.util_pos_avg:.1f}% busy={100 * util.busy_fraction:.1f}%",
-        flush=True,
+        f"util_pos_avg={util.util_pos_avg:.1f}% busy={100 * util.busy_fraction:.1f}%{busy}",
     )
+    if dp:
+        _say(f"data parallel: ranks={dp['world_size']} backend={dp['backend']} "
+             f"grad_allreduce_ms={dp['grad_allreduce_ms_per_step']:.2f} a step "
+             f"({dp['grad_allreduce_bytes']} bytes) "
+             f"params_equal={dp['checksum_min'] == dp['checksum_max']}")
     if stages.stats:
-        print(f"pipeline stages: {stages.stats[-1]}", flush=True)
+        _say(f"pipeline stages: {stages.stats[-1]}")
     if loader.autotuner is not None:
-        print(f"autotune: {len(loader.autotuner.events)} events, "
-              f"knobs {stages.tuned[-1] if stages.tuned else {}}", flush=True)
+        _say(f"autotune: {len(loader.autotuner.events)} events, "
+             f"knobs {stages.tuned[-1] if stages.tuned else {}}")
     return RunReport(cfg, result, util, tracer, trainer.state, items_per_s,
                      len(h2d), sum(s.duration for s in h2d), stages.stats,
-                     loader, stages.tuned, resumed_from)
+                     loader, stages.tuned, resumed_from, dp)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -151,6 +151,36 @@ def _route_gather(p: Params, xg: torch.Tensor, m: MoEConfig,
     return yg, aux
 
 
+def group_layout(n_tokens: int, group_size: int, dp: int = 1) -> Tuple[int, int]:
+    """(G, g): the routing groups :func:`apply_moe` cuts ``n_tokens`` into,
+    G of g tokens (zero rows pad the last when G * g > n_tokens)."""
+    gsz = min(group_size, n_tokens)
+    G = -(-n_tokens // gsz)
+    if G > 1 and dp > 1:
+        G = -(-G // dp) * dp  # round G up to a multiple of the DP extent
+    return G, -(-n_tokens // G)
+
+
+def check_rank_groups(cfg: ModelConfig, rows: int, seq_len: int, world: int) -> None:
+    """Data parallelism over ``world`` ranks, each routing ``rows`` sequences
+    of ``seq_len`` tokens a forward: the reference forms its routing groups
+    over the global batch's flattened tokens, so rank-local groups equal
+    them only when every global group is a whole group of one rank.  Raises
+    ``ValueError``, naming the shape, where a group would straddle ranks
+    (or pad), since the step would silently differ."""
+    m = cfg.moe
+    group_size = m.group_size or DEFAULT_GROUP_SIZE
+    n_local = rows * seq_len
+    G, gsz = group_layout(n_local * world, group_size, dp_extent())
+    G_local, gsz_local = group_layout(n_local, group_size, dp_extent())
+    if G * gsz != n_local * world or (G_local * world, gsz_local) != (G, gsz):
+        raise ValueError(
+            f"MoE routing groups straddle ranks: {world} ranks of {rows} x {seq_len} tokens "
+            f"({n_local} a rank) against the global batch's {G} groups of {gsz} tokens "
+            f"(group_size {group_size}); a rank's groups would be {G_local} of {gsz_local}.  "
+            "Pick a group_size that divides each rank's tokens a microbatch")
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
               group_size: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).  The B*S tokens are cut into G equal
@@ -163,12 +193,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     N = B * S
     flat = x.reshape(N, d)
-    R = dp_extent()
-    gsz = min(group_size, N)
-    G = -(-N // gsz)
-    if G > 1 and R > 1:
-        G = -(-G // R) * R  # round G up to a multiple of the DP extent
-    gsz = -(-N // G)
+    G, gsz = group_layout(N, group_size, dp_extent())
     if G * gsz != N:
         flat = torch.cat([flat, flat.new_zeros((G * gsz - N, d))])
     capacity = max(int(gsz * m.top_k / m.num_experts * CAPACITY_FACTOR), m.top_k)

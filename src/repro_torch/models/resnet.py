@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import dist
 
 Params = Dict[str, Any]
 BN_MOMENTUM = 0.9
@@ -47,19 +48,61 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     return F.conv2d(_pad_same(x, kh, kw, stride), w, stride=stride)
 
 
+class _GroupSum(torch.autograd.Function):
+    """A sum over the process group whose forward and backward are both an
+    all-reduce: each rank's loss reaches, through the global statistics,
+    the rows of every rank that made them."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return dist.all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return dist.all_reduce_(g.clone())
+
+
+def _global_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance of the global batch, each rank
+    holding its rows.  Each rank takes its rows' count, mean and sum of
+    squared deviations (two passes, as ``x.var`` does) into its own row of
+    a (world, 2C + 1) buffer of zeros; one all-reduce of that buffer gives
+    every rank every rank's moments, merged as Chan et al.'s parallel
+    variance: ``M2 = sum M2_r + sum n_r (mean_r - mean)^2``.  No difference
+    of two large sums, so the variance cannot cancel below zero."""
+    c = x.shape[1]
+    n = float(x.numel() // c)
+    mean_r = x.mean((0, 2, 3))
+    m2_r = (x - mean_r[None, :, None, None]).square().sum((0, 2, 3))
+    row = torch.cat([mean_r, m2_r, x.new_full((1,), n)])
+    slot = torch.zeros(dist.world_size(), 1, dtype=x.dtype, device=x.device)
+    slot[dist.rank()] = 1.0
+    moments = _GroupSum.apply(slot * row)  # (world, 2C + 1): every rank's row
+    means, m2s, counts = moments[:, :c], moments[:, c:2 * c], moments[:, 2 * c:]
+    total = counts.sum()
+    mean = (counts * means).sum(0) / total
+    m2 = m2s.sum(0) + (counts * (means - mean).square()).sum(0)
+    return mean, m2 / total
+
+
 def _bn(x: torch.Tensor, p: Params, s: Params, train: bool):
-    if train:
-        mean = x.mean((0, 2, 3))
-        # the reference keeps the *biased* batch variance, also in the running
-        # update; F.batch_norm would use the unbiased one there
-        var = x.var((0, 2, 3), correction=0)
+    if not train:
+        mean, var, new_s = s["mean"], s["var"], s
+    else:
+        if dist.world_size() > 1:
+            # data parallel: the global batch's statistics, as the
+            # reference's jit computes them over a batch sharded across
+            # devices (running statistics then update alike on every rank)
+            mean, var = _global_moments(x)
+        else:
+            mean = x.mean((0, 2, 3))
+            # the reference keeps the *biased* batch variance, also in the
+            # running update; F.batch_norm would use the unbiased one there
+            var = x.var((0, 2, 3), correction=0)
         new_s = {
             "mean": (BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * mean).detach(),
             "var": (BN_MOMENTUM * s["var"] + (1 - BN_MOMENTUM) * var).detach(),
         }
-    else:
-        mean, var = s["mean"], s["var"]
-        new_s = s
     inv = torch.rsqrt(var + 1e-5)
     y = (x - mean[None, :, None, None]) * inv[None, :, None, None]
     return y * p["scale"][None, :, None, None] + p["bias"][None, :, None, None], new_s

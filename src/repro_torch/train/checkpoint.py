@@ -11,7 +11,10 @@ restores into the other::
 
 * atomic: readers never see a partial checkpoint (tmp dir + ``os.replace``);
   :meth:`CheckpointManager.steps` ignores ``.tmp`` directories.
-* sharded: each host writes only its own leaves (one host here).
+* sharded: each host writes only its own leaves (one host here; under a
+  process group rank 0 writes ``arrays_h0.npz`` for every rank, as the
+  reference's one process does for all its devices, and every rank
+  restores from it).
 * keys: the ``/``-joined leaf paths of :func:`repro_torch.tree.flatten`.
 * layout: leaves are stored in the reference's layout.  A family whose port
   layout differs gives the manager its :class:`~repro_torch.convert.Layout`

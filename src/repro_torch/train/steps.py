@@ -22,15 +22,31 @@ For the LM, as in ``repro/train/steps.py``:
 ``attention_impl="pallas"`` is refused for training: the flash kernel is
 forward-only, as the reference's Pallas kernel is (``jax.grad`` through it
 fails).  ``make_eval_step`` computes the forward loss with it.
+
+Under a process group (:mod:`repro_torch.launch.dist`, one process a card,
+each rank holding its rows of the global batch) the steps are data
+parallel and compute what the reference's jit computes over a batch
+sharded across devices: after autograd (and the microbatches' sum) the
+gradients are flattened into one fp32 buffer, all-reduced once and
+divided by the world size (:class:`GradReduce`); *then* the compression
+round trip runs, on the global gradient, as the reference's does.  The
+metrics are group means, ``grad_norm`` the reduced gradient's norm; the
+ResNet's BatchNorm takes the global batch's statistics
+(:mod:`repro_torch.models.resnet`).  Every state constructor broadcasts
+rank 0's state to every rank.  An MoE batch whose routing groups would
+straddle ranks is refused before the step
+(:func:`repro_torch.models.moe.check_rank_groups`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Union
+import time
+from typing import Any, Callable, Dict, List, Sequence, Union
 
 import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
-from repro_torch.models import encdec, resnet, transformer
+from repro_torch.launch import dist
+from repro_torch.models import encdec, moe, resnet, transformer
 from repro_torch.train import compression
 from repro_torch.train.optim import global_norm, hwio_view, make_optimizer
 from repro_torch.tree import leaves
@@ -64,11 +80,62 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, generator: torch.Gener
 def lm_train_state(params: Any, tcfg: TrainConfig) -> Dict[str, Any]:
     """Train state around existing parameters (for example ones converted
     from the reference with :func:`repro_torch.convert.lm_params_from_jax`,
-    an LM's or an encoder-decoder's)."""
+    an LM's or an encoder-decoder's); rank 0's under a process group."""
     state = {"params": params, "opt": make_optimizer(tcfg).init(params), "step": 0}
     if tcfg.grad_compression == "int8_ef":
         state["ef"] = compression.init_error_feedback(params)
-    return state
+    return dist.broadcast_tree_(state)
+
+
+class GradReduce:
+    """The data-parallel gradient reduction: the gradients flattened into
+    one fp32 buffer, all-reduced once, divided by the world size and cut
+    back into their shapes.  The all-reduce alone is timed (under gloo with
+    its staging through the host): on the card between two CUDA events
+    that the step never waits for (a pair is read once it has completed,
+    and :attr:`seconds` waits for the last), on the CPU by the host's
+    clock.  ``calls``; ``bytes``, the buffer's."""
+
+    def __init__(self) -> None:
+        self.calls = 0
+        self.bytes = 0
+        self._seconds = 0.0
+        self._pending: List[Any] = []  # (start, end) CUDA events not yet read
+
+    def _read(self, wait: bool) -> None:
+        while self._pending and (wait or self._pending[0][1].query()):
+            start, end = self._pending.pop(0)
+            end.synchronize()
+            self._seconds += start.elapsed_time(end) / 1e3
+
+    @property
+    def seconds(self) -> float:
+        self._read(wait=True)
+        return self._seconds
+
+    def __call__(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        if flat.is_cuda:
+            self._read(wait=False)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            dist.all_reduce_(flat)
+            end.record()
+            self._pending.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            dist.all_reduce_(flat)
+            self._seconds += time.perf_counter() - t0
+        flat.div_(dist.world_size())
+        self.calls += 1
+        self.bytes += flat.numel() * flat.element_size()
+        return [part.view(g.shape).to(g.dtype)
+                for g, part in zip(grads, flat.split([g.numel() for g in grads]))]
+
+
+def _group_means(*metrics: torch.Tensor) -> List[torch.Tensor]:
+    """Scalar metrics averaged over the process group, in one all-reduce."""
+    return list(dist.group_mean([torch.stack([m.float() for m in metrics])])[0].unbind())
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
@@ -108,9 +175,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             a.div_(M)
         return gsum, lsum / M, asum / M
 
+    reduce = GradReduce()
+
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]
+        data_parallel = dist.is_initialized()
+        if data_parallel and cfg.moe is not None:
+            rows, seq = batch["tokens"].shape[:2]
+            moe.check_rank_groups(cfg, rows // M, seq, dist.world_size())
         grads, loss, aux = compute_grads(params, batch)
+        if data_parallel:
+            grads = reduce(grads)
+            loss, aux = _group_means(loss, aux)
         ef = leaves(state["ef"]) if "ef" in state else None
         grads, new_ef = compression.apply_compression(grads, ef, tcfg.grad_compression)
         if new_ef is not None:
@@ -122,6 +198,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         new_state = dict(state, step=state["step"] + 1)
         return new_state, {"loss": loss, "aux_loss": aux, "grad_norm": gnorm}
 
+    train_step.grad_reduce = reduce
     return train_step
 
 
@@ -144,24 +221,37 @@ def init_resnet_train_state(cfg: ModelConfig, tcfg: TrainConfig, generator: torc
     params, bn = resnet.init_resnet(cfg, generator, device)
     for p in leaves(params):
         p.requires_grad_(True)
-    return {
+    return resnet_train_state(params, bn, tcfg)
+
+
+def resnet_train_state(params: Any, bn: Any, tcfg: TrainConfig) -> Dict[str, Any]:
+    """ResNet train state around existing parameters and BatchNorm
+    statistics (for example :func:`repro_torch.convert.resnet_state_from_jax`'s);
+    rank 0's under a process group."""
+    return dist.broadcast_tree_({
         "params": params,
         "bn": bn,
         "opt": make_optimizer(tcfg, view=hwio_view).init(params),
         "step": 0,
-    }
+    })
 
 
 def make_resnet_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     opt = make_optimizer(tcfg, view=hwio_view)
+    reduce = GradReduce()
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]
         loss, (new_bn, acc) = resnet.resnet_loss(params, state["bn"], batch, cfg, train=True)
         grads = torch.autograd.grad(loss, leaves(params))
+        loss = loss.detach()
+        if dist.is_initialized():
+            grads = reduce(grads)
+            loss, acc = _group_means(loss, acc)
         gnorm = global_norm(grads)
         opt.update(grads, state["opt"], params, state["step"])
         new_state = dict(state, bn=new_bn, step=state["step"] + 1)
-        return new_state, {"loss": loss.detach(), "accuracy": acc, "grad_norm": gnorm}
+        return new_state, {"loss": loss, "accuracy": acc, "grad_norm": gnorm}
 
+    train_step.grad_reduce = reduce
     return train_step

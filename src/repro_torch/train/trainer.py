@@ -9,6 +9,11 @@ waits for the step's device work, so each ``run_training_batch`` span covers
 it.  :class:`CheckpointCallback` saves the train state every N steps
 through a :class:`~repro_torch.train.checkpoint.CheckpointManager`, with
 the loader cursor of the trainer's own step.
+
+Under a process group (one process a card, :mod:`repro_torch.launch.dist`)
+every rank runs the trainer on its rows; rank 0 alone logs and writes the
+checkpoint (``arrays_h0.npz``, as the reference's one process writes one
+file for all its devices) while every rank waits at a barrier.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from repro_torch.core.prefetch import DevicePrefetchRing
 from repro_torch.core.tracing import NULL_TRACER, RUN_TRAINING_BATCH, Tracer
 from repro_torch.core.utilization import recent_busy_fraction
 from repro_torch.device import resolve_device
+from repro_torch.launch import dist
 
 
 class Callback:
@@ -52,7 +58,8 @@ class LoggingCallback(Callback):
                 f"{k}={float(v):.4f}" for k, v in metrics.items()
             )
             self.lines.append(line)
-            self.sink(line)
+            if dist.rank() == 0:
+                self.sink(line)
 
 
 class CheckpointCallback(Callback):
@@ -67,7 +74,9 @@ class CheckpointCallback(Callback):
     also carries the loader's lane-cursor block, at the same position
     (:meth:`~repro_torch.core.loader.ConcurrentDataLoader.cursor_state`);
     the reference's callback keeps only ``epoch`` and ``next_batch``, which
-    is what a host-delivery loader gives here too."""
+    is what a host-delivery loader gives here too.  Under a process group
+    every rank computes the cursor (its lane block is gathered across the
+    ranks), rank 0 alone saves, and every rank waits at a barrier."""
 
     def __init__(self, manager, every_steps: int, loader=None, blocking: bool = False):
         self.manager = manager
@@ -84,8 +93,10 @@ class CheckpointCallback(Callback):
                 cursor = getattr(self.loader, "cursor_state", None)
                 extra = {"loader": cursor(epoch, next_batch) if callable(cursor)
                          else {"epoch": epoch, "next_batch": next_batch}}
-            self.manager.save(trainer.global_step, trainer.state, extra_meta=extra,
-                              blocking=self.blocking)
+            if dist.rank() == 0:
+                self.manager.save(trainer.global_step, trainer.state, extra_meta=extra,
+                                  blocking=self.blocking)
+            dist.barrier()
 
 
 @dataclass

@@ -39,6 +39,9 @@ from repro_torch.data.dataset import ImageDataset  # noqa: E402
 from repro_torch.data.imagenet_synth import SyntheticImageStore  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_dp_world as worlds  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -115,26 +118,74 @@ class TestLanePlan:
             LanePlan.build(DeliverySpec.sharded(mesh), 6, process_index=0)
 
 
-def test_lanes_on_distinct_devices_are_refused():
+SPAN_WORLD = r"""
+import json, sys, types
+import numpy as np
+from repro_torch.config import DeliverySpec, LoaderConfig, PipelineConfig
+from repro_torch.core.delivery import LanePlan
+from repro_torch.core.loader import ConcurrentDataLoader
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import make_mesh
+
+dist.init_process_group("gloo", sys.argv[1], "cpu", timeout_s=120)
+r = dist.rank()
+
+
+def fake(n):
+    devs = np.array([types.SimpleNamespace(id=i, process_index=i) for i in range(n)],
+                    dtype=object)
+    return types.SimpleNamespace(axis_names=("data",), shape={"data": n}, devices=devs)
+
+
+rec = {"fake_device": LanePlan.build(DeliverySpec.sharded(fake(2)), 4).compose_device().id}
+try:
+    LanePlan.build(DeliverySpec.sharded(fake(4)), 2).compose_device()
+except ValueError as e:
+    rec["four_in_two"] = str(e)
+loader = ConcurrentDataLoader(list(range(16)), LoaderConfig(
+    batch_size=8, pipeline=PipelineConfig(enabled=True),
+    delivery=DeliverySpec.sharded(make_mesh((2,), ("data",)))))
+plan = loader.delivery_plan
+rec.update(lanes=plan.num_lanes, global_mult=plan.global_mult, host_rows=plan.host_rows,
+           host=[loader.host_id, loader.num_hosts], device=str(plan.compose_device()))
+print(json.dumps(rec))
+dist.destroy_process_group()
+"""
+
+
+def test_lanes_on_distinct_devices_are_refused(tmp_path):
     """One process composes one tensor on one device: a plan whose lanes lie
-    on distinct devices (or whose global batch spans processes) is refused
-    at the loader's construction, naming the open work."""
+    on distinct devices of one process is refused at the loader's
+    construction.  A plan whose global batch spans processes is refused
+    without a process group, and accepted in a gloo world of that size, where
+    each rank composes its own rows (one lane, half the batch) on its own
+    device; a world of another size still refuses it."""
     from repro_torch.core.delivery import LanePlan
 
     distinct = _fake_mesh((4,), ("data",))
     plan = LanePlan.build(DeliverySpec.sharded(distinct), 8)
-    with pytest.raises(ValueError, match="Multi-card composition is open work"):
+    with pytest.raises(ValueError, match="span 4 devices of one process"):
         plan.compose_device()
     spanning = LanePlan.build(DeliverySpec.sharded(
-        _fake_mesh((8,), ("data",), process_of=lambda i: i // 4)), 8, process_index=0)
-    with pytest.raises(ValueError, match="ROADMAP"):
+        _fake_mesh((2,), ("data",), process_of=lambda i: i)), 4, process_index=0)
+    assert spanning.num_lanes == 1 and spanning.global_mult == 2
+    with pytest.raises(ValueError, match="spans 2 processes.*1 rank"):
         spanning.compose_device()
-    with pytest.raises(ValueError, match="Multi-card composition"):
+    with pytest.raises(ValueError, match="devices of one process"):
         ConcurrentDataLoader(list(range(16)), LoaderConfig(
             batch_size=8, pipeline=PipelineConfig(enabled=True),
             delivery=DeliverySpec.sharded(distinct)))
     shared = LanePlan.build(DeliverySpec.sharded(make_mesh((4,), ("data",), ["cpu"] * 4)), 8)
     assert shared.compose_device() == torch.device("cpu")
+
+    ranks = worlds.run_world(["-c", SPAN_WORLD, worlds.init_url(tmp_path)], 2, timeout_s=180)
+    for r, (rc, out, err) in enumerate(ranks):
+        assert rc == 0, err[-3000:]
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["fake_device"] == r
+        assert "spans 4 processes" in rec["four_in_two"] and "2 rank(s)" in rec["four_in_two"]
+        assert (rec["lanes"], rec["global_mult"], rec["host_rows"]) == (1, 2, 4)
+        assert rec["host"] == [r, 2] and rec["device"] == "cpu"
 
 
 # --------------------------------------------------------------------------

@@ -3,6 +3,10 @@ the CPU at smoke size, ResNet-18 and the granite-8b LM, each against the JAX
 trainer on the same synthetic store, loader settings, seed and initial
 weights."""
 import dataclasses
+import json
+import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,9 +31,13 @@ from repro_torch.config import register_arch, replace  # noqa: E402
 from repro_torch.configs import resnet18_imagenet  # noqa: E402
 from repro_torch.convert import resnet_state_from_jax, resnet_to_jax  # noqa: E402
 from repro_torch.core.tracing import BATCH_TO_DEVICE, RUN_TRAINING_BATCH  # noqa: E402
+from repro_torch.launch import dist  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models.resnet import init_resnet  # noqa: E402
 from repro_torch.train.optim import make_optimizer  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_dp_world as worlds  # noqa: E402
 
 # The smoke config's 10 classes read synthetic ImageNet's labels (0..999) as
 # NaN in both packages; with 1000 classes the loss is finite and comparable.
@@ -420,3 +428,103 @@ def test_resnet_checkpoint_from_the_launcher_is_the_references_layout(tmp_path):
     assert resumed.resumed_from == 3
     np.testing.assert_array_equal([h["loss"] for h in resumed.result.history],
                                   [h["loss"] for h in unbroken.result.history][3:])
+
+
+# --------------------------------------------------------------------------
+# data parallel under torchrun's environment (one process a rank, gloo)
+# --------------------------------------------------------------------------
+
+# the paper's path at smoke size on the CPU; the smoke head's 10 classes read
+# the labels as NaN (the losses are NaN in every run), so the runs are held
+# by their printed gradient norms, which the NaN rows do not reach
+DP_ARGS = ["--arch", "resnet18-imagenet", "--device", "cpu", "--items", "32", "--batch-size",
+           "8", "--steps", "4", "--latency", "0.001", "--avg-kb", "8", "--device-ingest",
+           "--optimizer", "sgd", "--lr", "0.05", "--workers", "2", "--fetchers", "2",
+           "--log-every", "1", "--delivery", "sharded"]
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _printed(out, key):
+    return {int(m.group(1)): m.group(2)
+            for m in re.finditer(rf"step=(\d+) .*?{key}=(\S+)", out)}
+
+
+def test_two_rank_gloo_launcher_prints_one_report(tmp_path):
+    """Two ranks of ``launch/train.py --delivery sharded`` over gloo on the
+    CPU: rank 0 alone prints, one report with both ranks' busy shares, the
+    ranks' parameters equal, the gradient norms of one process on the same
+    global batches; rank 0 alone writes each checkpoint (``arrays_h0.npz``),
+    its lane block holding both ranks' lanes."""
+    ckpt = tmp_path / "ckpt"
+    ranks = worlds.run_world(
+        ["-m", "repro_torch.launch.train", *DP_ARGS, "--dist-backend", "gloo",
+         "--dist-init", worlds.init_url(tmp_path), "--ckpt-dir", str(ckpt), "--ckpt-every", "2"],
+        2, timeout_s=240)
+    for rc, out, err in ranks:
+        assert rc == 0, err[-3000:]
+    out0, out1 = ranks[0][1], ranks[1][1]
+    assert out1.strip() == ""
+    assert out0.count("\nsteps=4 ") == 1 and out0.count("accelerator:") == 1
+    assert re.search(r"busy=\S+% busy_ranks=\S+%,\S+%", out0)
+    assert "data parallel: ranks=2 backend=gloo" in out0 and "params_equal=True" in out0
+    assert "ranks=2 backend=gloo" in out0.splitlines()[0]
+    single = launch.run(DP_ARGS)
+    want = {i + 1: f"{h['grad_norm']:.4f}" for i, h in enumerate(single.result.history)}
+    assert _printed(out0, "grad_norm") == want
+    assert set(_printed(out0, "loss").values()) == {"nan"}
+    for step in (2, 4):
+        d = ckpt / f"step_{step:08d}"
+        assert sorted(p.name for p in d.iterdir()) == ["arrays_h0.npz", "meta.json"]
+        block = json.loads((d / "meta.json").read_text())["extra"]["loader"]["delivery"]
+        assert block["num_lanes"] == 2 and [ln["next_batch"] for ln in block["lanes"]] == [
+            step % 4] * 2
+
+
+def test_nccl_with_two_ranks_on_one_card_raises_before_any_collective(tmp_path):
+    """NCCL allows one rank a card: two ranks naming ``cuda:0`` are refused
+    with the port's message, from the rendezvous store, before the process
+    group (and NCCL) start."""
+    ranks = worlds.run_world(
+        ["-m", "repro_torch.launch.train", *DP_ARGS[:4], "--device", "cuda:0",
+         "--dist-backend", "nccl", "--dist-init", worlds.init_url(tmp_path)], 2, timeout_s=120)
+    for rc, out, err in ranks:
+        assert rc != 0
+        assert "ranks [0, 1] resolve to one card" in err and "under backend 'nccl'" in err
+        assert "Duplicate GPU" not in err and "steps=" not in out
+
+
+def test_local_rank_beyond_the_visible_cards_raises(tmp_path, monkeypatch):
+    """``--device cuda`` is the rank's ``cuda:LOCAL_RANK``: a LOCAL_RANK
+    that is not a visible card raises (no fallback to another card or the
+    CPU), and no process group is left up."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count() + 1))
+    with pytest.raises(ValueError, match=r"LOCAL_RANK \d+ is not a visible card"):
+        launch.run(DP_ARGS[:4] + ["--device", "cuda", "--dist-backend", "gloo",
+                                  "--dist-init", worlds.init_url(tmp_path)])
+    assert not dist.is_initialized()
+
+
+def test_without_torchrun_env_the_flags_build_the_single_process_run(monkeypatch):
+    """Without torchrun's environment the launcher starts no process group:
+    the loader is the whole batch's (host 0 of 1), the mesh one lane on the
+    run's device, and the report carries no data-parallel figures."""
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    args = launch.parse_args([])
+    assert (args.dist_backend, args.dist_init) == ("nccl", "env://")
+    seen = {}
+    real = launch.make_loader
+
+    def spy(cfg, dataset, **kw):
+        seen.update(kw, mesh=cfg.delivery.mesh)
+        return real(cfg, dataset, **kw)
+
+    monkeypatch.setattr(launch, "make_loader", spy)
+    report = launch.run(DP_ARGS)
+    assert "host_id" not in seen and "num_hosts" not in seen
+    assert (report.loader.host_id, report.loader.num_hosts) == (0, 1)
+    assert [str(d) for d in seen["mesh"].devices.flat] == ["cpu"]
+    assert report.data_parallel == {} and not dist.is_initialized()
+    assert report.loader.delivery_plan.global_mult == 1

@@ -71,6 +71,23 @@ def test_the_source_scan_covers_the_dry_run():
         assert not _FORBIDDEN.findall((PORT / rel).read_text()), rel
 
 
+DATA_PARALLEL = ["launch/dist.py", "launch/mesh.py", "core/delivery.py", "core/loader.py",
+                 "models/resnet.py", "models/moe.py", "train/steps.py", "train/trainer.py",
+                 "launch/train.py"]
+
+
+def test_the_source_scan_covers_data_parallelism():
+    """The process group (``launch/dist.py``) and the modules data
+    parallelism runs through are scanned too, and import neither jax nor
+    repro; ``dist`` imports no torch either (the loader layer asks it for
+    the rank)."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert set(DATA_PARALLEL) <= scanned
+    for rel in DATA_PARALLEL:
+        assert not _FORBIDDEN.findall((PORT / rel).read_text()), rel
+    assert not re.search(r"^(import|from)\s+torch", (PORT / "launch/dist.py").read_text(), re.M)
+
+
 def test_the_source_scan_covers_checkpointing_and_delivery():
     """The scan above walks every source of the package; the modules of
     checkpointing, fault tolerance and sharded delivery, and the example
@@ -120,7 +137,8 @@ print(sorted(k for k in sys.modules if k == "repro" or k.startswith("repro.")))
                                     "repro_torch.launch.op_cost",
                                     "repro_torch.launch.specs",
                                     "repro_torch.launch.dryrun",
-                                    "repro_torch.kernels.cost"])
+                                    "repro_torch.kernels.cost",
+                                    "repro_torch.launch.dist"])
 def test_slice_module_imports_alone_without_jax_or_repro(module):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, str(ROOT / "src"), module],
@@ -147,7 +165,8 @@ print("torch" in sys.modules)
                                     "repro_torch.data.columnar", "repro_torch.data.shards",
                                     "repro_torch.core.delivery",
                                     "repro_torch.models.sharding",
-                                    "repro_torch.train.fault_tolerance"])
+                                    "repro_torch.train.fault_tolerance",
+                                    "repro_torch.launch.dist"])
 def test_loader_module_imports_without_torch(module):
     """A spawned CPU worker of the staged pipeline imports these modules
     (and unpickles the dataset), and a spawned elastic member or cache
