@@ -32,6 +32,10 @@ on the ring's device raises instead of being copied.
 :attr:`DevicePrefetchRing.bytes_transferred` counts the host bytes the ring
 copied to the device.
 
+The consumer's wait for the next batch on the ring's queue is one
+``ring_wait`` span, tagged with the batches handed out before it
+(:attr:`DevicePrefetchRing.handed_out`).
+
 ``depth`` is adjustable live (:meth:`set_depth`): the in-flight window is
 gated by an :class:`AdjustableSemaphore`.
 """
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fetcher import AdjustableSemaphore
-from repro_torch.core.tracing import BATCH_TO_DEVICE, NULL_TRACER, Tracer
+from repro_torch.core.tracing import BATCH_TO_DEVICE, NULL_TRACER, RING_WAIT, Tracer
 from repro_torch.device import resolve_device
 
 
@@ -78,6 +82,7 @@ class DevicePrefetchRing:
         # delivery); the ring paces them and runs the epilogue
         self.transfer = transfer
         self.bytes_transferred = 0
+        self.handed_out = 0
         self.tracer = tracer
         # on-device ingest epilogue: a batch -> batch callable (see
         # repro_torch.kernels.ingest_norm.ops.make_ingest_fn) applied after the put
@@ -190,12 +195,14 @@ class DevicePrefetchRing:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        item = self._q.get()
+        with self.tracer.span(RING_WAIT, handed=self.handed_out):
+            item = self._q.get()
         if isinstance(item, _End):
             raise StopIteration
         if isinstance(item, _Err):
             raise item.exc
         self._slots.release()
+        self.handed_out += 1
         dev, ready = item
         if ready is not None:
             consumer = torch.cuda.current_stream(self.device)

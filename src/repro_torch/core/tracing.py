@@ -3,10 +3,14 @@
 Records named spans (``get_batch``, ``get_item``, ``batch_to_device``,
 ``run_training_batch``, the cache tiers' ``cache_get`` and the staged
 pipeline's ``stage_*`` lanes, sharded delivery's ``lane_*`` and
-``stage_compose`` lanes, the read path's ``serve_get``) with
-wall-clock start/end and thread id, like the log-entry instrumentation in
-the paper, plus named monotonic counters
-(``bytes_copied``).  Exports Chrome ``trace_event`` JSON
+``stage_compose`` lanes, the read path's ``serve_get``, the trainer's
+``ring_wait`` and ``step_sync``) with wall-clock start/end and thread id,
+like the log-entry instrumentation in the paper, plus named monotonic
+counters (``bytes_copied``).  The train step's phases (``step_fwd_bwd``,
+``step_grad_reduce``, ``step_optimizer``) are device spans
+(:meth:`Tracer.device_span`): on a card, timed by CUDA events and mapped
+onto the same monotonic clock; the step reaches the tracer through the
+trainer's :func:`step_scope`.  Exports Chrome ``trace_event`` JSON
 (:meth:`Tracer.dump`) so the Fig. 1 lanes open in Perfetto, and feeds the
 Table-3 busy/idle statistics (:mod:`repro_torch.core.utilization`) and the
 autotuner's windowed views (:meth:`Tracer.recent_spans`,
@@ -19,7 +23,7 @@ import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, ContextManager, Dict, Iterator, List, Optional, Sequence
 
 # Canonical lane names (paper Fig. 1)
 GET_BATCH = "get_batch"
@@ -53,6 +57,19 @@ BYTES_COPIED = "bytes_copied"
 # shuffle-quality lane: one span per measurement window of the delivered
 # index stream, tagged with its within- and across-batch entropies
 SHUFFLE_ENTROPY = "shuffle_entropy"
+# the trainer's lanes: its wait on the device prefetch ring's queue (tagged
+# with the batches the ring had handed out), and the metrics' ``.item()``
+# read inside each run_training_batch span (tagged with the step)
+RING_WAIT = "ring_wait"
+STEP_SYNC = "step_sync"
+# the train step's phases, device spans tagged with the trainer's step: each
+# microbatch's forward, backward and gradient sum (tagged mb=i), the
+# data-parallel all-reduce with the metrics' group mean, and the optimizer
+# (compression, norms, clip, update).  They tile the step's device work.
+STEP_FWD_BWD = "step_fwd_bwd"
+STEP_GRAD_REDUCE = "step_grad_reduce"
+STEP_OPTIMIZER = "step_optimizer"
+STEP_PHASES = (STEP_FWD_BWD, STEP_GRAD_REDUCE, STEP_OPTIMIZER)
 
 
 @dataclass
@@ -68,6 +85,47 @@ class Span:
         return self.t1 - self.t0
 
 
+def _is_cuda(device: Any) -> bool:
+    return str(device).startswith("cuda")
+
+
+class EventPairs:
+    """Pairs of timing-enabled CUDA events recorded around device work on a
+    stream, each handed to ``on_done(start, end, *tag)`` once its end event
+    has completed.  :meth:`settle` asks each pair with ``query()`` and never
+    waits, unless ``wait``: the host never blocks on a pair it timed."""
+
+    def __init__(self, on_done: Callable[..., None]) -> None:
+        self._on_done = on_done
+        self._lock = threading.Lock()
+        self._pending: List[tuple] = []
+
+    @contextmanager
+    def around(self, stream: Any, *tag: Any) -> Iterator[None]:
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end.record(stream)
+            with self._lock:
+                self._pending.append((start, end, tag))
+
+    def settle(self, wait: bool = False) -> None:
+        done: List[tuple] = []
+        keep: List[tuple] = []
+        with self._lock:
+            for pair in self._pending:
+                (done if wait or pair[1].query() else keep).append(pair)
+            self._pending = keep
+        for start, end, tag in done:
+            end.synchronize()
+            self._on_done(start, end, *tag)
+
+
 class Tracer:
     """Thread-safe span recorder with bounded memory."""
 
@@ -78,6 +136,10 @@ class Tracer:
         self._dropped = 0
         self._counters: Dict[str, float] = {}
         self.t_start = time.monotonic()
+        self._pairs = EventPairs(self._record_device)
+        # (host monotonic time, CUDA event recorded then): maps the device's
+        # clock onto the host's; retaken after each step's sync (drift)
+        self._anchor: Optional[tuple] = None
 
     def count(self, name: str, n: float = 1) -> None:
         """Bump a named monotonic counter (e.g. :data:`BYTES_COPIED`)."""
@@ -119,7 +181,81 @@ class Tracer:
                 args.update(extra)
             self.record(name, t0, t1, **args)
 
+    @contextmanager
+    def device_span(self, name: str, device: Any = None,
+                    **args: Any) -> Iterator[Dict[str, Any]]:
+        """A span around the device work enqueued in its body.  On a card
+        (``device`` a CUDA device) a pair of timing-enabled CUDA events on
+        the device's current stream, resolved into an ordinary span on the
+        host's monotonic clock once the end event has completed (never
+        waited for; see :meth:`device_synced`), with ``args["clock"] =
+        "device"``, on its own lane.  Off a card a host span: CPU work is
+        synchronous, so it times the same work."""
+        if not _is_cuda(device):
+            with self.span(name, **args) as extra:
+                yield extra
+            return
+        import torch
+
+        self._pairs.settle()
+        stream = torch.cuda.current_stream(device)
+        if self._anchor is None:
+            torch.cuda.synchronize(device)
+            self._take_anchor(stream)
+            torch.cuda.synchronize(device)
+        extra: Dict[str, Any] = {}
+        with self._pairs.around(stream, name, args, extra, self._anchor,
+                                -1 - stream.device.index):
+            yield extra
+
+    def device_synced(self, device: Any) -> None:
+        """The host has just waited for ``device``'s current stream to
+        drain (the trainer's ``.item()``): resolve the completed device
+        spans and map the device's clock onto the host's again, which the
+        drain lets do without a synchronize.  The two clocks drift apart
+        by tens of ppm, milliseconds over a run.  Nothing before the first
+        device span, off a card, or if the stream is still busy."""
+        if self._anchor is None or not _is_cuda(device):
+            return
+        import torch
+
+        self._pairs.settle()
+        stream = torch.cuda.current_stream(device)
+        if stream.query():
+            self._take_anchor(stream)
+
+    # an anchor's event is recorded between two reads of the host's clock at
+    # most this far apart: another thread taking the GIL between a read and
+    # the record would put the device's clock that much late
+    _ANCHOR_BRACKET_S = 20e-6
+
+    def _take_anchor(self, stream: Any) -> None:
+        """Record an event on the idle ``stream`` between two reads of the
+        host's clock, again while they lie too far apart (a few tries): the
+        device stamps the event as it takes it, right after the record."""
+        import torch
+
+        best = None
+        for _ in range(8):
+            event = torch.cuda.Event(enable_timing=True)
+            t0 = time.monotonic()
+            event.record(stream)
+            t1 = time.monotonic()
+            if best is None or t1 - t0 < best[0]:
+                best = (t1 - t0, t1, event)
+            if t1 - t0 <= self._ANCHOR_BRACKET_S:
+                break
+        self._anchor = best[1:]
+
+    def _record_device(self, start: Any, end: Any, name: str, args: Dict[str, Any],
+                       extra: Dict[str, Any], anchor: tuple, tid: int) -> None:
+        t, event = anchor
+        self.record(name, t + event.elapsed_time(start) / 1e3,
+                    t + event.elapsed_time(end) / 1e3, tid=tid,
+                    **{**args, **extra, "clock": "device"})
+
     def spans(self, name: Optional[str] = None) -> List[Span]:
+        self._pairs.settle()
         with self._lock:
             out = list(self._spans)
         if name is not None:
@@ -155,6 +291,7 @@ class Tracer:
         return ds[n // 2] if n % 2 else 0.5 * (ds[n // 2 - 1] + ds[n // 2])
 
     def clear(self) -> None:
+        self._pairs.settle(wait=True)
         with self._lock:
             self._spans.clear()
             self._counters.clear()
@@ -186,10 +323,20 @@ class Tracer:
 
 
 class _NullTracer(Tracer):
-    """No-op tracer (default when profiling is off)."""
+    """No-op tracer (default when profiling is off): records nothing, reads
+    no clock and creates no CUDA event."""
 
     def __init__(self) -> None:
         super().__init__(max_spans=0)
+
+    @contextmanager
+    def span(self, name: str, **args: Any) -> Iterator[Dict[str, Any]]:
+        yield {}
+
+    @contextmanager
+    def device_span(self, name: str, device: Any = None,
+                    **args: Any) -> Iterator[Dict[str, Any]]:
+        yield {}
 
     def record(
         self, name: str, t0: float, t1: float, *,
@@ -202,6 +349,28 @@ class _NullTracer(Tracer):
 
 
 NULL_TRACER = _NullTracer()
+
+_scope = threading.local()
+
+
+@contextmanager
+def step_scope(tracer: Tracer, step: int, device: Any) -> Iterator[None]:
+    """Make ``tracer``, the trainer's step number and the step's device
+    current on this thread while a train step runs, so the step records its
+    phases (:func:`phase`) with no argument of its own."""
+    prev = getattr(_scope, "current", None)
+    _scope.current = (tracer, step, device)
+    try:
+        yield
+    finally:
+        _scope.current = prev
+
+
+def phase(name: str, **args: Any) -> ContextManager:
+    """The current step's device span ``name``, tagged with its ``step``
+    (:func:`step_scope`); outside a scope nothing, as under ``NULL_TRACER``."""
+    tracer, step, device = getattr(_scope, "current", None) or (NULL_TRACER, 0, None)
+    return tracer.device_span(name, device, step=step, **args)
 
 
 @dataclass(frozen=True)

@@ -1,15 +1,18 @@
 """Accelerator busy/idle accounting — the paper's Table-3 columns.
 
 The paper samples ``nvidia-smi`` at 10 Hz in a sidecar.  Here the same
-statistics come from the step-execution spans: a 100 ms window is "busy" by
-the fraction of it covered by ``run_training_batch`` spans (each span ends in
-a ``.item()`` read, so it covers the step's device work).
+statistics come from spans: a 100 ms window is "busy" by the fraction of it
+covered by the train step's device-clock phase spans (``step_fwd_bwd``,
+``step_grad_reduce``, ``step_optimizer``, recorded on a card), or where
+there are none by the ``run_training_batch`` spans (each ends in a
+``.item()`` read, so it covers the step's device work and the host's time
+around it).
 
 * ``util_zero_pct``  — % of windows with zero coverage  (GPU_util=0)
 * ``util_pos_avg``   — mean coverage % over non-zero windows (GPU_util>0)
 
-:func:`recent_busy_fraction` is the same coverage over a trailing window,
-the autotuner's utilization gate; :func:`available_cpu_count` seeds the
+:func:`recent_busy_fraction` is the trainer's step-span coverage over a
+trailing window, the autotuner's utilization gate; :func:`available_cpu_count` seeds the
 staged pipeline's io/cpu thread split.
 """
 from __future__ import annotations
@@ -19,7 +22,8 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
-from repro_torch.core.tracing import RUN_TRAINING_BATCH, Span, Tracer, union_duration
+from repro_torch.core.tracing import (RUN_TRAINING_BATCH, STEP_PHASES, Span, Tracer,
+                                      union_duration)
 
 
 def _parse_cgroup_quota() -> Optional[int]:
@@ -70,6 +74,14 @@ class UtilStats:
     wall_s: float
 
 
+@dataclass
+class AcceleratorStats(UtilStats):
+    """:class:`UtilStats` with the spans they were read from:
+    ``"device_phases"`` or ``"run_training_batch"``."""
+
+    source: str = RUN_TRAINING_BATCH
+
+
 def _coverage(spans: Sequence[Span], w0: float, w1: float) -> float:
     cov = 0.0
     for s in spans:
@@ -114,15 +126,27 @@ def sample_utilization(
     )
 
 
-def accelerator_stats(tracer: Tracer, t0: float, t1: float, hz: float = 10.0) -> UtilStats:
-    return sample_utilization(tracer.spans(RUN_TRAINING_BATCH), t0, t1, hz)
+def accelerator_stats(tracer: Tracer, t0: float, t1: float,
+                      hz: float = 10.0) -> AcceleratorStats:
+    """The Table-3 columns over ``[t0, t1]`` from the device-clock phase
+    spans where the tracer holds them (a step traced on a card), else from
+    the ``run_training_batch`` spans; ``source`` says which."""
+    phases = [s for s in tracer.spans()
+              if s.name in STEP_PHASES and s.args.get("clock") == "device"]
+    if phases:
+        return AcceleratorStats(**vars(sample_utilization(phases, t0, t1, hz)),
+                                source="device_phases")
+    return AcceleratorStats(**vars(sample_utilization(tracer.spans(RUN_TRAINING_BATCH),
+                                                      t0, t1, hz)))
 
 
 def recent_busy_fraction(
     tracer: Tracer, window_s: float = 2.0, now: Optional[float] = None
 ) -> Optional[float]:
     """Busy fraction over the trailing window, the live signal of the
-    autotuner's utilization gate (``AutotuneConfig.util_gate``).
+    autotuner's utilization gate (``AutotuneConfig.util_gate``): the
+    trainer's step-span coverage, host time around the step included,
+    which is what the gate asks (does the step leave the trainer idle?).
 
     The window is anchored at the END of the last completed training-step
     span, not at the wall clock: a now-anchored window read mid-step would

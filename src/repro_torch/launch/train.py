@@ -421,7 +421,8 @@ def _run(args: argparse.Namespace, device: torch.device) -> RunReport:
         f"items/s={items_per_s:.1f} "
         f"loss={result.last_metrics.get('loss', float('nan')):.4f}",
         f"accelerator: util_zero={util.util_zero_pct:.1f}% "
-        f"util_pos_avg={util.util_pos_avg:.1f}% busy={100 * util.busy_fraction:.1f}%{busy}",
+        f"util_pos_avg={util.util_pos_avg:.1f}% busy={100 * util.busy_fraction:.1f}%{busy} "
+        f"(spans read: {util.source})",
     )
     if dp:
         _say(f"data parallel: ranks={dp['world_size']} backend={dp['backend']} "

@@ -19,6 +19,12 @@ For the LM, as in ``repro/train/steps.py``:
   int8 with error feedback, whose state lives in ``state["ef"]``) before the
   optimizer.
 
+Under the trainer's tracing scope (:func:`repro_torch.core.tracing.step_scope`)
+a step records its phases as device spans tagged with the trainer's step:
+``step_fwd_bwd`` for each microbatch (``mb``), ``step_grad_reduce`` under a
+process group, ``step_optimizer``; every operation the step enqueues lies
+in one of them.
+
 ``attention_impl="pallas"`` is refused for training: the flash kernel is
 forward-only, as the reference's Pallas kernel is (``jax.grad`` through it
 fails).  ``make_eval_step`` computes the forward loss with it.
@@ -45,6 +51,8 @@ from typing import Any, Callable, Dict, List, Sequence, Union
 import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.core.tracing import (STEP_FWD_BWD, STEP_GRAD_REDUCE, STEP_OPTIMIZER, EventPairs,
+                                      phase)
 from repro_torch.launch import dist
 from repro_torch.models import encdec, moe, resnet, transformer
 from repro_torch.train import compression
@@ -92,36 +100,31 @@ class GradReduce:
     one fp32 buffer, all-reduced once, divided by the world size and cut
     back into their shapes.  The all-reduce alone is timed (under gloo with
     its staging through the host): on the card between two CUDA events
-    that the step never waits for (a pair is read once it has completed,
-    and :attr:`seconds` waits for the last), on the CPU by the host's
-    clock.  ``calls``; ``bytes``, the buffer's."""
+    that the step never waits for (:class:`~repro_torch.core.tracing.EventPairs`
+    reads a pair once it has completed; :attr:`seconds` waits for the
+    last), on the CPU by the host's clock.  ``calls``; ``bytes``, the
+    buffer's."""
 
     def __init__(self) -> None:
         self.calls = 0
         self.bytes = 0
         self._seconds = 0.0
-        self._pending: List[Any] = []  # (start, end) CUDA events not yet read
+        self._pairs = EventPairs(self._add)
 
-    def _read(self, wait: bool) -> None:
-        while self._pending and (wait or self._pending[0][1].query()):
-            start, end = self._pending.pop(0)
-            end.synchronize()
-            self._seconds += start.elapsed_time(end) / 1e3
+    def _add(self, start: Any, end: Any) -> None:
+        self._seconds += start.elapsed_time(end) / 1e3
 
     @property
     def seconds(self) -> float:
-        self._read(wait=True)
+        self._pairs.settle(wait=True)
         return self._seconds
 
     def __call__(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         flat = torch.cat([g.reshape(-1).float() for g in grads])
         if flat.is_cuda:
-            self._read(wait=False)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            dist.all_reduce_(flat)
-            end.record()
-            self._pending.append((start, end))
+            self._pairs.settle()
+            with self._pairs.around(torch.cuda.current_stream(flat.device)):
+                dist.all_reduce_(flat)
         else:
             t0 = time.perf_counter()
             dist.all_reduce_(flat)
@@ -156,24 +159,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     def compute_grads(tree: Any, batch: Dict[str, torch.Tensor]):
         params = leaves(tree)
         if M == 1:
-            return grads_of(params, tree, batch)
+            with phase(STEP_FWD_BWD, mb=0):
+                return grads_of(params, tree, batch)
         n = next(iter(batch.values())).shape[0]
         if n % M:
             raise ValueError(f"batch of {n} does not split into {M} microbatches")
         gsum = lsum = asum = None
         for i in range(M):
-            mb = {k: v[i * (n // M):(i + 1) * (n // M)] for k, v in batch.items()}
-            g, loss, aux = grads_of(params, tree, mb)
-            if gsum is None:
-                gsum, lsum, asum = [x.float() for x in g], loss, aux
-            else:
-                for a, x in zip(gsum, g):
-                    a.add_(x.float())
-                lsum, asum = lsum + loss, asum + aux
-            del g
-        for a in gsum:
-            a.div_(M)
-        return gsum, lsum / M, asum / M
+            # the last microbatch's phase holds the division by M too
+            with phase(STEP_FWD_BWD, mb=i):
+                mb = {k: v[i * (n // M):(i + 1) * (n // M)] for k, v in batch.items()}
+                g, loss, aux = grads_of(params, tree, mb)
+                if gsum is None:
+                    gsum, lsum, asum = [x.float() for x in g], loss, aux
+                else:
+                    for a, x in zip(gsum, g):
+                        a.add_(x.float())
+                    lsum, asum = lsum + loss, asum + aux
+                del g
+                if i == M - 1:
+                    for a in gsum:
+                        a.div_(M)
+                    lsum, asum = lsum / M, asum / M
+        return gsum, lsum, asum
 
     reduce = GradReduce()
 
@@ -185,16 +193,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             moe.check_rank_groups(cfg, rows // M, seq, dist.world_size())
         grads, loss, aux = compute_grads(params, batch)
         if data_parallel:
-            grads = reduce(grads)
-            loss, aux = _group_means(loss, aux)
-        ef = leaves(state["ef"]) if "ef" in state else None
-        grads, new_ef = compression.apply_compression(grads, ef, tcfg.grad_compression)
-        if new_ef is not None:
-            with torch.no_grad():
-                for e, n_ in zip(ef, new_ef):
-                    e.copy_(n_)
-        gnorm = global_norm(grads)
-        opt.update(grads, state["opt"], params, state["step"])
+            with phase(STEP_GRAD_REDUCE):
+                grads = reduce(grads)
+                loss, aux = _group_means(loss, aux)
+        with phase(STEP_OPTIMIZER):
+            ef = leaves(state["ef"]) if "ef" in state else None
+            grads, new_ef = compression.apply_compression(grads, ef, tcfg.grad_compression)
+            if new_ef is not None:
+                with torch.no_grad():
+                    for e, n_ in zip(ef, new_ef):
+                        e.copy_(n_)
+            gnorm = global_norm(grads)
+            opt.update(grads, state["opt"], params, state["step"])
         new_state = dict(state, step=state["step"] + 1)
         return new_state, {"loss": loss, "aux_loss": aux, "grad_norm": gnorm}
 
@@ -242,14 +252,17 @@ def make_resnet_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]
-        loss, (new_bn, acc) = resnet.resnet_loss(params, state["bn"], batch, cfg, train=True)
-        grads = torch.autograd.grad(loss, leaves(params))
-        loss = loss.detach()
+        with phase(STEP_FWD_BWD, mb=0):
+            loss, (new_bn, acc) = resnet.resnet_loss(params, state["bn"], batch, cfg, train=True)
+            grads = torch.autograd.grad(loss, leaves(params))
+            loss = loss.detach()
         if dist.is_initialized():
-            grads = reduce(grads)
-            loss, acc = _group_means(loss, acc)
-        gnorm = global_norm(grads)
-        opt.update(grads, state["opt"], params, state["step"])
+            with phase(STEP_GRAD_REDUCE):
+                grads = reduce(grads)
+                loss, acc = _group_means(loss, acc)
+        with phase(STEP_OPTIMIZER):
+            gnorm = global_norm(grads)
+            opt.update(grads, state["opt"], params, state["step"])
         new_state = dict(state, bn=new_bn, step=state["step"] + 1)
         return new_state, {"loss": loss, "accuracy": acc, "grad_norm": gnorm}
 

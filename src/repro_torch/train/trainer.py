@@ -6,9 +6,12 @@ frequency/cost).  Both share the train step, the ConcurrentDataLoader and the
 device prefetch ring, and record the paper's span lanes so Table-3 style
 stats come out of the same tracer.  Metrics are read with ``.item()``, which
 waits for the step's device work, so each ``run_training_batch`` span covers
-it.  :class:`CheckpointCallback` saves the train state every N steps
-through a :class:`~repro_torch.train.checkpoint.CheckpointManager`, with
-the loader cursor of the trainer's own step.
+it; the read is its ``step_sync`` span.  The step runs under a tracing
+scope (:func:`~repro_torch.core.tracing.step_scope`) that lends it the
+tracer and the step's number for its phase spans.
+:class:`CheckpointCallback` saves the train state every N steps through a
+:class:`~repro_torch.train.checkpoint.CheckpointManager`, with the loader
+cursor of the trainer's own step.
 
 Under a process group (one process a card, :mod:`repro_torch.launch.dist`)
 every rank runs the trainer on its rows; rank 0 alone logs and writes the
@@ -24,7 +27,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 from repro_torch.core.prefetch import DevicePrefetchRing
-from repro_torch.core.tracing import NULL_TRACER, RUN_TRAINING_BATCH, Tracer
+from repro_torch.core.tracing import (NULL_TRACER, RUN_TRAINING_BATCH, STEP_SYNC, Tracer,
+                                      step_scope)
 from repro_torch.core.utilization import recent_busy_fraction
 from repro_torch.device import resolve_device
 from repro_torch.launch import dist
@@ -110,6 +114,20 @@ class TrainResult:
 
 def _read_metrics(m: Dict[str, Any]) -> Dict[str, float]:
     return {k: v.item() if isinstance(v, torch.Tensor) else float(v) for k, v in m.items()}
+
+
+def _run_step(train_step: Callable, state: Any, batch: Any, tracer: Tracer, step: int,
+              device: torch.device):
+    """One step in its ``run_training_batch`` span: the step under the
+    tracing scope, then its metrics read in ``step_sync``.  The read drains
+    the device's stream, where the tracer maps the device clock anew."""
+    with tracer.span(RUN_TRAINING_BATCH, step=step):
+        with step_scope(tracer, step, device):
+            state, m = train_step(state, batch)
+        with tracer.span(STEP_SYNC, step=step):
+            m = _read_metrics(m)
+    tracer.device_synced(device)
+    return state, m
 
 
 def _make_ring(loader, depth: int, tracer: Tracer, ingest_fn, device) -> DevicePrefetchRing:
@@ -200,9 +218,8 @@ class Trainer:
             try:
                 for i, batch in enumerate(ring):
                     self._hook("on_train_batch_start", batch, i)
-                    with self.tracer.span(RUN_TRAINING_BATCH, step=self.global_step):
-                        self.state, m = self.train_step(self.state, batch)
-                        m = _read_metrics(m)
+                    self.state, m = _run_step(self.train_step, self.state, batch,
+                                              self.tracer, self.global_step, self.device)
                     self.global_step += 1
                     metrics = m
                     history.append(m)
@@ -250,9 +267,7 @@ def raw_train_loop(
         ring = _make_ring(loader, device_prefetch, tracer, ingest_fn, dev)
         try:
             for batch in ring:
-                with tracer.span(RUN_TRAINING_BATCH, step=steps):
-                    state, m = train_step(state, batch)
-                    metrics = _read_metrics(m)
+                state, metrics = _run_step(train_step, state, batch, tracer, steps, dev)
                 history.append(metrics)
                 steps += 1
                 if max_steps is not None and steps >= max_steps:

@@ -105,3 +105,59 @@ def test_trainer_and_raw_loop_agree():
     for a, b in zip(res.history, raw.history):
         assert a == pytest.approx(b, rel=1e-6)
     assert trainer.state["step"] == 3
+
+
+def _lm_run(tracer):
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = get_arch("granite-8b", smoke=True)
+    tcfg = TrainConfig(microbatches=2, **HPARAMS)
+    state = init_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab_size, (4, 17)).astype(np.int32)
+        batches.append({"tokens": toks[:, :-1].copy(), "targets": toks[:, 1:].copy()})
+    return Trainer(make_train_step(cfg, tcfg), state, tracer=tracer, device="cpu").fit(batches)
+
+
+def _resnet_run(tracer):
+    cfg = get_arch("resnet18-imagenet", smoke=True)
+    tcfg = TrainConfig(optimizer="sgd", **HPARAMS)
+    rng = np.random.default_rng(5)
+    batches = [{"image": rng.standard_normal((4, 3, 32, 32), dtype=np.float32),
+                "label": rng.integers(0, cfg.num_classes, 4).astype(np.int32)}
+               for _ in range(3)]
+    state = init_resnet_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    return Trainer(make_resnet_train_step(cfg, tcfg), state, tracer=tracer,
+                   device="cpu").fit(batches)
+
+
+@pytest.mark.parametrize("run, microbatches", [(_lm_run, 2), (_resnet_run, 1)],
+                         ids=["lm", "resnet"])
+def test_trainer_records_the_step_phases_in_order(run, microbatches):
+    """Each step: one ring_wait before its run_training_batch; inside it, in
+    order and apart, the microbatches' step_fwd_bwd (mb 0..M-1), one
+    step_optimizer and one step_sync at its end, all tagged with the
+    trainer's step.  The traced history equals the untraced one, bit for bit."""
+    from repro_torch.core import tracing
+
+    tr = tracing.Tracer()
+    res = run(tr)
+    assert res.history == run(tracing.NULL_TRACER).history
+    steps = sorted(tr.spans(tracing.RUN_TRAINING_BATCH), key=lambda s: s.t0)
+    waits = sorted(tr.spans(tracing.RING_WAIT), key=lambda s: s.t0)
+    assert [s.args["step"] for s in steps] == [0, 1, 2]
+    assert [w.args["handed"] for w in waits[:3]] == [0, 1, 2]
+    inner = (tracing.STEP_FWD_BWD, tracing.STEP_GRAD_REDUCE, tracing.STEP_OPTIMIZER,
+             tracing.STEP_SYNC)
+    for i, rtb in enumerate(steps):
+        before = [w for w in waits if w.t1 <= rtb.t0 and (i == 0 or w.t0 >= steps[i - 1].t1)]
+        assert len(before) == 1
+        got = sorted((s for s in tr.spans() if s.name in inner and s.args["step"] == i),
+                     key=lambda s: s.t0)
+        assert [(s.name, s.args.get("mb")) for s in got] == (
+            [(tracing.STEP_FWD_BWD, m) for m in range(microbatches)]
+            + [(tracing.STEP_OPTIMIZER, None), (tracing.STEP_SYNC, None)])
+        assert rtb.t0 <= got[0].t0 and got[-1].t1 <= rtb.t1
+        assert all(a.t1 <= b.t0 for a, b in zip(got, got[1:]))
