@@ -16,7 +16,11 @@ Phases, each printing one JSON line:
    resident blocks an SM), then ``flash_attention`` (each case naming its route,
    the bf16 tensor-core kernel or the CUDA-core one; the library yardstick
    ``scaled_dot_product_attention``, timed only; the fp32 CUDA-core kernel
-   timed at the path shape too).
+   timed at the path shape too), then ``flash_attention_bwd`` (the
+   training backward against its plain version at a train step's
+   microbatch and five more shapes, gated on each row; timed beside SDPA's
+   backward, the yardstick, and the forward with and without what training
+   stores).
 4. model   — one ResNet train step on the card against the same step on the
    CPU, from the same converted weights, TF32 off.
 5. model_lm — two AdamW steps of the granite-8b smoke decoder on the card
@@ -151,9 +155,12 @@ Phases, each printing one JSON line:
    deterministic algorithms on: bit-equal losses, one gradient all-reduce
    a step.
 7. main_lm — the LM path: full-width granite-8b (depth cut to 4 layers)
-   trained from simulated S3 through the launcher, then its forward loss
-   through ``make_eval_step`` with ``attention_impl="pallas"`` (the flash
-   kernel) over 4 loader batches against the plain attention's.
+   trained from simulated S3 through the launcher, its attention through
+   the flash kernel pair (gated: 16 forward and 8 backward launches a
+   step), then its forward loss through ``make_eval_step`` with
+   ``attention_impl="pallas"`` (the flash kernel) over 4 loader batches
+   against the plain attention's, called explicitly
+   (:func:`plain_attention`).
 7b. main_roofline — the dry run's op counter (``launch/op_cost.py``) on
    the main paths, on fake CPU tensors counted for the card
    (``kernels.cost.for_card``: no allocation, no launch), against the
@@ -220,12 +227,15 @@ Phases, each printing one JSON line:
    and serving peaks against the card's memory, finite logits, and pooled
    against batch-1 decode printed, not gated (its decode capacity of 4
    drops assignments a batch-1 decode keeps, as the reference's does),
-   beside the ticks where a live slot lost an assignment.  No kernel runs
-   on the MLA or MoE paths (no Pallas route in the reference's MLA or
-   MoE).
+   beside the ticks where a live slot lost an assignment.  MoE training
+   takes the flash pair on its causal self-attention (D = 64): gated, 128
+   forward and 64 backward launches (``flash_train_expected``); no other
+   kernel runs on the MLA or MoE paths (no Pallas route in the
+   reference's MLA or MoE, and MLA's head dims differ).
 14. main_hybrid — jamba-v0.1-52b: (t) trained through the launcher at its
    smoke widths (full width does not train on one card), main_lm's loader,
-   main_mla's 8 steps over 16 sequences, aux loss positive; (a) one full-width period (8 layers, 13.30
+   main_mla's 8 steps over 16 sequences, aux loss positive, no kernel
+   launched (its smoke attention, D = 16, is plain); (a) one full-width period (8 layers, 13.30
    B parameters) served through ``launch/serve.py`` at the reference
    launcher's defaults, main_serve's figures; (b) pooled against batch-1
    decode printed, not gated (decode capacity 2), beside the ticks where a
@@ -242,7 +252,9 @@ Phases, each printing one JSON line:
    1.60 B parameters): (t) 8 AdamW steps through ``make_train_step`` at
    batch 8 (frames (8, 1500, 1280), 448 text tokens a row, drawn on the
    card from a seed), the last under torch.profiler, gated on finite
-   losses, the last below the first and a held-out batch's loss falling;
+   losses, the last below the first and a held-out batch's loss falling,
+   and the decoder's causal self-attention through the flash pair: 512
+   forward and 256 backward launches, no other kernel;
    (k) ``make_eval_step`` with the flash kernel on the decoder's cacheless
    self-attention against the plain attention over 2 of those batches,
    flash launched 32 x 2 times and no other kernel, the losses within
@@ -278,6 +290,7 @@ nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -364,6 +377,17 @@ LM_REDUCED = {"num_layers": "36 -> 4 (AdamW state of 36 layers does not fit one 
               "items": "32 packed sequences of 4097 tokens", "steps": 16}
 # flash_attention at the LM path's shape: q (B,Hq,S,D), kv (B,Hkv,S,D), bf16, causal
 FLASH_Q, FLASH_KV = (LM_BS, 32, LM_SEQ, 128), (LM_BS, 8, LM_SEQ, 128)
+# its backward at the train step's microbatch (2 of main_lm's 2 microbatches)
+FLASH_BWD_Q, FLASH_BWD_KV = (LM_BS // 2, 32, LM_SEQ, 128), (LM_BS // 2, 8, LM_SEQ, 128)
+# what the training forward stores for the backward, held to the plain
+# attention in fp32: each row's log-sum-exp (absolute error, natural log) and
+# o + o_lo (each row's error over the larger of its norm and the median row
+# norm); the backward's own check takes both from the kernel, so these hold
+# them apart.  The kernel's lse read within 9.5e-7 (one ulp at 8) of the
+# plain one; the CPU emulation of the split-P tiles
+# (tests/test_torch_flash_attention.py ``_tiles_emulated``) puts o + o_lo
+# within 5e-6 of a row at S = 1024, where the bf16 o alone is 2.2e-3 off
+FLASH_TRAIN_LSE_LIMIT, FLASH_TRAIN_O_LIMIT = 1e-4, 1e-4
 
 # The RWKV path: rwkv6-7b at full width, depth cut to 4 of its 32 layers
 # (32 layers are 7.53 B parameters, about 120 GB with fp32 AdamW state),
@@ -3504,6 +3528,117 @@ def phase_main_dp(torch, smi: str) -> dict:
                                + sum(a["launches_first_step"]) + sum(b["launches"]))}
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The models' attention through ``_sdpa``'s own plain branch: with
+    ``ops.takes_training_route`` patched off, ``attention_impl="ref"`` takes
+    the plain attention on the card too, where causal self-attention in bf16
+    otherwise takes the kernels: the yardstick a flash pass is compared
+    with."""
+    from repro_torch.kernels.flash_attention import ops
+
+    saved, ops.takes_training_route = ops.takes_training_route, lambda *a: False
+    try:
+        yield
+    finally:
+        ops.takes_training_route = saved
+
+
+def phase_flash_bwd(torch, ops, ref, card) -> dict:
+    """The flash backward against its plain version at the train step's
+    microbatch, q (2,32,4096,128) and kv (2,8,4096,128), and at ragged, GQA,
+    D = 64 and D = 192 cases: each row's error over the larger of its norm
+    and the median row norm within the card test's gates
+    (``tests/test_torch_flash_attention_bwd.py``); in each case what the
+    training forward stores, lse and o + o_lo, against the plain attention
+    in fp32 (FLASH_TRAIN_LSE_LIMIT, FLASH_TRAIN_O_LIMIT).  Device times at the
+    microbatch shape: the kernel (its three launches), the plain version,
+    the forward with and without what training stores beside it, and, as
+    the yardstick only, ``scaled_dot_product_attention``'s backward."""
+    import torch.nn.functional as F
+
+    row_mean_limit, row_max_limit = 3e-3, 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(B, Hq, Hkv, S, D):
+        # the model's (B,S,H,D) projections, handed over as (B,H,S,D) views
+        q, do = (torch.randn(B, S, Hq, D, device="cuda", generator=gen).bfloat16().transpose(1, 2)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, D, device="cuda", generator=gen).bfloat16().transpose(1, 2)
+                for _ in range(2))
+        return q, k, v, do
+
+    def row_err(got, want):
+        norms = want.norm(dim=-1)
+        return (got.float() - want).norm(dim=-1) / torch.maximum(norms, norms.median())
+
+    def check(B, Hq, Hkv, S, D):
+        q, k, v, do = inputs(B, Hq, Hkv, S, D)
+        o, lse, o_lo = ops._forward(q, k, v, True, train=True)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo)
+        want = ref.attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                     o_lo=o_lo.float())
+        tf32, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, False
+        o_want, lse_want = ref.attention_ref(q.float(), k.float(), v.float(), True, with_lse=True)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.synchronize()
+        case = {"q": [B, Hq, S, D], "kv": [B, Hkv, S, D],
+                "lse_max_abs": (lse - lse_want).abs().max().item(),
+                "o_train_row_max": row_err(o.float() + o_lo.float(), o_want).max().item(),
+                "o_row_max": row_err(o, o_want).max().item()}
+        case["ok"] = (case["lse_max_abs"] <= FLASH_TRAIN_LSE_LIMIT
+                      and case["o_train_row_max"] <= FLASH_TRAIN_O_LIMIT)
+        del o_want, lse_want
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel = row_err(g, w)
+            case[name] = {"row_mean": rel.mean().item(), "row_max": rel.max().item(),
+                          "finite": bool(torch.isfinite(g.float()).all())}
+            case["ok"] &= (case[name]["finite"] and case[name]["row_mean"] <= row_mean_limit
+                           and case[name]["row_max"] <= row_max_limit)
+        if not case["ok"]:
+            emit({"phase": "kernels/flash_attention_bwd", "failed_case": case})
+            fail(f"flash_attention_bwd at q {case['q']}: {case}")
+        return case, (q, k, v, do, o, lse, o_lo)
+
+    cases = [check(*c)[0] for c in ((1, 4, 2, 1000, 128), (1, 2, 1, 200, 128), (2, 8, 2, 300, 64),
+                                     (1, 4, 2, 256, 192), (1, 3, 3, 130, 192))]
+    B, Hq, S, D = FLASH_BWD_Q
+    main_case, (q, k, v, do, o, lse, o_lo) = check(B, Hq, FLASH_BWD_KV[1], S, D)
+    cases.append(main_case)
+    kernel = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo)  # noqa: E731
+    plain = lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, o_lo=o_lo)  # noqa: E731
+    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    library = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,  # noqa: E731
+                                          retain_graph=True)
+    kernel_ms = device_ms(kernel, runs=10, per_run=2)
+    plain_ms = device_ms(plain, runs=3, per_run=1, warmup=1)
+    library_ms = device_ms(library, runs=10, per_run=2)
+    fwd_ms = device_ms(lambda: ops._forward(q, k, v, True), runs=10, per_run=4)
+    fwd_train_ms = device_ms(lambda: ops._forward(q, k, v, True, train=True), runs=10, per_run=4)
+    del ql, kl, vl, lib_out
+    bounds = kernel_bounds(card, ops.cost_bwd(FLASH_BWD_Q, FLASH_BWD_KV))
+    fwd_bounds = kernel_bounds(card, ops.cost(FLASH_BWD_Q, FLASH_BWD_KV, torch.bfloat16,
+                                              train=True))
+    lib = ops.build_backward()
+    out = {"phase": "kernels/flash_attention_bwd", "kernel": "flash_attention_bwd",
+           "q": list(FLASH_BWD_Q), "kv": list(FLASH_BWD_KV), "dtype": "bfloat16", "causal": True,
+           "row_mean_limit": row_mean_limit, "row_max_limit": row_max_limit,
+           "lse_limit": FLASH_TRAIN_LSE_LIMIT, "o_train_limit": FLASH_TRAIN_O_LIMIT, "cases": cases,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "torch.autograd.grad of scaled_dot_product_attention(q, k, v, "
+                           "is_causal=True, enable_gqa=True)",
+           "kernel_tflops": bounds["flops"] / kernel_ms / 1e9,
+           "fwd_ms": fwd_ms, "fwd_train_ms": fwd_train_ms,
+           "fwd_train_bound_ms": fwd_bounds["bound_ms"],
+           "ptxas": ptxas_summary(lib.log),
+           "dynamic_smem_bytes": {d: lib.lib.flash_attention_bwd_sm90_smem_bytes(d)
+                                  for d in ops.TENSOR_CORE_HEAD_DIMS},
+           **bounds, "peak_bf16_flops": card.peak_flops["bf16"] if card else None}
+    emit(out)
+    return out
+
+
 def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     import dataclasses
 
@@ -3524,9 +3659,17 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention_bwd.launches = 0
     ingest_ops.ingest_norm.launches = 0
     report = launch.run(LM_ARGS)
     train_peak = torch.cuda.max_memory_allocated()
+    # the step trains through the kernel pair: each layer's forward twice a
+    # microbatch (remat recomputes it) and its backward once
+    train_launches = {"flash_attention": flash_ops.flash_attention.launches,
+                      "flash_attention_bwd": flash_ops.flash_attention_bwd.launches}
+    microbatches = int(LM_ARGS[LM_ARGS.index("--microbatches") + 1])
+    train_expected = flash_train_expected(report.cfg, microbatches, report.result.steps)
+    flash_ops.flash_attention.launches = 0
     # the flash forward loss of the trained model on loader batches
     args = launch.parse_args(LM_ARGS)
     loader = ConcurrentDataLoader(
@@ -3545,7 +3688,8 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     flash_launches = flash_ops.flash_attention.launches
     ingest_launches = ingest_ops.ingest_norm.launches
     eval_ref = make_eval_step(report.cfg)
-    loss_ref = [eval_ref(params, b)["loss"].item() for b in batches]
+    with plain_attention():
+        loss_ref = [eval_ref(params, b)["loss"].item() for b in batches]
     peak = torch.cuda.max_memory_allocated()
 
     losses = [h["loss"] for h in report.result.history]
@@ -3577,6 +3721,7 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
         "eval_max_diff": max(diffs) if diffs else None, "eval_limit": 5e-3,
         "flash_attention_launches": flash_launches,
         "flash_attention_launches_expected": report.cfg.num_layers * len(batches),
+        "train_launches": train_launches, "train_launches_expected": train_expected,
         "flash_attention_route": flash_ops.route(
             getattr(torch, report.cfg.dtype), report.cfg.attention.head_dim),
         "ingest_norm_launches": ingest_launches,
@@ -3594,6 +3739,8 @@ def phase_main_lm(torch, flash_ops, ingest_ops) -> dict:
     if flash_launches != report.cfg.num_layers * LM_EVAL_BATCHES:
         fail(f"flash_attention launched {flash_launches} times, not "
              f"{report.cfg.num_layers} layers x {LM_EVAL_BATCHES} eval batches")
+    if train_launches != train_expected:
+        fail(f"the LM path trained through {train_launches} launches, not {train_expected}")
     return out
 
 
@@ -4541,6 +4688,34 @@ def phase_model_families(torch) -> dict:
     return out
 
 
+def flash_train_expected(cfg, microbatches: int, steps: int) -> dict:
+    """The flash pair's launches over ``steps`` train steps of ``cfg``: each
+    causal self-attention layer that takes the kernels (bf16 at a
+    tensor-core head dim, not MLA) launches the forward once a microbatch,
+    twice under remat (the checkpoint recomputes it), and the backward
+    once.  The encoder-decoder's decoder layers each hold one, its encoder
+    none (not causal); a hybrid holds one in each of its attention layers."""
+    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_HEAD_DIMS
+    from repro_torch.models.transformer import layer_kinds
+
+    a = cfg.attention
+    takes = cfg.dtype == "bfloat16" and a.kind != "mla" and a.head_dim in TENSOR_CORE_HEAD_DIMS
+    layers = cfg.num_layers if cfg.family == "encdec" else \
+        sum(mixer == "attn" for mixer, _ in layer_kinds(cfg))
+    per_step = layers * microbatches if takes else 0
+    return {"flash_attention": per_step * (2 if cfg.remat else 1) * steps,
+            "flash_attention_bwd": per_step * steps}
+
+
+def flash_train_gate(cfg, launches: dict, expected: dict) -> None:
+    """Fail unless a training run launched the flash pair ``expected``
+    times and no other counted kernel."""
+    if any(launches[name] != want for name, want in expected.items()) or \
+            any(v for name, v in launches.items() if name not in expected):
+        fail(f"the {cfg.name} training path launched {launches}, want {expected} and no "
+             f"other kernel")
+
+
 def train_family(torch, counted, base, train_arch: str, train_args: list, reduced: dict,
                  phase: str):
     """A family's LM path: ``base`` at full width, depth cut to
@@ -4548,8 +4723,9 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
     None, ``train_arch`` as registered), trained from simulated S3
     through the launcher with ``train_args``; every counted kernel's
     launches set to 0 just before the run and read just after.  Gated on
-    the steps and epochs, finite losses, parameters on the card and no
-    kernel launch.  Returns (report, figures)."""
+    the steps and epochs, finite losses, parameters on the card and the
+    flash pair's launches (:func:`flash_train_expected`), no other kernel's.
+    Returns (report, figures)."""
     import dataclasses
 
     from repro_torch.config import register_arch, replace
@@ -4573,6 +4749,8 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
     devices = sorted({str(p.device.type) for p in leaves(params)})
     ends = sorted(sp.t1 for sp in report.tracer.spans("run_training_batch"))
     steady = (len(ends) - 1) * LM_BS / (ends[-1] - ends[0]) if len(ends) > 1 else None
+    microbatches = int(train_args[train_args.index("--microbatches") + 1])
+    expected = flash_train_expected(cfg, microbatches, report.result.steps)
     out = {
         "phase": phase, "check": "train", "arch": cfg.name, "args": train_args,
         "reduced": reduced, "num_layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -4588,7 +4766,7 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
         "spans": span_stats(report.tracer),
         "busy_fraction": report.util.busy_fraction, "util_zero_pct": report.util.util_zero_pct,
         "max_memory_allocated_bytes": peak, "losses": losses, "aux_losses": aux,
-        "param_devices": devices, "launches": launches,
+        "param_devices": devices, "launches": launches, "launches_expected": expected,
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     }
     emit(out)
@@ -4599,8 +4777,7 @@ def train_family(torch, counted, base, train_arch: str, train_args: list, reduce
         fail(f"non-finite loss on the {cfg.name} path: {losses}, aux {aux}")
     if devices != ["cuda"]:
         fail(f"{cfg.name} params live on {devices}, not on cuda")
-    if any(launches.values()):
-        fail(f"a kernel launched on the {cfg.name} training path: {launches}")
+    flash_train_gate(cfg, launches, expected)
     return report, out
 
 
@@ -5063,8 +5240,9 @@ def encdec_train(torch, counted, cfg, smi: str):
     step's below the first's and a held-out batch's loss (``make_eval_step``)
     lower after the steps than before them (Adam's first update, every
     weight moved by the learning rate, raises the next step's loss at full
-    width), parameters on the card and no kernel launch (training takes
-    the plain attention).  Returns (state, batches, figures)."""
+    width), parameters on the card and the flash pair's launches (the
+    decoder's causal self-attention, :func:`flash_train_expected`), no other
+    kernel's.  Returns (state, batches, figures)."""
     from repro_torch.config import TrainConfig
     from repro_torch.tools.profile_lm_step import busy_ms, profiled
     from repro_torch.train.steps import init_train_state, make_eval_step, make_train_step
@@ -5102,6 +5280,7 @@ def encdec_train(torch, counted, cfg, smi: str):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in counted.items()}
+    expected = flash_train_expected(cfg, max(tcfg.microbatches, 1), len(losses))
     held_after = evaluate(state["params"], held_out)["loss"].item()
     steady = step_s[1:-1]  # after the first, before the profiled one
     busy = busy_ms(prof["intervals"])
@@ -5129,7 +5308,7 @@ def encdec_train(torch, counted, cfg, smi: str):
            "init_s": init_s, "init_peak_bytes": init_peak,
            "step_peak_bytes": torch.cuda.max_memory_allocated(),
            "device_total_bytes": torch.cuda.get_device_properties(0).total_memory,
-           "param_devices": devices, "launches": launches,
+           "param_devices": devices, "launches": launches, "launches_expected": expected,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, "nvidia_smi": smi}
     emit(out)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] \
@@ -5138,15 +5317,15 @@ def encdec_train(torch, counted, cfg, smi: str):
              f"{held_before} -> {held_after}")
     if devices != ["cuda"]:
         fail(f"{cfg.name} params live on {devices}, not on cuda")
-    if any(launches.values()):
-        fail(f"a kernel launched on the {cfg.name} training path: {launches}")
+    flash_train_gate(cfg, launches, expected)
     return state, batches, out
 
 
 def flash_eval(torch, counted, cfg, weights, batches, phase: str, layers: int, bound: float,
                **fields) -> dict:
     """``make_eval_step`` with ``attention_impl="pallas"`` against ``"ref"``
-    on ``weights`` over ``batches``; every counted kernel's launches set to 0 just before
+    through the plain attention (:func:`plain_attention`) on ``weights`` over
+    ``batches``; every counted kernel's launches set to 0 just before
     the flash pass and read just after.  Gated on finite losses within
     ``bound``, flash launched ``layers`` times a batch and no other kernel."""
     import dataclasses
@@ -5164,7 +5343,8 @@ def flash_eval(torch, counted, cfg, weights, batches, phase: str, layers: int, b
     flash_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
     t0 = time.perf_counter()
-    loss_ref = [eval_ref(weights, b)["loss"].item() for b in batches]
+    with plain_attention():
+        loss_ref = [eval_ref(weights, b)["loss"].item() for b in batches]
     ref_s = time.perf_counter() - t0
     diffs = [abs(a - b) for a, b in zip(loss_flash, loss_ref)]
     want = layers * len(batches)
@@ -5392,12 +5572,14 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
     build_all({"ingest_norm": ops.build, "flash_attention": flash_ops.build_cuda_core,
-               "flash_attention_sm90": flash_ops.build_tensor_core, "rwkv6_wkv": wkv_ops.build,
+               "flash_attention_sm90": flash_ops.build_tensor_core,
+               "flash_attention_bwd_sm90": flash_ops.build_backward, "rwkv6_wkv": wkv_ops.build,
                "rmsnorm": rms_ops.build})
 
     # 3.-10.
     kern = phase_kernels(torch, ops, ref, card)
     flash = phase_flash(torch, flash_ops, flash_ref, card)
+    flash_bwd = phase_flash_bwd(torch, flash_ops, flash_ref, card)
     wkv = phase_wkv(torch, wkv_ops, wkv_ref, card)
     rms = phase_rmsnorm(torch, rms_ops, rms_ref, card)
     torch.cuda.empty_cache()
@@ -5419,6 +5601,7 @@ def main() -> int:
     rwkv_out = timed(torch, "main_rwkv", phase_main_rwkv, wkv_ops, wkv_ref, rms_ops, ops,
                      flash_ops)
     counted = {"ingest_norm": ops.ingest_norm, "flash_attention": flash_ops.flash_attention,
+               "flash_attention_bwd": flash_ops.flash_attention_bwd,
                "rwkv6_wkv": wkv_ops.wkv, "rmsnorm": rms_ops.rmsnorm}
     serve_out = timed(torch, "main_serve", phase_main_serve, counted, smi)
     mla_out = timed(torch, "main_mla", phase_main_mla, counted, smi)
@@ -5467,6 +5650,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
         "launches": lm_out["flash_attention_launches"],
+        "launches_train": lm_out["train_launches"]["flash_attention"],
         "launches_serve": serve_out["launches"]["flash_attention"],
         **family["flash_attention"],
         "max_abs_err": flash["max_abs_err"],
@@ -5481,6 +5665,20 @@ def main() -> int:
         "encdec_shape": {k: encdec_out["flash_shape"][k] for k in (
             "shape", "route", "max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")},
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_sm90.cu",
+        "replaces": None,
+        "launches_train": lm_out["train_launches"]["flash_attention_bwd"],
+        "launches_serve": serve_out["launches"]["flash_attention_bwd"],
+        **family["flash_attention_bwd"],
+        "ms": flash_bwd["kernel_ms"],
+        "kernel_ms": flash_bwd["kernel_ms"],
+        "plain_ms": flash_bwd["plain_ms"],
+        "bound_ms": flash_bwd["bound_ms"],
+        "bound_by": flash_bwd["bound_by"],
+        "library_ms": flash_bwd["library_ms"],
     }, {
         "name": "rwkv6_wkv",
         "route": "cuda",

@@ -70,6 +70,11 @@ STEP_FWD_BWD = "step_fwd_bwd"
 STEP_GRAD_REDUCE = "step_grad_reduce"
 STEP_OPTIMIZER = "step_optimizer"
 STEP_PHASES = (STEP_FWD_BWD, STEP_GRAD_REDUCE, STEP_OPTIMIZER)
+# counters the model's attention dispatch (models/layers.py ``_sdpa``) bumps
+# on the step's tracer (:func:`count`): a call through the hand-written
+# kernels, or through the plain attention
+ATTENTION_KERNEL_CALLS = "attention_kernel_calls"
+ATTENTION_PLAIN_CALLS = "attention_plain_calls"
 
 
 @dataclass
@@ -351,19 +356,40 @@ class _NullTracer(Tracer):
 NULL_TRACER = _NullTracer()
 
 _scope = threading.local()
+_open_scopes: List[tuple] = []  # every thread's open step scopes
+_open_lock = threading.Lock()
 
 
 @contextmanager
 def step_scope(tracer: Tracer, step: int, device: Any) -> Iterator[None]:
     """Make ``tracer``, the trainer's step number and the step's device
     current on this thread while a train step runs, so the step records its
-    phases (:func:`phase`) with no argument of its own."""
+    phases (:func:`phase`) and counts (:func:`count`) with no argument of
+    its own."""
     prev = getattr(_scope, "current", None)
-    _scope.current = (tracer, step, device)
+    entry = (tracer, step, device)
+    _scope.current = entry
+    with _open_lock:
+        _open_scopes.append(entry)
     try:
         yield
     finally:
         _scope.current = prev
+        with _open_lock:
+            _open_scopes.remove(entry)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Bump counter ``name`` on the current step's tracer.  A thread with no
+    scope of its own (autograd's device threads, which run the backward and
+    the recomputed forward of checkpointed blocks) counts on the process's
+    one open scope; with none open, or several, nothing is counted."""
+    cur = getattr(_scope, "current", None)
+    if cur is None:
+        with _open_lock:
+            cur = _open_scopes[0] if len(_open_scopes) == 1 else None
+    if cur is not None:
+        cur[0].count(name, n)
 
 
 def phase(name: str, **args: Any) -> ContextManager:

@@ -4,8 +4,9 @@ Route: ``nvcc`` by hand into a ``.so`` with a plain C interface, loaded with
 ``ctypes`` (seconds to build, where a source including PyTorch's headers
 takes minutes).  The build runs at first use, never at import, into
 ``kernels/_build/`` beside the sources (listed in ``.gitignore``).  The
-library's file name carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+library's file name carries a hash of the source, the headers beside it
+and the flags, so an edited source or header is rebuilt and a stale library
+is never loaded.
 """
 from __future__ import annotations
 
@@ -64,7 +65,9 @@ def load_cuda_library(name: str, source: Path) -> Built:
 
 def _build(name: str, source: Path) -> Built:
     flags = ARCH_FLAGS + NVCC_FLAGS
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    # the source, the headers beside it (which it may include) and the flags
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""

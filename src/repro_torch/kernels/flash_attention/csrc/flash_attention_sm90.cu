@@ -61,6 +61,13 @@
 //    160 KB.  At D = 192, BK = 64: Q 48 KB + 2 x (24 + 24 KB) = 144 KB (128
 //    keys would need 240 KB, over the 227 KB a block may have).
 //  * Causal: key tiles wholly above the diagonal are never loaded.
+//  * For training, the wrapper asks for each row's log-sum-exp (fp32, one
+//    store a row by the quad's first lane), from which the backward
+//    (flash_attention_bwd_sm90.cu) recomputes P, and for what the output's
+//    bf16 rounding lost (o - bf16(o), bf16), so the backward's rowsum(dO o)
+//    is taken on o to about 2^-16 (on the rounded o alone it moved a few
+//    rows of dq by several % of their size); eval calls pass no buffer and
+//    store nothing more.
 //
 // Where it departs from the TPU's grid (BQ = BK = 128, a sequential kv axis
 // revisiting one output block in VMEM):
@@ -78,24 +85,14 @@
 //
 // The kernel runs on the caller's stream and allocates nothing; the C entry
 // point returns cudaGetLastError() after the launch.
-#include <cuda.h>  // CUtensorMap and its enums: types only, no driver library linked
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;
 constexpr int BQ = 128;        // q rows a block: two consumer warpgroups of 64
 constexpr int STAGES = 2;      // K/V ring depth
 constexpr int CONSUMERS = 2;   // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int SPAN = 128;      // bytes of a swizzled box row: 64 bf16
-constexpr int DB = SPAN / 2;   // columns a box
-constexpr int SW128 = 1;       // wgmma descriptor layout type of the 128-byte swizzle
-constexpr int TMAP_ERROR = 100000;     // + CUresult: the driver refused a tensor map
-constexpr int NO_ENTRY_POINT = 200000; // cuTensorMapEncodeTiled not found
 
 template <int D>
 struct Geo {
@@ -113,223 +110,11 @@ struct Args {
   int Hq, Hkv, S, T, causal;
   float scale_log2;       // 1/sqrt(D) (rounded once, as the TPU kernel's) * log2(e)
   long long so[3];        // element strides of o's (batch, head, position)
+  float* lse;             // optional: each row's log-sum-exp, at lse[(b * Hq + h) * ls + row]
+  long long ls;
+  __nv_bfloat16* olo;     // optional: what o's bf16 rounding lost, laid out as o
   signed char pos[3][3];  // q, k, v: the map dimension (of the outer three) of rows, heads, batch
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the barrier's phase of parity `parity` has completed (a fresh
-// barrier counts its phase of parity 1 as completed).  A wait of more than
-// 2^33 clocks (seconds) can only be a fault of the ring: it traps, so the
-// launch fails at the next synchronisation instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > (1LL << 33)) __trap();
-}
-
-// One box of a 4-D tensor map (D, then rows, heads and batch in the order
-// pos gives) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         const signed char* pos, int row, int head, int batch) {
-  int c[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) c[i] = pos[0] == i ? row : pos[1] == i ? head : batch;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c[0]), "r"(c[1]), "r"(c[2]),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (in 16-byte units), the 128-byte swizzle in bits 62-63.
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)SW128 << 62);
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma uses across the points where it starts and ends.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(d[i][r])::"memory");
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem, K-major)^T;
-// overwrites d when `accumulate` is 0.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) * B (128 x 16, smem, K-major)^T;
-// overwrites d when `accumulate` is 0.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major: transpose-B)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major: transpose-B)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 192, fp32) += A (64 x 16, registers) * B (16 x 192, smem, MN-major: transpose-B)
-__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -517,60 +302,32 @@ __global__ void __launch_bounds__(THREADS, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, d);
     }
     const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
-    __nv_bfloat16* ob = a.o + b * a.so[0] + h * a.so[1];
+    if (a.lse != nullptr && (lane & 3) == 0) {
+      // ln sum_k exp(q.k / sqrt(D)) = (m c + log2 l) ln 2, what the backward
+      // recomputes P from
+      float* lb = a.lse + (long long)(b * a.Hq + h) * a.ls;
+      if (row0 < a.S) lb[row0] = (m0 * a.scale_log2 + log2f(den0)) * 0.69314718055994531f;
+      if (row0 + 8 < a.S) lb[row0 + 8] = (m1 * a.scale_log2 + log2f(den1)) * 0.69314718055994531f;
+    }
+    const long long base = b * a.so[0] + h * a.so[1];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      if (row0 < a.S)
-        *reinterpret_cast<uint32_t*>(ob + row0 * a.so[2] + 8 * j + col) =
-            pack_bf16(o[4 * j] / den0, o[4 * j + 1] / den0);
-      if (row0 + 8 < a.S)
-        *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * a.so[2] + 8 * j + col) =
-            pack_bf16(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {  // rows row0 and row0 + 8
+        const int row = row0 + 8 * u;
+        if (row >= a.S) continue;
+        const float den = u ? den1 : den0;
+        const float x0 = o[4 * j + 2 * u] / den, x1 = o[4 * j + 2 * u + 1] / den;
+        const long long at = base + row * a.so[2] + 8 * j + col;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        *reinterpret_cast<__nv_bfloat162*>(a.o + at) = hi;
+        if (a.olo != nullptr) {
+          const float2 hf = __bfloat1622float2(hi);
+          *reinterpret_cast<uint32_t*>(a.olo + at) = pack_bf16(x0 - hf.x, x1 - hf.y);
+        }
+      }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over a bf16 (B,H,L,D) view.  g: the map's dimensions (D, then
-// rows, heads and batch in the wrapper's stride order), its 3 outer byte
-// strides and the places of rows, heads and batch among the outer three.
-// A box is 64 columns by `rows` rows, with the 128-byte swizzle.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* g, int rows,
-           signed char* pos) {
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)DB, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)g[i];
-  for (int i = 0; i < 3; ++i) {
-    strides[i] = (cuuint64_t)g[4 + i];
-    pos[i] = (signed char)g[7 + i];
-  }
-  box[1 + pos[0]] = (cuuint32_t)rows;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + (int)r;
 }
 
 template <int D>
@@ -600,19 +357,26 @@ extern "C" {
 // dimensions (the wrapper orders them by stride; strides are multiples of
 // 16 and bases 16-byte aligned).  `ostrides` are o's element strides
 // (batch, head, position), o bf16 (B,Hq,S,D) with the last dimension
-// contiguous.  Launches on `stream`; returns 0, the cudaError_t of the
+// contiguous.  For the backward, when not null: `olo` (bf16, o's strides)
+// takes what o's bf16 rounding lost, o - bf16(o), and `lse` each row's
+// log-sum-exp of its scaled scores (fp32, row s of head (b, h) at
+// lse[(b * Hq + h) * lse_stride + s]).  Launches on `stream`; returns 0, the cudaError_t of the
 // launch, or a code >= 100000 when a tensor map cannot be made.  The caller
 // checks what the kernel assumes: Hq a multiple of Hkv, S <= T when causal,
 // ceil(S/128) <= 65535.
 int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B, int Hq,
                              int Hkv, int S, int T, int D, const long long* maps,
-                             const long long* ostrides, int causal, void* stream) {
+                             const long long* ostrides, void* olo, float* lse,
+                             long long lse_stride, int causal, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || T < 1) return (int)cudaErrorInvalidValue;
   Args a;
   a.o = static_cast<__nv_bfloat16*>(o);
   a.Hq = Hq; a.Hkv = Hkv; a.S = S; a.T = T; a.causal = causal;
   a.scale_log2 = (float)(1.0 / sqrt((double)D)) * 1.4426950408889634f;
   for (int i = 0; i < 3; ++i) a.so[i] = ostrides[i];
+  a.lse = lse;
+  a.ls = lse_stride;
+  a.olo = static_cast<__nv_bfloat16*>(olo);
   const void* ptrs[3] = {q, k, v};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {

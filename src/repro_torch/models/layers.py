@@ -8,11 +8,15 @@ parameters are fp32 and the compute dtype is ``cfg.dtype`` (bf16): every
 einsum runs in the compute dtype, norms and the softmax in fp32, masked
 scores are ``-1e30``.
 
-Attention dispatch (``_sdpa``) follows ``layers.py:167-191``:
-``attention_impl="pallas"`` takes the hand-written flash kernel
-(:mod:`repro_torch.kernels.flash_attention`) for causal self-attention with
-no cache and ``S == T``; otherwise q lengths of 4096 and more (multiples of
-1024) take the q-chunked ``_sdpa_chunked``, and shorter ones ``_sdpa_dense``.
+Attention dispatch (``_sdpa``): causal self-attention with no cache and
+``S == T`` on the card, in bf16 at a tensor-core head dim, takes the
+hand-written flash kernels (:mod:`repro_torch.kernels.flash_attention`), a
+forward and a backward joined by an autograd Function, under either
+``attention_impl``; ``attention_impl="pallas"`` also takes the forward-only
+kernel wherever the reference's ``layers.py:167-191`` would (fp32, D <= 32,
+CPU tensors through its plain version); otherwise q lengths of 4096 and
+more (multiples of 1024) take the q-chunked ``_sdpa_chunked``, and shorter
+ones ``_sdpa_dense``.
 ``apply_attention`` has the reference's self-attention KV-cache branch
 (prefill and decode, with per-slot positions) and its ``kv_source``
 (cross-attention) branch, which no model calls: the encoder-decoder's
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import tracing
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -207,17 +212,29 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
           q_offset: Offset, kv_len: Optional[Offset] = None, impl: str = "ref") -> torch.Tensor:
-    """Dispatch as ``layers.py:167-191``: the flash kernel only for causal
-    self-attention with no cache (``kv_len is None``) and ``S == T``, so
-    prefill and decode, which attend over a cache, never take it."""
-    S = q.shape[1]
-    if impl == "pallas" and kv_len is None and causal and S == k.shape[1]:
-        from repro_torch.kernels.flash_attention.ops import flash_attention
+    """Dispatch: the flash kernels only for causal self-attention with no
+    cache (``kv_len is None``) and ``S == T``, so prefill and decode, which
+    attend over a cache, never take them.  Under either ``impl``, such a
+    call whose q lies on the card (or stands for it), in bf16 at a
+    tensor-core head dim with k and v alike and ``q_offset`` 0, takes the
+    differentiable kernel pair (:func:`~repro_torch.kernels.flash_attention.ops.attention`);
+    otherwise ``impl == "pallas"`` takes the forward-only wrapper, as
+    ``layers.py:167-191`` does, and the rest the plain attention.  Each
+    call bumps ``attention_kernel_calls`` or ``attention_plain_calls`` on
+    the step's tracer."""
+    from repro_torch.kernels.flash_attention import ops
 
+    S = q.shape[1]
+    if kv_len is None and causal and S == k.shape[1]:  # q_offset is a host int here
         B, _, Hkv, G, D = q.shape
         qf = q.reshape(B, S, Hkv * G, D).transpose(1, 2)  # (B,Hq,S,D), a view
-        out = flash_attention(qf, k.transpose(1, 2), v.transpose(1, 2), causal=True)
-        return out.transpose(1, 2).reshape(B, S, Hkv, G, D)
+        kf, vf = k.transpose(1, 2), v.transpose(1, 2)
+        trains = q_offset == 0 and ops.takes_training_route(qf, kf, vf)
+        if trains or impl == "pallas":
+            tracing.count(tracing.ATTENTION_KERNEL_CALLS)
+            out = ops.attention(qf, kf, vf) if trains else ops.flash_attention(qf, kf, vf)
+            return out.transpose(1, 2).reshape(B, S, Hkv, G, D)
+    tracing.count(tracing.ATTENTION_PLAIN_CALLS)
     if S >= CHUNKED_SDPA_THRESHOLD and S % 1024 == 0:
         return _sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
     return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)

@@ -14,12 +14,14 @@ batch already on the card and no loader, and prints JSON lines:
 * ``profile``: ``torch.profiler`` over two steps: device time by
   kernel category and the top kernels, and the device's busy share of the
   profiled wall time (the union of kernel intervals over the window);
-* ``attention``: the plain attention the step trains through (``_sdpa`` on
-  one microbatch's q, k, v), alone: the device time of its forward and of
-  its forward + backward, and its kernels by the same categories.  Under
-  remat a step runs, per microbatch and layer, one forward and one forward
-  + backward of it, so scaled by microbatches x layers these say how much
-  of the step, and of each category, the attention takes (granite);
+* ``attention``: the attention the step trains through (``_sdpa`` on one
+  microbatch's q, k, v, on the route it takes there: on the card the flash
+  kernel pair, ``route`` says which), alone: the device time of its forward
+  and of its forward + backward, and its kernels by the same categories.
+  Under remat a step runs, per microbatch and layer, one forward and one
+  forward + backward of it, so scaled by microbatches x layers these say
+  how much of the step, and of each category, the attention takes
+  (granite);
 * ``rwkv_scan``: the same for the plain chunked WKV scan the RWKV step
   trains through (``wkv_scan_chunked`` on one microbatch's r, k, v, w).
 
@@ -138,6 +140,7 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models.layers import _sdpa
     from repro_torch.models.rwkv6 import wkv_scan_chunked
     from repro_torch.models.transformer import forward_train
@@ -246,8 +249,8 @@ def main(argv=None) -> int:
                   runs_per_step=runs)
         return 0
 
-    # the plain attention alone, on one microbatch's q, k, v as the model
-    # hands them to _sdpa: q (b,S,Hkv,G,D), k, v (b,S,Hkv,D), bf16
+    # the attention alone, on one microbatch's q, k, v as the model hands
+    # them to _sdpa: q (b,S,Hkv,G,D), k, v (b,S,Hkv,D), bf16
     a = cfg.attention
     shapes = [(b, S, a.num_kv_heads, a.q_heads_per_kv, a.head_dim),
               (b, S, a.num_kv_heads, a.head_dim),
@@ -264,9 +267,13 @@ def main(argv=None) -> int:
         out = _sdpa(q, k, v, causal=True, q_offset=0)
         torch.autograd.grad(out, (q, k, v), g_out)
 
+    kernels = flash_ops.takes_training_route(
+        q.flatten(2, 3).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    route = ("flash_attention + flash_attention_bwd" if kernels
+             else "_sdpa_chunked" if S >= 4096 else "_sdpa_dense")
     component(torch, "attention", attn_fwd, attn_fwd_bwd, per_step, step_ms, step_cats,
-              q=list(shapes[0]), kv=list(shapes[1]), dtype="bfloat16",
-              route="_sdpa_chunked" if S >= 4096 else "_sdpa_dense", runs_per_step=runs)
+              q=list(shapes[0]), kv=list(shapes[1]), dtype="bfloat16", route=route,
+              runs_per_step=runs)
     return 0
 
 

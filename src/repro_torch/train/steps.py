@@ -25,9 +25,12 @@ a step records its phases as device spans tagged with the trainer's step:
 process group, ``step_optimizer``; every operation the step enqueues lies
 in one of them.
 
-``attention_impl="pallas"`` is refused for training: the flash kernel is
-forward-only, as the reference's Pallas kernel is (``jax.grad`` through it
-fails).  ``make_eval_step`` computes the forward loss with it.
+``attention_impl="pallas"`` is refused for training, as the reference's
+Pallas kernel is forward-only (``jax.grad`` through it fails);
+``make_eval_step`` computes the forward loss with it.  Training with
+``"ref"`` on the card still reaches the flash kernels: causal
+self-attention in bf16 there takes the forward and backward kernel pair
+(``models/layers.py`` ``_sdpa``).
 
 Under a process group (:mod:`repro_torch.launch.dist`, one process a card,
 each rank holding its rows of the global batch) the steps are data
@@ -144,9 +147,9 @@ def _group_means(*metrics: torch.Tensor) -> List[torch.Tensor]:
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     if cfg.attention_impl == "pallas":
         raise ValueError(
-            "attention_impl='pallas' is forward-only (the flash kernel has no backward, "
-            "as the reference's Pallas kernel has no VJP): train with 'ref' and use "
-            "make_eval_step for the flash forward loss")
+            "attention_impl='pallas' is forward-only (the reference's Pallas kernel has "
+            "no VJP): train with 'ref', which on the card takes the flash kernel pair, "
+            "and use make_eval_step for the flash forward loss")
     opt = make_optimizer(tcfg)
     loss_fn = loss_fn_for(cfg)
     M = max(tcfg.microbatches, 1)
